@@ -9,5 +9,6 @@ from .core import (  # noqa: F401
     BA_POSE_FIXED_X,
     build_problem,
     bundle_adjust,
+    bundle_adjust_async,
     pose_refinement,
 )

@@ -208,21 +208,39 @@ def matmul_cols(Aflat, Bflat, m, k, n):
     return _cols(acc)
 
 
+def matvec(A, x):
+    """Per-row A @ x: A (O, m, k), x (O, k) -> (O, m), summed over k in order."""
+    acc = A[:, :, 0] * x[:, 0, None]
+    for kk in range(1, A.shape[2]):
+        acc = acc + A[:, :, kk] * x[:, kk, None]
+    return acc
+
+
+def matTvec(A, x):
+    """Per-row A^T @ x: A (O, m, k), x (O, m) -> (O, k), summed over m in order."""
+    acc = A[:, 0, :] * x[:, 0, None]
+    for i in range(1, A.shape[1]):
+        acc = acc + A[:, i, :] * x[:, i, None]
+    return acc
+
+
 def matvec_cols(Aflat, x, m, k):
     """(m,k) flat columns @ (k,) column list -> m columns."""
-    A = stack_cols(Aflat).reshape(-1, m, k)
-    acc = A[:, :, 0] * x[0][:, None]
-    for kk in range(1, k):
-        acc = acc + A[:, :, kk] * x[kk][:, None]
-    return _cols(acc)
+    return _cols(matvec(stack_cols(Aflat).reshape(-1, m, k), stack_cols(x)))
 
 
 def matTvec_cols(Aflat, x, m, k):
     """(m,k)^T flat columns @ (m,) columns -> k columns."""
+    return _cols(matTvec(stack_cols(Aflat).reshape(-1, m, k), stack_cols(x)))
+
+
+def abt_cols(Aflat, Bflat, m, k, n):
+    """(m,k) @ (n,k)^T -> (m,n) flat columns."""
     A = stack_cols(Aflat).reshape(-1, m, k)
-    acc = A[:, 0, :] * x[0][:, None]
-    for i in range(1, m):
-        acc = acc + A[:, i, :] * x[i][:, None]
+    B = stack_cols(Bflat).reshape(-1, n, k)
+    acc = A[:, :, None, 0] * B[:, None, :, 0]
+    for kk in range(1, k):
+        acc = acc + A[:, :, None, kk] * B[:, None, :, kk]
     return _cols(acc)
 
 

@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes: no PyTorch headers, so the build takes
-seconds. The library lands in `mavmap_tpu_torch/_build/`, named by a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
-is reused. Nothing here runs at import time; `library()` builds on first
-use.
+The sources compile with nvcc, one process per source started together,
+and link into one shared library with a plain C interface, loaded with
+ctypes: no PyTorch headers, so the build takes seconds. The library lands
+in `mavmap_tpu_torch/_build/`, named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused. Nothing here
+runs at import time; `library()` builds on first use.
 """
 
 import ctypes
@@ -19,8 +19,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("match.cu", "ba_accum.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process (None: reused)
@@ -51,12 +51,29 @@ def build():
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o",
+                                   obj], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        errors = []
+        for name, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)  # atomic: concurrent builders never see half a file
     build_seconds = time.perf_counter() - t0
     return path

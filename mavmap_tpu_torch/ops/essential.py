@@ -276,17 +276,23 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60):
 
 def solve_essential_8pt(points1, points2, weights=None):
     """Linear 8-point solver with rank-2 projection, for non-minimal inlier
-    refits (`weights` masks constraint rows). Returns ((1, 3, 3), (1,))."""
-    D = _epipolar_design(points1, points2)
+    refits (`weights` masks constraint rows). Returns ((1, 3, 3), (1,)).
+
+    The normal matrix D^T D squares the condition number of D, and its
+    smallest eigenvector in f32 is off by eps * cond(D)^2: on an H100
+    (cuSOLVER) that turned the two-view translation of a nadir survey's
+    first pair by 4 degrees. So the solve runs in f64 and returns the
+    input's dtype. Deliberate divergence from the JAX package, which
+    solves in f32 (mavmap_tpu/ops/essential.py solve_essential_8pt)."""
+    D = _epipolar_design(points1.double(), points2.double())
     if weights is not None:
-        D = D * weights[:, None]
-    G = D.T @ D
-    _, V = torch.linalg.eigh(G)
+        D = D * weights.double()[:, None]
+    _, V = torch.linalg.eigh(D.T @ D)
     E = V[:, 0].reshape(3, 3)
     U, s, Vt = torch.linalg.svd(E)
     sbar = (s[0] + s[1]) / 2.0
     E = U @ torch.diag(torch.stack([sbar, sbar, torch.zeros_like(sbar)])) @ Vt
-    E = E / torch.clamp(torch.linalg.norm(E), min=1e-20)
+    E = (E / torch.clamp(torch.linalg.norm(E), min=1e-20)).to(points1.dtype)
     return E[None], torch.isfinite(E).all()[None]
 
 

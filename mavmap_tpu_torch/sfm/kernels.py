@@ -1,11 +1,13 @@
 """Device steps of the sequential mapper.
 
-Port of mavmap_tpu/sfm/kernels.py (`two_view_init`, `register_view` and
-their host unpacking). Each step runs on the device of its input tensors
-and returns two packed buffers, `rows` (F, 9|12) and `scalars` (21|13),
-laid out exactly like the JAX version's, so the two packages can be held
-against each other field by field. All gates return scalars; the host
-applies the accept/reject logic.
+Port of mavmap_tpu/sfm/kernels.py (`two_view_init`, `register_view`, the
+chained `register_chain` / `register_chain_fresh` with their device copy
+of the commit's track rules `_derive_chain_state`, and the host
+unpacking). Each step runs on the device of its input tensors and returns
+packed buffers, `rows` (F, 9|12) and `scalars` (21|13) per frame, laid out
+exactly like the JAX version's, so the two packages can be held against
+each other field by field. All gates return scalars; the host applies the
+accept/reject logic.
 
 RANSAC draws its samples from an explicit torch.Generator; `samples`
 injects (T, S) sample indices instead (tests feed the JAX package's).
@@ -217,6 +219,134 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
                         pres.success.to(f32), final_cost])
     scalars = torch.cat([head, rvec, tvec])  # (13,)
     return rows, scalars
+
+
+def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
+                        min_tri_angle, min_track_len):
+    """Device copy of the commit's track rules (mapper._register_commit):
+    the NEXT frame's anchor state from a register_view result. A track
+    continues if its 3-D point reprojects well in the new frame; otherwise
+    a new triangulation must pass both reprojection gates, the folded
+    angle and positive depths.
+
+    Returns (xyz, has_tri, stable, lens, rvec, tvec) in the new frame's
+    row space."""
+    F = prev_xyz.shape[0]
+    matches = rows[:, 0].long()
+    valid = rows[:, 1] > 0.5
+    track_err, ep, ec, ang = rows[:, 3], rows[:, 4], rows[:, 5], rows[:, 6]
+    dpv, dcv = rows[:, 7], rows[:, 8]
+    Xnew = rows[:, 9:12]
+
+    angf = torch.minimum(ang, math.pi - ang)
+    cont = valid & prev_has_tri & (track_err < tri_nt)
+    new = (valid & ~prev_has_tri & (ep < tri_nt) & (ec < tri_nt)
+           & (angf >= min_tri_angle) & (dpv > 0) & (dcv > 0))
+    got = cont | new
+    src_xyz = torch.where(cont[:, None], prev_xyz,
+                          torch.where(got[:, None], Xnew, torch.zeros_like(Xnew)))
+    src_len = torch.where(cont, prev_len + 1, torch.full_like(prev_len, 2))
+    src_len = torch.where(got, src_len, torch.zeros_like(src_len))
+
+    # Scatter prev-row state into the new frame's rows. Matches are
+    # injective on valid rows (mutual cross-check); invalid rows and
+    # out-of-range targets are dropped, as mode="drop" does in JAX.
+    keep = valid & (matches >= 0) & (matches < F)
+    tgt = matches[keep]
+    xyz = torch.zeros_like(prev_xyz).index_put_((tgt,), src_xyz[keep])
+    has_tri = torch.zeros_like(prev_has_tri).index_put_((tgt,), got[keep])
+    lens = torch.zeros_like(prev_len).index_put_((tgt,), src_len[keep])
+    stable = has_tri & (lens >= min_track_len)
+    return xyz, has_tri, stable, lens, scalars[7:10], scalars[10:13]
+
+
+def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
+                         ba_poses, ba_points, p3p_trials, hom_trials, refine_iters,
+                         samples):
+    """K consecutive frame registrations: frame k anchors on track state
+    derived on the device from frame k-1's results (`_derive_chain_state`),
+    so the host pulls once per K frames instead of once per frame.
+
+    The derived state only steers each frame's registration (which 2D-3D
+    pairs feed P3P and the refinement); the committed map still comes from
+    the host's own bookkeeping, and the host gates still veto each frame.
+
+    Packed calling convention, as in the JAX package:
+      feats_k: K (kp, desc, mask, normalized) tuples of device tensors;
+      track_state (F, 7) f32: [xyz(3) | has_tri | stable | track_len |
+        ba_row], ba_row mapping a row to the window-BA solve's point rows
+        (-1: keep the staged xyz);
+      scal (12 + 12K,) f32 on the host: [prev_rvec(3) | prev_tvec(3) |
+        ratio | max_dist | min_tri_angle | min_track_len | key_counter |
+        anchor_row] + per frame [nt | tri_nt | cam_model | cam_params(9)].
+        The key counter is unused (the generator carries the RNG state);
+      ba_poses/ba_points (fresh variant): the window-BA solve's output
+        tensors; the anchor's pose and 3-D points are read from them.
+    The K register_view steps run as a Python loop with no host pull
+    between frames (the JAX package scans them in one program). samples:
+    optional list of K per-frame sample tuples (see register_view).
+    Returns (rows (K, F, 12), scalars (K, 13), has_tri_in (K, F)), where
+    has_tri_in[k] is the anchor has_tri state frame k registered against.
+    """
+    dev = kp_p.device
+    K = len(feats_k)
+    scal_h = np.asarray(scal, np.float32)
+    scal_d = torch.as_tensor(scal_h, device=dev)
+    track_state = torch.as_tensor(track_state, device=dev)
+    rvec, tvec = scal_d[0:3], scal_d[3:6]
+    ratio, max_distance = float(scal_h[6]), float(scal_h[7])
+    min_tri_angle = float(scal_h[8])
+    min_track_len = int(scal_h[9])
+    per = scal_h[12:].reshape(K, 12)
+    per_d = scal_d[12:].reshape(K, 12)
+
+    xyz = track_state[:, :3]
+    has_tri = track_state[:, 3] > 0.5
+    stable = track_state[:, 4] > 0.5
+    lens = track_state[:, 5].long()
+    if ba_poses is not None:
+        anchor_row = int(scal_h[11])
+        if anchor_row >= 0:
+            rvec, tvec = ba_poses[anchor_row, :3], ba_poses[anchor_row, 3:]
+        xyz_rows = track_state[:, 6].long()
+        xyz = torch.where((xyz_rows >= 0)[:, None],
+                          ba_points[torch.clamp(xyz_rows, min=0)], xyz)
+
+    prev = (kp_p, d_p, m_p, n_p)
+    rows_all, scalars_all, has_tri_in = [], [], []
+    for k in range(K):
+        rows, scalars = register_view(
+            generator, *prev, *feats_k[k], xyz, has_tri, stable, rvec, tvec,
+            per_d[k, 3:12], int(per[k, 2]), ratio, max_distance, float(per[k, 0]),
+            p3p_trials=p3p_trials, hom_trials=hom_trials, refine_iters=refine_iters,
+            samples=None if samples is None else samples[k])
+        has_tri_in.append(has_tri)
+        rows_all.append(rows)
+        scalars_all.append(scalars)
+        xyz, has_tri, stable, lens, rvec, tvec = _derive_chain_state(
+            rows, scalars, xyz, has_tri, lens, float(per[k, 1]), min_tri_angle,
+            min_track_len)
+        prev = feats_k[k]
+    return torch.stack(rows_all), torch.stack(scalars_all), torch.stack(has_tri_in)
+
+
+def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
+                   p3p_trials=512, hom_trials=128, refine_iters=30, samples=None):
+    """Chain registration from host-staged anchor state (no window BA to
+    read from; see _register_chain_impl's packed calling convention)."""
+    return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
+                                scal, None, None, p3p_trials, hom_trials, refine_iters,
+                                samples)
+
+
+def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
+                         ba_poses, ba_points, p3p_trials=512, hom_trials=128,
+                         refine_iters=30, samples=None):
+    """Chain registration anchored on the latest window-BA solve's output
+    (see _register_chain_impl's packed calling convention)."""
+    return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
+                                scal, ba_poses, ba_points, p3p_trials, hom_trials,
+                                refine_iters, samples)
 
 
 def unpack_register(rows, scalars) -> RegisterResult:

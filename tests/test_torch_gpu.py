@@ -83,7 +83,23 @@ def test_seg_accum_full_kernel_vs_plain(dev, rng, O, K, S):
     assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
-@pytest.mark.parametrize("O,K", [(8192, 12), (20480, 3)])
+@pytest.mark.parametrize("K,S", [(6, 200), (9, 201)])
+def test_seg_accum_full_kernel_vs_plain_cg_matvec(dev, rng, K, S):
+    """K2 at the CG matvec's shapes: 6 columns into the pose blocks, 9 into
+    the pose + camera blocks of the self-calibrating system (both entries
+    of every observation reduced together, so twice the rows)."""
+    O = 40960 * (2 if K == 9 else 1)
+    c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
+    ids = torch.as_tensor(np.sort(rng.integers(0, S, O)).astype(np.int32), device=dev)
+    before = build.launches["seg_accum_full"]
+    got = ka.seg_accum_full(c, ids, S)
+    assert build.launches["seg_accum_full"] == before + 1
+    ref = ka.seg_accum_full_plain(c, ids, S)
+    scale = ka.seg_accum_full_plain(c.abs(), ids, S)
+    assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("O,K", [(8192, 12), (20480, 3), (40960, 3)])
 def test_seg_accum_sorted_kernel_vs_plain(dev, rng, O, K):
     lens = rng.integers(2, 10, size=O // 6)
     S = -(-len(lens) // 1024) * 1024
@@ -96,11 +112,11 @@ def test_seg_accum_sorted_kernel_vs_plain(dev, rng, O, K):
     assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
-def _ba_problem(rng, I=8, P=240, per_image=140):
+def _ba_problem(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
     """tests/test_torch_ba.py's scene: rotated views, 0.5 px noise, a 1 %
-    focal error. The rotations keep focal length and depth apart; with
-    pure translation along x the two trade off almost freely, and f32
-    rounding then moves the result by far more than it does here."""
+    focal error by default. The rotations keep focal length and depth
+    apart; with pure translation along x the two trade off almost freely,
+    and f32 rounding then moves the result by far more than it does here."""
     K = np.zeros((1, 9), np.float32)
     K[0, :4] = [700.0, 700.0, 400.0, 300.0]
     X = (rng.normal(size=(P, 3)) * [4, 4, 2] + [0, 0, 14]).astype(np.float32)
@@ -115,13 +131,13 @@ def _ba_problem(rng, I=8, P=240, per_image=140):
         sel = np.sort(rng.permutation(P)[:per_image])
         oi += [i] * len(sel)
         op += list(sel)
-        uv += list(u[sel] + rng.normal(size=(len(sel), 2)) * 0.5)
+        uv += list(u[sel] + rng.normal(size=(len(sel), 2)) * noise)
     poses0 = poses + rng.normal(size=poses.shape).astype(np.float32) * [0.003] * 3 \
         + np.concatenate([np.zeros((I, 3)), rng.normal(size=(I, 3)) * 0.02], 1)
     poses0[:2] = poses[:2]
     X0 = X + rng.normal(size=X.shape).astype(np.float32) * 0.05
     K0 = K.copy()
-    K0[0, :2] *= 1.01
+    K0[0, :2] *= focal
     return build_problem(poses0.astype(np.float32), X0.astype(np.float32), K0, [1],
                          oi, op, np.zeros(len(oi), np.int32), np.array(uv, np.float32),
                          pose_states=[1, 2] + [0] * (I - 2), bucket=True)
@@ -152,3 +168,24 @@ def test_bundle_adjust_gpu_vs_cpu(dev, rng, selfcal):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-3 * np.abs(c).max())
     if selfcal:
         np.testing.assert_allclose(ig["cam_params"], ic["cam_params"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_bundle_adjust_cg_vs_dense_gpu(dev, rng, selfcal):
+    """The CG solver against the dense one on the card (cg_tol 1e-6), as
+    tests/test_ba.py holds the JAX package's, on its kind of problem: 0.3 px
+    noise, and a focal error only where self-calibration can remove it (an
+    uncorrected one biases the minimum along a weakly pinned direction,
+    where two solvers stop apart at function_tolerance). Poses at 1e-4
+    (1e-3 with self-calibration), final costs at 1e-3 relative."""
+    prob = _ba_problem(rng, noise=0.3, focal=(1.02, 0.985) if selfcal else (1.0, 1.0))
+    o = dict(max_num_iterations=25, refine_camera_params=selfcal)
+    pd, _, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), dev)
+    before = dict(build.launches)
+    pc, _, infoc = bundle_adjust(prob, BAOptions(**o, solver="cg", cg_tol=1e-6), dev)
+    assert infoc["solver"] == "cg" and sum(infoc["cg_iters"]) > 0
+    for k in ("seg_accum_full", "seg_accum_sorted"):
+        assert build.launches[k] - before[k] >= sum(infoc["cg_iters"])
+    assert np.abs(pc - pd).max() < (1e-3 if selfcal else 1e-4)
+    assert abs(infoc["final_cost"] - infod["final_cost"]) < \
+        1e-3 * max(1.0, infod["final_cost"])

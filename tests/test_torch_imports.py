@@ -43,9 +43,10 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("mod", _modules())
+@pytest.mark.parametrize("mod", _modules() + ["chip_smoke"])
 def test_source_has_no_jax_import(mod):
-    """No module of the port names jax or mavmap_tpu in an import."""
+    """No module of the port, and not chip_smoke.py, names jax or
+    mavmap_tpu in an import."""
     path = os.path.join(ROOT, *mod.split(".")) + ".py"
     if not os.path.exists(path):
         path = os.path.join(ROOT, *mod.split("."), "__init__.py")
@@ -61,6 +62,17 @@ def test_source_has_no_jax_import(mod):
         for n in names:
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "mavmap_tpu"), f"{mod} imports {n}"
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")
+def test_chip_smoke_refuses_without_gpu():
+    """Without a CUDA device chip_smoke.py exits non-zero and prints no
+    result line (it never falls back to the CPU)."""
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert '"ok"' not in out.stdout
 
 
 def test_package_sets_full_precision_matmuls():
