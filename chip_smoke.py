@@ -1,41 +1,49 @@
 #!/usr/bin/env python3
 """Smoke test of mavmap_tpu_torch on one CUDA GPU (run from the repo root).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only] [--survey-ids NPZ]
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
  1. device: a CUDA device is required (no CPU fallback); prints the card's
     name and power limit as nvidia-smi reports them;
  2. build: compiles the CUDA kernels of mavmap_tpu_torch/csrc with nvcc;
- 3. kernels: holds each kernel against its plain PyTorch version on the
-    card at the mapper's shapes, and times both (CUDA events, median after
-    warm-up);
- 4. main path: the sequential mapper over bench.py's 30-image scene —
+ 3. timer check: the device timer against a sleep kernel of known length;
+ 4. kernels: holds each kernel against its plain PyTorch version on the
+    card at the mapper's shapes, and reports per shape its device time
+    (calls replayed back to back from a CUDA graph, median of 5), host time
+    per call, the plain version's and the library call's device times, its
+    bound and the share of it reached, and the profiler's kernel time;
+ 5. main path: the sequential mapper over bench.py's 30-image scene —
     process_initial, process for every later frame with a 10-image
     self-calibrating window bundle adjustment after each success, then one
     global bundle adjustment — checking 30/30 registrations, the ATE
     against ground truth, and that every kernel was launched;
- 5. chained: bench.py's own loop (run() without its pipelining option) on
+ 6. chained: bench.py's own loop (run() without its pipelining option) on
     the same scene — chains of 6 frames through process_chain_k, one
     deferred asynchronous window bundle adjustment per chain, flush_ba and
     the global bundle adjustment — checking 30/30, the ATE and launches;
- 6. survey: the same loop over benchmarks/pipeline_scale.py's scene at 200
+ 7. survey: the same loop over benchmarks/pipeline_scale.py's scene at 200
     images, whose global bundle adjustment (>= 64 cameras) runs the
     matrix-free CG solver — checking the registered count and the ATE
     against the JAX package's on the CPU, and finite output;
- 7. kernels at the survey's shapes: K2/K3 at the global problem's
-    observation, block and point counts (the CG matvec's 3/6/9 columns and
-    the preconditioner's 81), held against their plain versions and timed;
- 8. CG against dense: one ~40-camera problem solved by both solvers, with
+ 8. kernels at the survey's shapes: K2/K3 at the global problem's
+    observation, block and point counts (the CG matvec's 3/6/9 columns, the
+    preconditioner's 81, and 81 with every row on the camera block), held
+    against their plain versions and timed as in phase 4;
+ 9. CG against dense: one ~40-camera problem solved by both solvers, with
     and without self-calibration, on the card;
- 9. prints the kernels' JSON line, the card line, and last the result line.
+10. prints the kernels' JSON line, the card line, and last the result line.
 
-The launch counters are zeroed just before each mapping phase (4, 5, 6, 8)
-and read just after it. Imports nothing of JAX or of the JAX package.
+The launch counters are zeroed just before each mapping phase (5-7, 9) and
+read just after it. --kernels-only runs phases 1-4 (and 8 on the ids that
+an earlier full run saved with --survey-ids) and 10, so two checkouts can
+be timed in one call. Imports nothing of JAX or of the JAX package.
 """
 
+import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -63,21 +71,145 @@ def _phase(name):
     print(f"== {name}", flush=True)
 
 
-def _time_ms(fn, reps=20, warmup=3):
-    import torch
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM3 bytes/s, and f32 FLOP/s outside the tensor cores (K1 stays IEEE
+# f32). A kernel's bound is the larger of the bytes it must move (each
+# input read once, each output written once) over the first and its
+# operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
+
+def _graph_timer(torch, fn, n):
+    """fn captured n times back to back in one CUDA graph; returns a
+    function that replays the graph once and gives device ms per call."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+
+    def per_call_ms():
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        g.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        return a.elapsed_time(b) / n
+
+    per_call_ms()  # the first replay uploads the graph
+    return per_call_ms
+
+
+def _time_ms(fn, runs=5, min_calls=50, min_ms=1.0):
+    """(device ms per call, host µs per call) of fn, after a warm-up call.
+
+    Device time: n calls (n >= min_calls, and n calls last >= min_ms) are
+    captured in one CUDA graph and each of `runs` replays is timed between
+    two CUDA events; the median over n. A replay reaches the device with no
+    host work between the calls. Timing one call between two events would
+    time the wrapper's host work (argument checks, allocation, ctypes)
+    wherever that is slower than the kernel.
+    Host time (call_us): the host clock around min_calls calls started
+    after a synchronise, so the wrapper's overhead stays visible."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(min_calls):
+        fn()
+    call_us = (time.perf_counter() - t0) / min_calls * 1e6
+    torch.cuda.synchronize()
+    n = min_calls
+    timer = _graph_timer(torch, fn, n)
+    first = timer()
+    if first * n < min_ms:
+        n = int(math.ceil(1.2 * min_ms / first))
+        timer = _graph_timer(torch, fn, n)
+    return statistics.median(timer() for _ in range(runs)), call_us
+
+
+def _profiled_us(torch, fn, names, calls=20):
+    """Device µs per call of the CUDA kernels whose names contain one of
+    `names`, as torch.profiler (CUPTI) reports them, or None where the trace
+    holds no device time: a cross-check of the graph timer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            total += (getattr(e, "device_time_total", 0.0)
+                      or getattr(e, "cuda_time_total", 0.0))
+    return total / calls if total > 0 else None
+
+
+def timer_check(torch):
+    """Hold the device timer to a kernel of known length. torch.cuda._sleep
+    spins for a number of SM clock cycles: one long sleep timed alone (its
+    host overhead is nothing against ~20 ms) gives the cycles per ms; a
+    5 µs sleep behind 50 µs of host work per call must then time at 5 µs,
+    not at the host's pace."""
+    _phase("timer check")
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(40_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 40e6 / a.elapsed_time(b)
+    expect_ms = 0.005
+
+    def slow_host_call():
+        t = time.perf_counter()
+        while time.perf_counter() - t < 50e-6:
+            pass
+        torch.cuda._sleep(int(cycles_per_ms * expect_ms))
+
+    ms, call_us = _time_ms(slow_host_call)
+    print(f"timer check: {cycles_per_ms / 1e6:.4f} GHz SM clock under sleep; a "
+          f"{1000 * expect_ms:.1f} µs sleep behind {call_us:.1f} µs of host work per call "
+          f"times at {1000 * ms:.3f} µs", flush=True)
+    if not 0.9 * expect_ms <= ms <= 1.1 * expect_ms + 0.0015:
+        raise AssertionError(f"device timer: {ms} ms for a {expect_ms} ms kernel")
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by, resource): the larger of bytes over the HBM rate
+    and operations over the f32 rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOP_PER_S
+    return (t_bytes, "bytes", "hbm") if t_bytes >= t_ops else (t_ops, "operations", "flops_f32")
+
+
+def _timed(torch, shape, kernel, plain, library, nbytes, flops, names):
+    """One timed shape of a kernel: device and host times of the kernel, its
+    plain version and the library call (None where there is none), the
+    bound and the share of it reached, and the profiler's cross-check."""
+    ms, call_us = _time_ms(kernel)
+    plain_ms, _ = _time_ms(plain)
+    library_ms = _time_ms(library)[0] if library is not None else None
+    bound_ms, by, resource = _bound(nbytes, flops)
+    return dict(shape=shape, ms=ms, call_us=call_us, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+                bound_resource=resource, share=bound_ms / ms,
+                profiler_us=_profiled_us(torch, kernel, names))
+
+
+def _fmt(r):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    prof = "n/a" if r["profiler_us"] is None else f"{r['profiler_us']:.2f} µs"
+    return (f"kernel {r['ms']:.4f} ms (profiler {prof}; host {r['call_us']:.1f} µs/call), "
+            f"plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_resource']}), share {r['share']:.3f}")
 
 
 def device_phase():
@@ -123,13 +255,33 @@ def _match_inputs(torch, rng, dev, N1, N2, D=128, prefilter=300.0):
     return t, prefilter
 
 
+K1_KERNELS = ("match_tile_kernel", "match_merge_kernel")
+K2_KERNELS = ("seg_pieces_kernel", "seg_merge_kernel")
+K3_KERNELS = ("seg_sorted_kernel",)
+
+
+def _k1_cost(N1, N2, D, use_kp):
+    """(bytes, flops) of K1: d1, d2, the penalties and keypoints read once,
+    the per-row and per-column (arg, best, second) written once; 2 N1 N2 D
+    for the distances and 4 N1 N2 for the prefilter's keypoint products."""
+    n_in = (N1 + N2) * D + (N1 + N2) + (2 * (N1 + N2) if use_kp else 0)
+    return 4 * n_in + 12 * (N1 + N2), 2 * N1 * N2 * D + (4 * N1 * N2 if use_kp else 0)
+
+
+def _seg_cost(rows, K, S):
+    """(bytes, flops) of a segment sum: the (rows, K) contributions and one
+    int32 id (or offset) per row read once, the (S, K) sums written once;
+    one add per contribution."""
+    return 4 * (rows * K + rows + S * K), rows * K
+
+
 def check_match(torch, dev):
     """K1 at 1024x1024x128 with the prefilter, and ragged 1000x937."""
     import numpy as np
     from mavmap_tpu_torch.ops.cuda import match as km
 
     rng = np.random.default_rng(0)
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "shapes": []}
     for N1, N2 in ((1024, 1024), (1000, 937)):
         (d1, d2, m1, m2, kp1, kp2), maxd = _match_inputs(torch, rng, dev, N1, N2)
         args = km.padded_operands(d1, d2, m1, m2, kp1, kp2, maxd)
@@ -162,14 +314,17 @@ def check_match(torch, dev):
         n_diff = int((mk.cpu() != mc).sum())
         if n_diff > max(2, N1 // 200):
             raise AssertionError(f"K1 {N1}x{N2}: {n_diff} final matches differ from the CPU")
-        ms = _time_ms(lambda: km._match_raw_cuda(*args))
-        plain_ms = _time_ms(lambda: km.match_raw_plain(*args))
-        print(f"K1 match {N1}x{N2}x128 prefilter {maxd:.0f}px: max_abs_err {err:.3g}, "
-              f"{int(ok_k.sum())} matches ({n_diff} differ from CPU), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        P1, D = args[0].shape
+        nbytes, flops = _k1_cost(P1, args[2].shape[0], D, True)
+        # No single PyTorch call gives both directions' top-2: no library time.
+        r = _timed(torch, [P1, args[2].shape[0], D], lambda: km._match_raw_cuda(*args),
+                   lambda: km.match_raw_plain(*args), None, nbytes, flops, K1_KERNELS)
+        r.update(max_abs_err=err, matches=int(ok_k.sum()), differ_from_cpu=n_diff)
+        print(f"K1 match {N1}x{N2}x{D} (padded {P1}x{args[2].shape[0]}) prefilter {maxd:.0f}px: "
+              f"max_abs_err {err:.3g}, {int(ok_k.sum())} matches ({n_diff} differ from CPU); "
+              + _fmt(r), flush=True)
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        if (N1, N2) == (1024, 1024):
-            out["ms"], out["plain_ms"] = ms, plain_ms
+        out["shapes"].append(r)
     return out
 
 
@@ -178,40 +333,87 @@ def _seg_err(got, ref, scale):
     return float((got - ref).abs().max()), float(rel.max())
 
 
+def _check_seg_full_shape(torch, c, ids, S, what):
+    """K2 on one (contributions, ids) pair with the ids' host plan: held to
+    its plain version at 1e-5 of the per-segment sum of |contrib|, called
+    twice to show it repeats bit for bit, and timed beside index_add_."""
+    from mavmap_tpu_torch.ops.cuda import ba_accum as ka
+
+    rows, K = c.shape
+    plan = ka.make_plan(ids.cpu().numpy(), S).to(c.device)
+    got = ka.seg_accum_full(c, ids, S, plan)
+    again = ka.seg_accum_full(c, ids, S, plan)
+    ref = ka.seg_accum_full_plain(c, ids, S)
+    abs_err, rel = _seg_err(got, ref, ka.seg_accum_full_plain(c.abs(), ids, S))
+    if rel > 1e-5:
+        raise AssertionError(f"K2 {what} ({rows},{K})->{S}: relative error {rel}")
+    bitwise = bool(torch.equal(got, again))
+    if not bitwise:
+        raise AssertionError(f"K2 {what} ({rows},{K})->{S}: two calls differ")
+    r = _timed(torch, [rows, K, S], lambda: ka.seg_accum_full(c, ids, S, plan),
+               lambda: ka.seg_accum_full_plain(c, ids, S),
+               lambda: torch.zeros((S, K), device=c.device).index_add_(0, ids, c),
+               *_seg_cost(rows, K, S), K2_KERNELS)
+    r.update(max_abs_err=abs_err, rel_err=rel, bitwise_repeat=bitwise)
+    print(f"K2 seg_accum_full {what} ({rows},{K})->{S}: max_abs_err {abs_err:.3g} "
+          f"(rel {rel:.3g}), repeats bit for bit: {bitwise}; " + _fmt(r), flush=True)
+    return r
+
+
 def check_seg_full(torch, dev):
     """K2 at the selfcal window/global shapes (unsorted ids)."""
     import numpy as np
-    from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
     rng = np.random.default_rng(1)
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "shapes": []}
     for O, K, S in ((8192, 9, 17), (8192, 81, 17), (32768, 81, 289), (32768, 81, 1089)):
         c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
         ids = torch.as_tensor(rng.integers(0, S, O).astype(np.int32), device=dev)
-        got = ka._seg_accum_full_cuda(c, ids, S)
-        ref = ka.seg_accum_full_plain(c, ids, S)
-        scale = ka.seg_accum_full_plain(c.abs(), ids, S)
-        abs_err, rel = _seg_err(got, ref, scale)
-        # Atomics reorder the f32 sums: 1e-5 of the per-segment sum of |c|.
-        if rel > 1e-5:
-            raise AssertionError(f"K2 ({O},{K})->{S}: relative error {rel}")
-        ms = _time_ms(lambda: ka._seg_accum_full_cuda(c, ids, S))
-        plain_ms = _time_ms(lambda: ka.seg_accum_full_plain(c, ids, S))
-        print(f"K2 seg_accum_full ({O},{K})->{S}: max_abs_err {abs_err:.3g} "
-              f"(rel {rel:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        out["max_abs_err"] = max(out["max_abs_err"], abs_err)
-        if (O, K, S) == (32768, 81, 289):
-            out["ms"], out["plain_ms"] = ms, plain_ms
+        r = _check_seg_full_shape(torch, c, ids, S, "window")
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        out["shapes"].append(r)
     return out
+
+
+def _check_seg_sorted_shape(torch, c, off, S, what):
+    """K3 on one (contributions, CSR offsets) pair: held to its plain
+    version at 1e-5 of the per-segment sum of |contrib| and timed beside
+    torch.segment_reduce over the same offsets."""
+    from mavmap_tpu_torch.ops.cuda import ba_accum as ka
+
+    rows, K = c.shape
+    got = ka._seg_accum_sorted_cuda(c, off, S)
+    ref = ka.seg_accum_sorted_plain(c, off, S)
+    scale = ka.seg_accum_sorted_plain(c.abs(), off, S)
+    abs_err, rel = _seg_err(got, ref, scale)
+    if rel > 1e-5:
+        raise AssertionError(f"K3 {what} ({rows},{K})->{S}: relative error {rel}")
+    # The library call takes offsets from 0 over exactly the rows it sums
+    # (unsafe=True skips its host-side checks, which would sync).
+    n_rows, off_long = int(off[-1]), off.long()
+    data = c[:n_rows]
+
+    def library():
+        return torch.segment_reduce(data, "sum", offsets=off_long, axis=0, unsafe=True)
+
+    lib_err = _seg_err(library(), ref, scale)[1]
+    if int(off[0]) != 0 or lib_err > 1e-5:
+        raise AssertionError(f"K3 {what}: torch.segment_reduce disagrees ({lib_err})")
+    r = _timed(torch, [rows, K, S], lambda: ka._seg_accum_sorted_cuda(c, off, S),
+               lambda: ka.seg_accum_sorted_plain(c, off, S), library,
+               4 * (rows * K + (S + 1) + S * K), rows * K, K3_KERNELS)
+    r.update(max_abs_err=abs_err, rel_err=rel)
+    print(f"K3 seg_accum_sorted {what} ({rows},{K})->{S}: max_abs_err {abs_err:.3g} "
+          f"(rel {rel:.3g}); " + _fmt(r), flush=True)
+    return r
 
 
 def check_seg_sorted(torch, dev):
     """K3 at the per-point shapes, track lengths like the mapper's."""
     import numpy as np
-    from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
     rng = np.random.default_rng(2)
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "shapes": []}
     for O, K in ((8192, 12), (20480, 3)):
         # Track lengths 2..12, mostly short (geometric), padded to O rows.
         lens = []
@@ -222,21 +424,10 @@ def check_seg_sorted(torch, dev):
         offsets[1: len(lens) + 1] = np.cumsum(lens)
         offsets[len(lens) + 1:] = offsets[len(lens)]
         c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
-        off = torch.as_tensor(offsets, device=dev)
-        got = ka._seg_accum_sorted_cuda(c, off, Pd)
-        ref = ka.seg_accum_sorted_plain(c, off, Pd)
-        scale = ka.seg_accum_sorted_plain(c.abs(), off, Pd)
-        abs_err, rel = _seg_err(got, ref, scale)
-        if rel > 1e-5:
-            raise AssertionError(f"K3 ({O},{K}): relative error {rel}")
-        ms = _time_ms(lambda: ka._seg_accum_sorted_cuda(c, off, Pd))
-        plain_ms = _time_ms(lambda: ka.seg_accum_sorted_plain(c, off, Pd))
-        print(f"K3 seg_accum_sorted ({O},{K}) {len(lens)} tracks -> {Pd} segments: "
-              f"max_abs_err {abs_err:.3g} (rel {rel:.3g}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        out["max_abs_err"] = max(out["max_abs_err"], abs_err)
-        if (O, K) == (8192, 12):
-            out["ms"], out["plain_ms"] = ms, plain_ms
+        r = _check_seg_sorted_shape(torch, c, torch.as_tensor(offsets, device=dev), Pd,
+                                    f"{len(lens)} tracks")
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        out["shapes"].append(r)
     return out
 
 
@@ -528,50 +719,45 @@ def survey_phase(torch, dev):
     return launches, prob
 
 
-def check_survey_shapes(torch, dev, prob):
+def survey_ids(prob):
+    """The id arrays of the survey's global problem that the kernel checks
+    at its shapes need (saved with --survey-ids for a --kernels-only run)."""
+    import numpy as np
+
+    return {"obs_image": np.asarray(prob.obs_image), "obs_cam": np.asarray(prob.obs_cam),
+            "pt_offsets": np.asarray(prob.pt_offsets),
+            "num_images": prob.poses.shape[0], "num_cams": prob.cam_params.shape[0]}
+
+
+def check_survey_shapes(torch, dev, ids):
     """K2/K3 at the survey's global CG shapes, random values on the real ids:
     K2 (2O, 9) and (2O, 81) into the B = I + C blocks (the selfcal matvec
     and preconditioner reduce both entries of every observation at once),
-    K2 (O, 6) into I (the pose-only matvec); K3 (O, 3) into the dense
-    points (both matvecs)."""
+    K2 (O, 81) with every row on the camera block's id, K2 (O, 6) into I
+    (the pose-only matvec); K3 (O, 3) into the dense points (both
+    matvecs)."""
     import numpy as np
-    from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
     rng = np.random.default_rng(3)
-    I = prob.poses.shape[0]
-    B = I + prob.cam_params.shape[0]
-    O = prob.obs_image.shape[0]
-    Pd = prob.point_rows.shape[0]
-    ids2 = np.concatenate([prob.obs_image, I + prob.obs_cam]).astype(np.int32)
+    I, C = int(ids["num_images"]), int(ids["num_cams"])
+    B = I + C
+    obs_image = ids["obs_image"].astype(np.int32)
+    O = len(obs_image)
+    ids2 = np.concatenate([obs_image, I + ids["obs_cam"]]).astype(np.int32)
     out = {"max_abs_err": 0.0, "full": [], "sorted": []}
-    for rows, ids, K, S in ((2 * O, ids2, 9, B), (2 * O, ids2, 81, B),
-                            (O, prob.obs_image, 6, I)):
-        c = torch.as_tensor(rng.normal(size=(rows, K)).astype(np.float32), device=dev)
-        seg = torch.as_tensor(np.ascontiguousarray(ids, np.int32), device=dev)
-        got = ka._seg_accum_full_cuda(c, seg, S)
-        ref = ka.seg_accum_full_plain(c, seg, S)
-        abs_err, rel = _seg_err(got, ref, ka.seg_accum_full_plain(c.abs(), seg, S))
-        if rel > 1e-5:
-            raise AssertionError(f"K2 ({rows},{K})->{S}: relative error {rel}")
-        ms = _time_ms(lambda: ka._seg_accum_full_cuda(c, seg, S))
-        plain_ms = _time_ms(lambda: ka.seg_accum_full_plain(c, seg, S))
-        print(f"K2 seg_accum_full survey ({rows},{K})->{S}: max_abs_err {abs_err:.3g} "
-              f"(rel {rel:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        out["max_abs_err"] = max(out["max_abs_err"], abs_err)
-        out["full"].append({"shape": [rows, K, S], "ms": ms, "plain_ms": plain_ms})
+    for what, seg, K, S in (("survey", ids2, 9, B), ("survey", ids2, 81, B),
+                            ("survey one id", np.full(O, I, np.int32), 81, B),
+                            ("survey", obs_image, 6, I)):
+        c = torch.as_tensor(rng.normal(size=(len(seg), K)).astype(np.float32), device=dev)
+        r = _check_seg_full_shape(torch, c, torch.as_tensor(seg, device=dev), S, what)
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        out["full"].append(r)
+    offsets = ids["pt_offsets"].astype(np.int32)
+    Pd = len(offsets) - 1
     c = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32), device=dev)
-    off = torch.as_tensor(prob.pt_offsets, device=dev)
-    got = ka._seg_accum_sorted_cuda(c, off, Pd)
-    ref = ka.seg_accum_sorted_plain(c, off, Pd)
-    abs_err, rel = _seg_err(got, ref, ka.seg_accum_sorted_plain(c.abs(), off, Pd))
-    if rel > 1e-5:
-        raise AssertionError(f"K3 ({O},3)->{Pd}: relative error {rel}")
-    ms = _time_ms(lambda: ka._seg_accum_sorted_cuda(c, off, Pd))
-    plain_ms = _time_ms(lambda: ka.seg_accum_sorted_plain(c, off, Pd))
-    print(f"K3 seg_accum_sorted survey ({O},3)->{Pd}: max_abs_err {abs_err:.3g} "
-          f"(rel {rel:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    out["sorted_err"] = abs_err
-    out["sorted"].append({"shape": [O, 3, Pd], "ms": ms, "plain_ms": plain_ms})
+    r = _check_seg_sorted_shape(torch, c, torch.as_tensor(offsets, device=dev), Pd, "survey")
+    out["sorted_err"] = r["max_abs_err"]
+    out["sorted"].append(r)
     return out
 
 
@@ -634,42 +820,74 @@ def cg_vs_dense_phase(torch, dev):
     return dict(build.launches)
 
 
-def main():
+def _kernel_line(phases, k1, k2, k3, ks):
+    """The kernels' JSON line: each kernel's launches on the main path and
+    per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
+    the survey's CG matvec (2O, 9), K3 the survey's (O, 3); the first timed
+    shape where the survey did not run), with every timed shape listed."""
+    def launches(k):
+        return phases.get("main", {}).get(k, 0), {p: n[k] for p, n in phases.items()}
+
+    rows = []
+    for name, source, replaces, shapes, head, err in (
+            ("match", "mavmap_tpu_torch/csrc/match.cu", "mavmap_tpu/ops/pallas/match.py:106",
+             k1["shapes"], k1["shapes"][0], k1["max_abs_err"]),
+            ("seg_accum_full", "mavmap_tpu_torch/csrc/ba_accum.cu",
+             "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks.get("full", []),
+             (ks.get("full") or k2["shapes"])[0], max(k2["max_abs_err"], ks.get("max_abs_err", 0))),
+            ("seg_accum_sorted", "mavmap_tpu_torch/csrc/ba_accum.cu",
+             "mavmap_tpu/ops/pallas/ba_accum.py:179", k3["shapes"] + ks.get("sorted", []),
+             (ks.get("sorted") or k3["shapes"])[0], max(k3["max_abs_err"], ks.get("sorted_err", 0)))):
+        n_main, by_phase = launches(name)
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=n_main,
+                   launches_by_phase=by_phase, max_abs_err=err)
+        row.update({k: head[k] for k in ("shape", "ms", "call_us", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by", "bound_resource", "share",
+                                          "profiler_us")})
+        if name == "match":
+            row["library_note"] = "no single PyTorch call gives both directions' top-2"
+        row["shapes"] = shapes
+        rows.append(row)
+    return json.dumps({"kernels": rows})
+
+
+def main(argv=None):
+    import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time and check the kernels alone, without the mapping phases")
+    ap.add_argument("--survey-ids", metavar="NPZ",
+                    help="where the survey's problem ids are saved after a full run, and "
+                         "read from with --kernels-only to check the kernels at its shapes")
+    args = ap.parse_args(argv)
 
     dev, name, smi = device_phase()
     import mavmap_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_phase()
+    timer_check(torch)
     _phase("kernels")
     k1 = check_match(torch, dev)
     k2 = check_seg_full(torch, dev)
     k3 = check_seg_sorted(torch, dev)
-    phases = {"main": main_path_phase(torch, dev), "chained": chained_phase(torch, dev)}
-    phases["survey"], survey_prob = survey_phase(torch, dev)
-    _phase("kernels at the survey's shapes")
-    ks = check_survey_shapes(torch, dev, survey_prob)
-    phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
-    k2["max_abs_err"] = max(k2["max_abs_err"], ks["max_abs_err"])
-    k3["max_abs_err"] = max(k3["max_abs_err"], ks["sorted_err"])
-
-    def by_phase(k):
-        return {p: launches[k] for p, launches in phases.items()}
-
-    kernels = [
-        dict(name="match", route="cuda", source="mavmap_tpu_torch/csrc/match.cu",
-             replaces="mavmap_tpu/ops/pallas/match.py:106",
-             launches=phases["main"]["match"], launches_by_phase=by_phase("match"), **k1),
-        dict(name="seg_accum_full", route="cuda", source="mavmap_tpu_torch/csrc/ba_accum.cu",
-             replaces="mavmap_tpu/ops/pallas/ba_accum.py:79",
-             launches=phases["main"]["seg_accum_full"],
-             launches_by_phase=by_phase("seg_accum_full"), survey_shapes=ks["full"], **k2),
-        dict(name="seg_accum_sorted", route="cuda", source="mavmap_tpu_torch/csrc/ba_accum.cu",
-             replaces="mavmap_tpu/ops/pallas/ba_accum.py:179",
-             launches=phases["main"]["seg_accum_sorted"],
-             launches_by_phase=by_phase("seg_accum_sorted"), survey_shapes=ks["sorted"], **k3),
-    ]
-    print(json.dumps({"kernels": kernels}))
+    phases, ks, ids = {}, {}, None
+    if args.kernels_only:
+        if args.survey_ids:
+            ids = dict(np.load(args.survey_ids))
+    else:
+        phases = {"main": main_path_phase(torch, dev), "chained": chained_phase(torch, dev)}
+        phases["survey"], survey_prob = survey_phase(torch, dev)
+        ids = survey_ids(survey_prob)
+        if args.survey_ids:
+            np.savez(args.survey_ids, **ids)
+    if ids is not None:
+        _phase("kernels at the survey's shapes")
+        ks = check_survey_shapes(torch, dev, ids)
+    if not args.kernels_only:
+        phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
+    print(_kernel_line(phases, k1, k2, k3, ks))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -16,8 +16,9 @@ Port of mavmap_tpu/ba/core.py (reference src/base3d/bundle_adjustment.{h,cc}):
     FIXED_X, bundle_adjustment.h:33-35), IMU rotation priors, GCP pinning.
 
 The per-image and per-block reductions go through CUDA kernel K2
-(ops/cuda/ba_accum.py seg_accum_full) and the per-point reductions through
-K3 (seg_accum_sorted) when the problem lives on a CUDA device, the CG
+(ops/cuda/ba_accum.py seg_accum_full, with the plans that build_problem
+makes for its three id arrays) and the per-point reductions through K3
+(seg_accum_sorted) when the problem lives on a CUDA device, the CG
 matvec's included; on the CPU the wrappers run their plain PyTorch
 versions. The LM and CG loops are Python loops with an early exit (one
 host sync per iteration).
@@ -36,7 +37,7 @@ from torch.func import jacfwd, vmap
 
 from ..models import camera as cam
 from ..ops.cuda.ba_accum import (
-    offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
+    SegPlan, make_plan, offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
 from ..ops.rotation import rotmat_from_rvec
 from . import colmath as cm
 
@@ -84,8 +85,9 @@ class BAProblem(NamedTuple):
     over the real (unpadded) observations: rows pt_offsets[s] ..
     pt_offsets[s+1] observe dense point s. Compared with the JAX BAProblem,
     the co-observation pair fields and the by-image sort (img_order,
-    obs_image_sorted) are gone — the by-image kernel takes unsorted ids —
-    and `pt_offsets` replaces the banded kernel's `pt_gather_rows`.
+    obs_image_sorted) are gone, `pt_offsets` replaces the banded kernel's
+    `pt_gather_rows`, and three K2 plans (`seg_plans`) take the sort's part:
+    every K2 call of the solvers keys its rows by one of their id arrays.
     """
 
     poses: object            # (I, 6) rvec+tvec
@@ -105,6 +107,24 @@ class BAProblem(NamedTuple):
     point_rows: object       # (Pd,) int32 dense row -> full point row (pads: P)
     point_free_dense: object  # (Pd,) f32
     pt_offsets: object       # (Pd + 1,) int32 CSR offsets of obs_point_dense
+    plan_img: SegPlan        # obs_image into the I images
+    plan_blk: SegPlan        # both entries, cat(obs_image, I + obs_cam), into B = I + C
+    plan_hess: SegPlan       # the 4 entry pairs blk[:, a] * B + blk[:, b] into B^2
+
+
+def seg_plans(obs_image, obs_cam, num_images, num_cams):
+    """Host: the K2 plans of a problem's three id arrays (numpy in): image
+    ids into the I images; both block entries of every observation (the
+    image's pose block, then I + its camera's intrinsics block) into the
+    B = I + C blocks; and the four (a, b) entry pairs in the order (0, 0),
+    (0, 1), (1, 0), (1, 1), each blk[:, a] * B + blk[:, b], into B^2."""
+    obs_image = np.asarray(obs_image, np.int64)
+    obs_cam = np.asarray(obs_cam, np.int64)
+    B = num_images + num_cams
+    blk = (obs_image, num_images + obs_cam)
+    hess = np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)])
+    return (make_plan(obs_image, num_images), make_plan(np.concatenate(blk), B),
+            make_plan(hess, B * B))
 
 
 def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
@@ -193,6 +213,9 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
     else:
         rot_prior_weight = pad(np.asarray(rot_prior_weight, np.float32), I)
 
+    obs_image = pad(obs_image, obs_capacity, fill=int(obs_image[-1]) if O else 0)
+    obs_cam = pad(obs_cam, obs_capacity)
+    plan_img, plan_blk, plan_hess = seg_plans(obs_image, obs_cam, I, len(cam_params))
     return BAProblem(
         poses=poses,
         points=points,
@@ -200,9 +223,9 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
         cam_models=np.asarray(cam_models, np.int32),
         # Padding keeps the LAST image/point index so the sort order holds;
         # masked rows contribute zeros wherever they land.
-        obs_image=pad(obs_image, obs_capacity, fill=int(obs_image[-1]) if O else 0),
+        obs_image=obs_image,
         obs_point=pad(obs_point, obs_capacity, fill=int(obs_point[-1]) if O else 0),
-        obs_cam=pad(obs_cam, obs_capacity),
+        obs_cam=obs_cam,
         obs_uv=pad(obs_uv, obs_capacity),
         obs_mask=pad(np.ones(O, bool), obs_capacity, False),
         pose_free=pose_free,
@@ -213,12 +236,16 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
         point_rows=point_rows,
         point_free_dense=point_free_dense,
         pt_offsets=offsets_from_sorted_ids(group_id, Pd),
+        plan_img=plan_img,
+        plan_blk=plan_blk,
+        plan_hess=plan_hess,
     )
 
 
 def problem_to_device(prob: BAProblem, device) -> BAProblem:
     """Host (numpy) problem -> tensors on `device`."""
-    return BAProblem(*(torch.as_tensor(np.asarray(a), device=device) for a in prob))
+    return BAProblem(*(a.to(device) if isinstance(a, SegPlan)
+                       else torch.as_tensor(np.asarray(a), device=device) for a in prob))
 
 
 # ---------------------------------------------------------------- residuals
@@ -299,13 +326,15 @@ def _rot_prior_blocks(prob: BAProblem, poses):
 def _seg_img(prob: BAProblem, vals, I):
     """Image-keyed reduction (any trailing shape) — kernel K2."""
     flat = vals.reshape(vals.shape[0], -1).contiguous()
-    return seg_accum_full(flat, prob.obs_image, I).reshape((I,) + vals.shape[1:])
+    return seg_accum_full(flat, prob.obs_image, I, prob.plan_img).reshape(
+        (I,) + vals.shape[1:])
 
 
-def _seg_ids(ids, vals, S):
-    """Reduction keyed by arbitrary (unsorted) ids into S segments — K2."""
+def _seg_ids(ids, vals, S, plan):
+    """Reduction keyed by unsorted ids into S segments — K2, with the
+    problem's plan of those ids."""
     flat = vals.reshape(vals.shape[0], -1).contiguous()
-    return seg_accum_full(flat, ids.to(torch.int32).contiguous(), S).reshape(
+    return seg_accum_full(flat, ids.to(torch.int32).contiguous(), S, plan).reshape(
         (S,) + vals.shape[1:])
 
 
@@ -483,10 +512,11 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
                              lam, scale):
     """Assembly with the shared per-camera intrinsics as extra unknowns.
 
-    Returns (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9):
-    per-observation entry Jacobians (entry 0 = pose block 9-padded, entry 1
-    = intrinsics block), their block ids blk (O,2) over the B = I + C
-    blocks, robust weights, damped point blocks, couplings G/T (27 columns
+    Returns (Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
+    Ur9): per-observation entry Jacobians (entry 0 = pose block 9-padded,
+    entry 1 = intrinsics block), their block ids blk (O,2) over the B = I + C
+    blocks and both entries' ids in one (2O,) array (prob.plan_blk's), robust
+    weights, damped point blocks, couplings G/T (27 columns
     per entry), gradient and reduced gradient (B, 9), the undamped direct
     diagonal blocks Ddiag (B, 9, 9) and the pose-row prior blocks Ur9.
     """
@@ -513,14 +543,12 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
             Jk[k][i] = Jk[k][i] * cf_o[:, i]
     Ecols = [[[Jc[k][i] if i < 6 else zero for i in range(9)] for k in range(2)], Jk]
     blk = torch.stack([prob.obs_image, I + prob.obs_cam], dim=1)  # (O, 2)
+    ids2 = torch.cat([blk[:, 0], blk[:, 1]])  # both entries: one K2 call each
 
-    g = torch.zeros((B, 9), device=w.device)
-    Ddiag = torch.zeros((B, 9, 9), device=w.device)
-    for a in range(2):
-        g = g + _seg_ids(blk[:, a], cm.stack_cols(cm.jtwr_cols(Ecols[a], r2, w)), B)
-        Ddiag = Ddiag + _seg_ids(
-            blk[:, a], cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[a], w)), B
-        ).reshape(B, 9, 9)
+    g = _seg_ids(ids2, torch.cat([cm.stack_cols(cm.jtwr_cols(Ecols[a], r2, w))
+                                  for a in range(2)]), B, prob.plan_blk)
+    Ddiag = _seg_ids(ids2, torch.cat([cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[a], w))
+                                      for a in range(2)]), B, prob.plan_blk).reshape(B, 9, 9)
 
     Vbp = _seg_pt(prob, cm.stack_cols(cm.jtwj_cols(Jp, Jp, w) + cm.jtwr_cols(Jp, r2, w)))
     Vcols = cm.cols_of(Vbp[:, :9])
@@ -540,10 +568,9 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
     Gcols = [cm.jtwj_cols(Ecols[a], Jp, w) for a in range(2)]
     Tcols = [cm.matmul_cols(Gcols[a], Vinv_o, 9, 3, 3) for a in range(2)]
     bp_o = cm.cols_of(bp[prob.obs_point_dense])
-    g_red = g - sum(
-        _seg_ids(blk[:, a], cm.stack_cols(cm.matvec_cols(Tcols[a], bp_o, 9, 3)), B)
-        for a in range(2))
-    return Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9
+    g_red = g - _seg_ids(ids2, torch.cat([cm.stack_cols(cm.matvec_cols(Tcols[a], bp_o, 9, 3))
+                                          for a in range(2)]), B, prob.plan_blk)
+    return Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9
 
 
 def _selfcal_backsub(prob: BAProblem, Vinv, bp, Gcols, blk, dx):
@@ -565,18 +592,19 @@ def _lm_step_selfcal(prob: BAProblem, poses, points_d, cam_params, cam_free, lam
     I = poses.shape[0]
     C = cam_params.shape[0]
     B = I + C
-    (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
+    (Ecols, blk, _, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
      Ur9) = _assemble_selfcal_blocks(prob, poses, points_d, cam_params, cam_free,
                                      lam, scale)
 
     # Full direct Hessian: the 4 entry combinations of each observation in
-    # ONE segment sum over 4O rows into B^2 blocks.
+    # ONE segment sum over 4O rows into B^2 blocks (prob.plan_hess's order).
     h_ids, h_vals = [], []
     for a in range(2):
         for b in range(2):
             h_vals.append(cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[b], w)))
             h_ids.append(blk[:, a] * B + blk[:, b])
-    H = _seg_ids(torch.cat(h_ids), torch.cat(h_vals), B * B).reshape(B, B, 9, 9)
+    H = _seg_ids(torch.cat(h_ids), torch.cat(h_vals), B * B, prob.plan_hess).reshape(
+        B, B, 9, 9)
     idx_i = torch.arange(I, device=w.device)
     H[idx_i, idx_i] += Ur9
 
@@ -615,18 +643,17 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
     I = poses.shape[0]
     C = cam_params.shape[0]
     B = I + C
-    (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
+    (Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
      Ur9) = _assemble_selfcal_blocks(prob, poses, points_d, cam_params, cam_free,
                                      lam, scale)
     # Marquardt damping from the undamped direct diagonal.
     damp = lam * (torch.diagonal(Ddiag, dim1=-2, dim2=-1) + 1e-6)
     pose_free9 = torch.cat([prob.pose_free, torch.zeros((I, 3), device=w.device)], dim=1)
     free = torch.cat([pose_free9, cam_free], dim=0)  # (B, 9)
-    ids2 = torch.cat([blk[:, 0], blk[:, 1]])  # both entries in one K2 call
 
     D_schur = _seg_ids(ids2, torch.cat([
         cm.stack_cols(cm.abt_cols(Tcols[a], Gcols[a], 9, 3, 9)) for a in range(2)]),
-        B).reshape(B, 9, 9)
+        B, prob.plan_blk).reshape(B, 9, 9)
     D = (Ddiag + torch.diag_embed(damp) - D_schur) * free[:, :, None] * free[:, None, :]
     Minv = torch.linalg.inv(D + torch.diag_embed(1.0 - free))
 
@@ -643,7 +670,8 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
         # Direct term E^T W E x minus the Schur term G V^-1 G^T x (G carries
         # the weights already), both entries reduced together.
         y = _seg_ids(ids2, torch.cat([
-            cm.matTvec(E3[a], u) - cm.matvec(G3[a], sv_o) for a in range(2)]), B)
+            cm.matTvec(E3[a], u) - cm.matvec(G3[a], sv_o) for a in range(2)]), B,
+            prob.plan_blk)
         y[:I] += torch.einsum("iab,ib->ia", Ur9, x[:I])
         return (y + damp * x) * free
 

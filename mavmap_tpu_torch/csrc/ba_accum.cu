@@ -3,17 +3,33 @@
 // mavmap_seg_accum_full replaces mavmap_tpu/ops/pallas/ba_accum.py
 // seg_accum_full (_full_kernel): out[s, :] = sum over o with ids[o] == s of
 // contrib[o, :], ids in any order. On the TPU it is a one-hot MXU product
-// with the (S, K) accumulator resident in VMEM across a sequential grid.
-// Here each block owns a chunk of observations and a tile of segments, and
-// reduces the chunk into a shared-memory accumulator with shared-memory
-// atomics; the block's nonzero partial sums then go to `out` (zeroed by the
-// caller) with global atomicAdd. The segment axis is tiled so that
-// (segments x K x 4 B) fits the block's shared memory (the selfcal Hessian's
-// B^2 = 1089 segments x 81 floats is 353 KB and does not fit whole), at one
-// extra pass over the chunk per segment tile. Bound on an H100: reading
-// O x K floats once per segment tile, plus the atomics. Atomics make the
-// order of the sums change from run to run: results agree to f32 rounding,
-// not bit for bit.
+// with the (S, K) accumulator resident in VMEM across a sequential grid,
+// which adds in the same order on every run. Here the host builds a plan
+// once per problem (ops/cuda/ba_accum.py make_plan): `order`, the rows
+// stably sorted by id, and each segment cut into pieces of at most R rows
+// (R <= 1024), so a segment that holds half the rows (the camera block of a
+// self-calibrating problem) spreads over many blocks instead of one.
+//   pass 1 (seg_pieces_kernel): one block per piece. It stages the piece's
+//     row indices in shared memory, and each thread (q, c) of a G x KC
+//     layout adds rows q, q+G, q+2G, ... of column c in that order (eight
+//     loads in flight), then a tree of fixed shape adds the G lanes: one
+//     partial row per piece.
+//   pass 2 (seg_merge_kernel): one block per segment adds the segment's
+//     pieces in the same way (G lanes over the pieces in ascending order,
+//     the same fixed tree) and writes every output row, empty segments
+//     included (as zeros).
+// No memset, no atomics, no contention on a crowded segment, and the same
+// bits on every run: the order of every addition is fixed by the plan and
+// the launch shape, which the host derives from the plan alone.
+// Bound on an H100: one read of O x K floats and of the row indices, one
+// write of S x K. The rows are gathered through `order`: a row of K floats
+// is K*4 bytes at an arbitrary offset, so at K = 3..9 each row touches one
+// or two 32-byte sectors for 12..36 useful bytes, which the L2 softens when
+// the contributions were just written (they fit its 50 MB below ~12M
+// floats); at K = 81 a row is ten sectors and the gather costs little.
+// Shared memory is static and under 48 KB, so no launch needs
+// cudaFuncSetAttribute: a CUDA runtime call, host time on every launch
+// that makes it.
 //
 // mavmap_seg_accum_sorted replaces seg_accum_sorted (_sorted_kernel): the
 // same sum for observations sorted by a gapless dense point id. The TPU
@@ -29,35 +45,80 @@
 
 namespace {
 
-constexpr int FULL_THREADS = 256;
-constexpr int FULL_SMEM_FLOATS = 24576;  // 96 KB accumulator per block
+constexpr int PIECE_THREADS = 256;      // pass 1 block
+constexpr int MAX_PIECE_ROWS = 1024;    // ops/cuda/ba_accum.py MAX_PIECE_ROWS
+constexpr int MERGE_MAX_THREADS = 1024;  // pass 2 block, at most
 constexpr int SORTED_THREADS = 256;
 
-__global__ void __launch_bounds__(FULL_THREADS)
-seg_full_kernel(const float* __restrict__ contrib, const int* __restrict__ ids, int O,
-                int K, int S, int seg_tile, int rows_per_block, float* __restrict__ out) {
-  extern __shared__ float acc[];
-  const int s0 = blockIdx.y * seg_tile;
-  const int nseg = min(seg_tile, S - s0);
-  for (int e = threadIdx.x; e < nseg * K; e += FULL_THREADS) acc[e] = 0.f;
-  __syncthreads();
-
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min((long long)O, r0 + rows_per_block);
-  for (long long e = r0 * K + threadIdx.x; e < r1 * K; e += FULL_THREADS) {
-    const long long row = e / K;
-    const int col = (int)(e - row * K);
-    const int rel = ids[row] - s0;
-    if (rel >= 0 && rel < nseg) {
-      const float v = contrib[e];
-      if (v != 0.f) atomicAdd(&acc[rel * K + col], v);
+// Column sums of n rows of src (K columns): the i-th row is rows[i]
+// (GATHER) or base + i. Thread t is lane q = t / KC of column c = t % KC
+// (G lanes, KC columns at a time); lane q adds rows q, q+G, q+2G, ... in
+// that order, then a tree of fixed shape over the lanes (its first step
+// folds lanes >= P/2 for P the power of two >= G) leaves the sum in lane 0,
+// which writes dst[column]. Every thread of the block must call it.
+template <bool GATHER>
+__device__ __forceinline__ void column_sums(const float* __restrict__ src,
+                                            const int* __restrict__ rows, int base, int n,
+                                            int K, int KC, int G, float* red,
+                                            float* __restrict__ dst) {
+  const int q = threadIdx.x / KC;
+  const int c = threadIdx.x - q * KC;
+  int P = 1;
+  while (P < G) P <<= 1;
+  for (int c0 = 0; c0 < K; c0 += KC) {
+    const int col = c0 + c;
+    const bool active = q < G && col < K;
+    if (active) {
+      float acc = 0.f;
+      int i = q;
+      for (; i + 7 * G < n; i += 8 * G) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int r = GATHER ? rows[i + u * G] : base + i + u * G;
+          v[u] = src[(size_t)r * K + col];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) acc += v[u];
+      }
+      for (; i < n; i += G) {
+        const int r = GATHER ? rows[i] : base + i;
+        acc += src[(size_t)r * K + col];
+      }
+      red[q * KC + c] = acc;
     }
+    __syncthreads();
+    for (int s = P >> 1; s >= 1; s >>= 1) {
+      if (active && q < s && q + s < G) red[q * KC + c] += red[(q + s) * KC + c];
+      __syncthreads();
+    }
+    if (active && q == 0) dst[col] = red[c];
+    __syncthreads();  // red is reused by the next column chunk
   }
+}
+
+__global__ void __launch_bounds__(PIECE_THREADS)
+seg_pieces_kernel(const float* __restrict__ contrib, const int* __restrict__ order,
+                  const int* __restrict__ piece_starts, int K, int KC, int G,
+                  float* __restrict__ partial) {
+  __shared__ int rows[MAX_PIECE_ROWS];
+  __shared__ float red[PIECE_THREADS];
+  const int p = blockIdx.x;
+  const int a = piece_starts[p];
+  const int n = piece_starts[p + 1] - a;
+  for (int i = threadIdx.x; i < n; i += PIECE_THREADS) rows[i] = order[a + i];
   __syncthreads();
-  for (int e = threadIdx.x; e < nseg * K; e += FULL_THREADS) {
-    const float v = acc[e];
-    if (v != 0.f) atomicAdd(&out[(long long)s0 * K + e], v);
-  }
+  column_sums<true>(contrib, rows, 0, n, K, KC, G, red, partial + (size_t)p * K);
+}
+
+__global__ void __launch_bounds__(MERGE_MAX_THREADS)
+seg_merge_kernel(const float* __restrict__ partial, const int* __restrict__ seg_pieces,
+                 int K, int KC, int G, float* __restrict__ out) {
+  __shared__ float red[MERGE_MAX_THREADS];
+  const int s = blockIdx.x;
+  const int a = seg_pieces[s];
+  column_sums<false>(partial, nullptr, a, seg_pieces[s + 1] - a, K, KC, G, red,
+                     out + (size_t)s * K);
 }
 
 __global__ void __launch_bounds__(SORTED_THREADS)
@@ -77,21 +138,26 @@ seg_sorted_kernel(const float* __restrict__ contrib, const int* __restrict__ off
 
 extern "C" {
 
-// out (S, K) must be zero on entry. Segment ids outside [0, S) are dropped.
-int mavmap_seg_accum_full(const float* contrib, const int* ids, int O, int K, int S,
-                          float* out, cudaStream_t stream) {
-  if (O == 0 || S == 0 || K == 0) return (int)cudaGetLastError();
-  const int seg_tile = min(S, max(1, FULL_SMEM_FLOATS / K));
-  const int n_seg_tiles = (S + seg_tile - 1) / seg_tile;
-  // About two waves of blocks over 132 SMs, at least 64 rows per block.
-  const int target_x = max(1, 264 / n_seg_tiles);
-  const int rows_per_block = max(64, (O + target_x - 1) / target_x);
-  const dim3 grid((O + rows_per_block - 1) / rows_per_block, n_seg_tiles);
-  const size_t smem = sizeof(float) * (size_t)seg_tile * K;
-  cudaFuncSetAttribute(seg_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)(sizeof(float) * FULL_SMEM_FLOATS));
-  seg_full_kernel<<<grid, FULL_THREADS, smem, stream>>>(contrib, ids, O, K, S, seg_tile,
-                                                        rows_per_block, out);
+// The plan's order (rows with ids in [0, S), sorted by id), piece_starts
+// (n_pieces + 1) and seg_pieces (S + 1), as make_plan builds them, with
+// max_pieces the most pieces of one segment. partial (n_pieces, K) is
+// scratch; out (S, K) is fully written.
+int mavmap_seg_accum_full(const float* contrib, const int* order, const int* piece_starts,
+                          int n_pieces, const int* seg_pieces, int S, int K, int max_pieces,
+                          float* partial, float* out, cudaStream_t stream) {
+  if (S == 0 || K == 0) return (int)cudaGetLastError();
+  if (n_pieces > 0) {
+    const int kc = min(K, PIECE_THREADS);
+    seg_pieces_kernel<<<n_pieces, PIECE_THREADS, 0, stream>>>(
+        contrib, order, piece_starts, K, kc, PIECE_THREADS / kc, partial);
+  }
+  // Pass 2: as many lanes per column as the longest segment has pieces
+  // (up to the block), so the camera block's hundreds of pieces are not
+  // added by one thread each.
+  const int kc = min(K, MERGE_MAX_THREADS);
+  const int g = max(1, min(max_pieces, MERGE_MAX_THREADS / kc));
+  const int threads = (kc * g + 31) / 32 * 32;
+  seg_merge_kernel<<<S, threads, 0, stream>>>(partial, seg_pieces, K, kc, g, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,14 @@
 """BA segment sums: CUDA kernels K2/K3 (csrc/ba_accum.cu) and their wrappers.
 
   seg_accum_full   — out[s] = sum over o with seg_ids[o] == s of contrib[o],
-                     ids in any order. Replaces the Pallas one-hot kernel
-                     mavmap_tpu/ops/pallas/ba_accum.py seg_accum_full
-                     (_full_kernel). Shared-memory accumulation per
-                     (observation chunk, segment tile), then global atomics:
-                     the order of the sums varies from run to run.
+                     ids in any order, ids outside [0, S) dropped. Replaces
+                     the Pallas one-hot kernel mavmap_tpu/ops/pallas/
+                     ba_accum.py seg_accum_full (_full_kernel). A host plan
+                     (`make_plan`, built once per BA problem) sorts the rows
+                     by id and cuts each segment into pieces of at most
+                     `piece_rows` rows; pass 1 sums each piece, pass 2 each
+                     segment's pieces, both in a fixed order: no atomics, no
+                     memset, and the same bits on every run.
   seg_accum_sorted — the same sum for rows sorted by a gapless dense id,
                      given as CSR offsets (rows offsets[s]:offsets[s+1] form
                      segment s). Replaces the banded Pallas kernel
@@ -15,14 +18,80 @@
                      deterministic segmented reduction.
 
 Both launch the kernel for CUDA tensors and run the plain PyTorch version
-(index_add_) for CPU tensors. On an H100 both are bound by one read of the
-(O, K) contributions (per segment tile for seg_accum_full).
+(index_add_) for CPU tensors, where seg_accum_full ignores the plan. On an
+H100 both are bound by one read of the (O, K) contributions.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import build
+
+PIECE_ROWS = 256       # default rows per piece: one pass-1 block each
+MAX_PIECE_ROWS = 1024  # pass 1 stages a piece's row indices in shared memory
+
+
+class SegPlan(NamedTuple):
+    """The host plan of seg_accum_full for one id array: numpy arrays from
+    `make_plan`, tensors after `to(device)`.
+
+    order         (N,) int32: the rows whose id lies in [0, S), stably
+                  sorted by id (the JAX problem's by-image sort, img_order,
+                  plays this part there);
+    seg_offsets   (S + 1,) int32: segment s is order[seg_offsets[s]:
+                  seg_offsets[s + 1]];
+    piece_starts  (n_pieces + 1,) int32: piece p is order[piece_starts[p]:
+                  piece_starts[p + 1]], at most piece_rows rows, never
+                  across two segments;
+    seg_pieces    (S + 1,) int32: segment s is pieces seg_pieces[s]:
+                  seg_pieces[s + 1] (none for an empty segment);
+    num_rows      rows of the id array, which the contributions must have;
+    piece_rows    the piece length cap;
+    max_pieces    the most pieces of one segment (sizes pass 2's blocks).
+    """
+
+    order: object
+    seg_offsets: object
+    piece_starts: object
+    seg_pieces: object
+    num_rows: int
+    piece_rows: int
+    max_pieces: int
+
+    @property
+    def num_segments(self):
+        return self.seg_offsets.shape[0] - 1
+
+    def to(self, device):
+        return self._replace(**{f: torch.as_tensor(getattr(self, f), device=device)
+                                for f in ("order", "seg_offsets", "piece_starts",
+                                          "seg_pieces")})
+
+
+def make_plan(seg_ids, num_segments, piece_rows=PIECE_ROWS):
+    """Host: the SegPlan of `seg_ids` (any order) into `num_segments`
+    segments. Ids outside [0, num_segments) are left out."""
+    if not 0 < piece_rows <= MAX_PIECE_ROWS:
+        raise ValueError(f"piece_rows {piece_rows} not in [1, {MAX_PIECE_ROWS}]")
+    ids = np.asarray(seg_ids).astype(np.int64)
+    kept = np.flatnonzero((ids >= 0) & (ids < num_segments))
+    key = ids[kept]
+    # A stable sort; numpy's is a radix sort for 16-bit keys.
+    order = kept[np.argsort(key.astype(np.uint16) if num_segments <= 1 << 16 else key,
+                            kind="stable")]
+    counts = np.bincount(key, minlength=num_segments)
+    seg_offsets = np.concatenate([[0], np.cumsum(counts)])
+    n_pieces = -(-counts // piece_rows)
+    seg_pieces = np.concatenate([[0], np.cumsum(n_pieces)])
+    piece_seg = np.repeat(np.arange(num_segments), n_pieces)
+    rank = np.arange(len(piece_seg)) - seg_pieces[piece_seg]  # piece's rank in its segment
+    piece_starts = np.append(seg_offsets[piece_seg] + rank * piece_rows, len(order))
+    return SegPlan(order=order.astype(np.int32), seg_offsets=seg_offsets.astype(np.int32),
+                   piece_starts=piece_starts.astype(np.int32),
+                   seg_pieces=seg_pieces.astype(np.int32), num_rows=len(ids),
+                   piece_rows=int(piece_rows), max_pieces=int(n_pieces.max(initial=0)))
 
 
 def offsets_from_sorted_ids(seg_ids, num_segments, num_rows=None):
@@ -38,50 +107,64 @@ def offsets_from_sorted_ids(seg_ids, num_segments, num_rows=None):
 
 
 def seg_accum_full_plain(contrib, seg_ids, num_segments):
-    """Plain PyTorch version of seg_accum_full (ids outside [0, S) dropped)."""
+    """Plain PyTorch version of seg_accum_full (ids outside [0, S) dropped).
+
+    Dropped rows land on a spare last row instead of being masked out, so
+    the host never waits for the device (a CUDA graph can hold the call)."""
     ids = seg_ids.long()
-    keep = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros((num_segments, contrib.shape[1]), dtype=torch.float32,
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    out = torch.zeros((num_segments + 1, contrib.shape[1]), dtype=torch.float32,
                       device=contrib.device)
-    return out.index_add_(0, ids[keep], contrib[keep].float())
+    return out.index_add_(0, ids, contrib.float())[:num_segments]
 
 
-def _seg_accum_full_cuda(contrib, seg_ids, num_segments):
+def _seg_accum_full_cuda(contrib, plan, num_segments):
     dev = contrib.device
     build.require(contrib, "contrib", torch.float32, 2, dev)
-    build.require(seg_ids, "seg_ids", torch.int32, 1, dev)
+    for name in ("order", "piece_starts", "seg_pieces"):
+        build.require(getattr(plan, name), f"plan.{name}", torch.int32, 1, dev)
     O, K = contrib.shape
-    if seg_ids.shape[0] != O:
-        raise ValueError(f"seg_ids: {seg_ids.shape[0]} rows, contrib has {O}")
-    if K > 24576:
-        raise ValueError(f"seg_accum_full: K={K} exceeds the 96 KB accumulator")
-    out = torch.zeros((num_segments, K), dtype=torch.float32, device=dev)
+    if plan.num_rows != O or plan.num_segments != num_segments:
+        raise ValueError(f"seg_accum_full: a plan of {plan.num_rows} rows into "
+                         f"{plan.num_segments} segments for ({O}, {K}) -> {num_segments}")
+    if plan.piece_rows > MAX_PIECE_ROWS:
+        raise ValueError(f"seg_accum_full: pieces of {plan.piece_rows} rows")
+    n_pieces = plan.piece_starts.shape[0] - 1
+    partial = torch.empty((n_pieces, K), dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, K), dtype=torch.float32, device=dev)
     build.check(build.library().mavmap_seg_accum_full(
-        contrib.data_ptr(), seg_ids.data_ptr(), O, K, int(num_segments),
-        out.data_ptr(), build.stream_ptr(dev)), "mavmap_seg_accum_full")
+        contrib.data_ptr(), plan.order.data_ptr(), plan.piece_starts.data_ptr(), n_pieces,
+        plan.seg_pieces.data_ptr(), int(num_segments), K, int(plan.max_pieces),
+        partial.data_ptr(), out.data_ptr(), build.stream_ptr(dev)), "mavmap_seg_accum_full")
     build.launches["seg_accum_full"] += 1
     return out
 
 
-def seg_accum_full(contrib, seg_ids, num_segments):
+def seg_accum_full(contrib, seg_ids, num_segments, plan=None):
     """out[s, :] = sum over o with seg_ids[o] == s of contrib[o, :].
 
-    contrib: (O, K) f32; seg_ids: (O,) int32, any order."""
+    contrib: (O, K) f32; seg_ids: (O,) int32, any order. A CUDA call needs
+    `plan`, the SegPlan of seg_ids on the same device (make_plan(...).to),
+    and raises without one: the sort is host work, done once per problem.
+    A CPU call runs the plain version and ignores the plan."""
     if contrib.is_cuda:
-        return _seg_accum_full_cuda(contrib, seg_ids, num_segments)
+        if plan is None:
+            raise ValueError("seg_accum_full: a CUDA call needs the ids' plan "
+                             "(make_plan on the host, then .to(device))")
+        return _seg_accum_full_cuda(contrib, plan, num_segments)
     return seg_accum_full_plain(contrib, seg_ids, num_segments)
 
 
 def seg_accum_sorted_plain(contrib, offsets, num_segments):
-    """Plain PyTorch version of seg_accum_sorted."""
-    counts = (offsets[1:] - offsets[:-1]).long()
-    ids = torch.repeat_interleave(
-        torch.arange(num_segments, device=contrib.device), counts)
-    lo = int(offsets[0])
-    rows = contrib[lo: lo + ids.shape[0]].float()
-    out = torch.zeros((num_segments, contrib.shape[1]), dtype=torch.float32,
+    """Plain PyTorch version of seg_accum_sorted. Each row's segment is
+    found by a search of the offsets; rows outside offsets[0]:offsets[-1]
+    land on a spare last row (no host sync, as in seg_accum_full_plain)."""
+    rows = torch.arange(contrib.shape[0], device=contrib.device)
+    ids = torch.searchsorted(offsets.long(), rows, right=True) - 1
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    out = torch.zeros((num_segments + 1, contrib.shape[1]), dtype=torch.float32,
                       device=contrib.device)
-    return out.index_add_(0, ids, rows)
+    return out.index_add_(0, ids, contrib.float())[:num_segments]
 
 
 def _seg_accum_sorted_cuda(contrib, offsets, num_segments):

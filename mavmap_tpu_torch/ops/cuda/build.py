@@ -86,13 +86,11 @@ def library():
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.mavmap_match_tiles.argtypes = [P, P, P, P, P, P, ctypes.c_float, I,
-                                       I, I, I, P, P, P, P, P]
-    lib.mavmap_match_merge_cols.argtypes = [P, P, I, I, P, P, P]
-    lib.mavmap_seg_accum_full.argtypes = [P, P, I, I, I, P, P]
+    lib.mavmap_match.argtypes = [P, P, P, P, P, P, ctypes.c_float, I, I, I, I,
+                                 P, P, P, P, P, P, P, P, P]
+    lib.mavmap_seg_accum_full.argtypes = [P, P, P, I, P, I, I, I, P, P, P]
     lib.mavmap_seg_accum_sorted.argtypes = [P, P, I, I, P, P]
-    for fn in (lib.mavmap_match_tiles, lib.mavmap_match_merge_cols,
-               lib.mavmap_seg_accum_full, lib.mavmap_seg_accum_sorted):
+    for fn in (lib.mavmap_match, lib.mavmap_seg_accum_full, lib.mavmap_seg_accum_sorted):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -10,7 +10,8 @@ outputs, as they stay in XLA around the pallas_call.
 `match_raw` launches the kernel for CUDA tensors and runs `match_raw_plain`
 (the same arithmetic over the whole matrix in PyTorch) for CPU tensors.
 On an H100 the kernel is bound by its 2*N1*N2*D f32 FMAs; see
-csrc/match.cu for the design.
+csrc/match.cu for the design (64 x 64 register-tiled output tiles, then a
+merge of the per-tile partials).
 """
 
 import torch
@@ -20,7 +21,7 @@ from . import build
 TILE_M = 128  # row padding quantum (the TPU kernel's tile)
 TILE_N = 128  # column padding quantum
 BIG = 1e30    # mask penalty: "infinitely far" while staying finite in f32
-_KTM = 16     # rows per block of the CUDA kernel (csrc/match.cu TM)
+_BM, _BN, _BK = 64, 64, 32  # csrc/match.cu: output tile and descriptor stage
 
 
 def match_raw_plain(d1, rowpen, d2, pen2, kp1=None, kp2=None, maxd2=None):
@@ -50,36 +51,35 @@ def _match_raw_cuda(d1, rowpen, d2, pen2, kp1=None, kp2=None, maxd2=None):
     dev = d1.device
     N1, D = d1.shape
     N2 = d2.shape[0]
-    if N1 % _KTM or N2 % 64 or d2.shape[1] != D:
+    if N1 % _BM or N2 % _BN or D % _BK or d2.shape[1] != D:
         raise ValueError(f"match kernel: shapes {tuple(d1.shape)} x {tuple(d2.shape)} "
-                         "need N1 % 16 == 0, N2 % 64 == 0 and equal D")
+                         f"need N1 % {_BM} == 0, N2 % {_BN} == 0, D % {_BK} == 0 and equal D")
     f32 = torch.float32
     for name, t, nd in (("d1", d1, 2), ("d2", d2, 2), ("rowpen", rowpen, 1),
                         ("pen2", pen2, 1)):
         build.require(t, name, f32, nd, dev)
+    if d1.data_ptr() % 16 or d2.data_ptr() % 16:
+        raise ValueError("match kernel: d1 and d2 must be 16-byte aligned (cp.async)")
     use_kp = kp1 is not None
     if use_kp:
         build.require(kp1, "kp1", f32, 2, dev)
         build.require(kp2, "kp2", f32, 2, dev)
-    n_tiles = N1 // _KTM
-    row_arg = torch.empty(N1, dtype=torch.int32, device=dev)
-    row_d = torch.empty((N1, 2), dtype=f32, device=dev)
-    part_d = torch.empty((n_tiles, 2, N2), dtype=f32, device=dev)
-    part_arg = torch.empty((n_tiles, N2), dtype=torch.int32, device=dev)
-    col_arg = torch.empty(N2, dtype=torch.int32, device=dev)
-    col_d = torch.empty((2, N2), dtype=f32, device=dev)
-    lib = build.library()
-    stream = build.stream_ptr(dev)
-    build.check(lib.mavmap_match_tiles(
+    # Two allocations, split into the per-tile partials and the outputs.
+    n_ct, n_rt = N2 // _BN, N1 // _BM
+    sizes = (n_ct * N1, n_rt * N2, N1, N2)
+    row_part_d, col_part_d, row_d, col_d = torch.empty(
+        2 * sum(sizes), dtype=f32, device=dev).split([2 * n for n in sizes])
+    row_part_arg, col_part_arg, row_arg, col_arg = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+    build.check(build.library().mavmap_match(
         d1.data_ptr(), d2.data_ptr(), rowpen.data_ptr(), pen2.data_ptr(),
         kp1.data_ptr() if use_kp else None, kp2.data_ptr() if use_kp else None,
         float(maxd2) if use_kp else 0.0, int(use_kp), N1, N2, D,
-        row_arg.data_ptr(), row_d.data_ptr(), part_d.data_ptr(),
-        part_arg.data_ptr(), stream), "mavmap_match_tiles")
-    build.check(lib.mavmap_match_merge_cols(
-        part_d.data_ptr(), part_arg.data_ptr(), n_tiles, N2,
-        col_arg.data_ptr(), col_d.data_ptr(), stream), "mavmap_match_merge_cols")
+        row_part_d.data_ptr(), row_part_arg.data_ptr(), col_part_d.data_ptr(),
+        col_part_arg.data_ptr(), row_arg.data_ptr(), row_d.data_ptr(), col_arg.data_ptr(),
+        col_d.data_ptr(), build.stream_ptr(dev)), "mavmap_match")
     build.launches["match"] += 1
+    row_d, col_d = row_d.view(N1, 2), col_d.view(2, N2)
     return row_arg, row_d[:, 0], row_d[:, 1], col_arg, col_d[0], col_d[1]
 
 
@@ -95,20 +95,22 @@ def padded_operands(d1, d2, mask1=None, mask2=None, kp1=None, kp2=None,
                     max_distance=None):
     """The kernel's operands for one descriptor pair, as `match_raw` takes
     them: rows and columns padded to multiples of 128 (padding masked, as
-    the TPU wrapper pads ragged capacities), the 1e30 mask penalties folded
-    into `rowpen` and `pen2` = |d2_j|^2 + penalty, and the squared pixel
-    prefilter radius (keypoints None without a prefilter)."""
+    the TPU wrapper pads ragged capacities) and the descriptor to a multiple
+    of 32 dims (zeros: the distances do not change), the 1e30 mask
+    penalties folded into `rowpen` and `pen2` = |d2_j|^2 + penalty, and the
+    squared pixel prefilter radius (keypoints None without a prefilter)."""
     dev = d1.device
     N1_in, N2_in = d1.shape[0], d2.shape[0]
     pad1 = -(-N1_in // TILE_M) * TILE_M - N1_in
     pad2 = -(-N2_in // TILE_N) * TILE_N - N2_in
+    padd = -d1.shape[1] % _BK
     F = torch.nn.functional
     if mask1 is None:
         mask1 = torch.ones(N1_in, dtype=torch.bool, device=dev)
     if mask2 is None:
         mask2 = torch.ones(N2_in, dtype=torch.bool, device=dev)
-    d1 = F.pad(d1.float(), (0, 0, 0, pad1)).contiguous()
-    d2 = F.pad(d2.float(), (0, 0, 0, pad2)).contiguous()
+    d1 = F.pad(d1.float(), (0, padd, 0, pad1)).contiguous()
+    d2 = F.pad(d2.float(), (0, padd, 0, pad2)).contiguous()
     mask1 = F.pad(mask1, (0, pad1))  # padding is False: BIG row penalty
     mask2 = F.pad(mask2, (0, pad2))
     zero = torch.zeros((), device=dev)

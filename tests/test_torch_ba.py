@@ -69,6 +69,92 @@ def test_seg_accum_full_plain_matches_pallas(rng, O, K, S):
     assert np.all(got[np.bincount(ids, minlength=S) == 0] == 0.0)
 
 
+@pytest.mark.parametrize("O,K,S", [(5000, 42, 37), (3000, 3, 2500), (100, 81, 9)])
+def test_seg_accum_full_with_plan_matches_pallas(rng, O, K, S):
+    """A CPU call with the ids' plan runs the plain version too (the plan
+    is ignored there) and matches the Pallas kernel as a call without one."""
+    c = rng.normal(size=(O, K)).astype(np.float32)
+    ids = rng.integers(0, S, size=O).astype(np.int32)
+    plan = ka.make_plan(ids, S).to(CPU)
+    got = ka.seg_accum_full(torch.as_tensor(c), torch.as_tensor(ids), S, plan).numpy()
+    ref = np.asarray(j_full(jnp.asarray(c), jnp.asarray(ids), S, interpret=True))
+    scale = np.zeros((S, K), np.float32)
+    np.add.at(scale, ids, np.abs(c))
+    assert np.all(np.abs(got - ref) <= 1e-5 * scale + 1e-6)
+    without = ka.seg_accum_full(torch.as_tensor(c), torch.as_tensor(ids), S).numpy()
+    np.testing.assert_array_equal(got, without)
+
+
+@pytest.mark.parametrize("piece_rows", [256, 7, 1024])
+def test_make_plan_against_numpy(rng, piece_rows):
+    """The plan: order is numpy's stable sort of the in-range ids (ids
+    outside [0, S) dropped), seg_offsets its CSR offsets, and the pieces
+    cover every segment exactly once, in order, at most piece_rows rows
+    each, never across segments. Segment 5 is far longer than a piece;
+    segments 0, 7 and S - 1 are empty."""
+    S = 12
+    ids = rng.integers(1, S - 1, size=3000)
+    ids = ids[ids != 7]
+    ids = np.concatenate([ids, np.full(2900, 5), [-1, S, S + 40, -7]])
+    ids = rng.permutation(ids).astype(np.int32)
+    plan = ka.make_plan(ids, S, piece_rows)
+    keep = np.flatnonzero((ids >= 0) & (ids < S))
+    np.testing.assert_array_equal(plan.order, keep[np.argsort(ids[keep], kind="stable")])
+    assert plan.order.dtype == np.int32 and plan.num_rows == len(ids)
+    counts = np.bincount(ids[keep], minlength=S)
+    np.testing.assert_array_equal(np.diff(plan.seg_offsets), counts)
+    assert plan.num_segments == S and counts[[0, 7, S - 1]].sum() == 0
+    assert plan.piece_starts[0] == 0 and plan.piece_starts[-1] == len(plan.order)
+    lens = np.diff(plan.piece_starts)
+    assert lens.min() >= 1 and lens.max() <= piece_rows
+    for s in range(S):
+        p0, p1 = plan.seg_pieces[s], plan.seg_pieces[s + 1]
+        assert p1 - p0 == -(-counts[s] // piece_rows)
+        if counts[s]:  # the segment's pieces tile exactly its rows
+            assert plan.piece_starts[p0] == plan.seg_offsets[s]
+            assert plan.piece_starts[p1] == plan.seg_offsets[s + 1]
+    assert plan.max_pieces == -(-counts.max() // piece_rows)
+    with pytest.raises(ValueError):
+        ka.make_plan(ids, S, 2048)
+
+
+def _emulate_planned_sum(c, plan):
+    """The kernel's two passes in plain torch: pass 1 sums each piece's
+    rows, gathered through order; pass 2 sums each segment's pieces."""
+    order = plan.order.long()
+    ps = plan.piece_starts.tolist()
+    partial = torch.stack([c[order[a:b]].sum(0) for a, b in zip(ps[:-1], ps[1:])]) \
+        if len(ps) > 1 else c.new_zeros((0, c.shape[1]))
+    sp = plan.seg_pieces.tolist()
+    return torch.stack([partial[a:b].sum(0) for a, b in zip(sp[:-1], sp[1:])])
+
+
+def test_problem_plans_emulated_two_passes_match_plain(rng):
+    """The three plans of a bucketed self-calibrating problem (image ids,
+    both block entries, the four Hessian entry pairs), padding rows
+    included, give through the kernel's two passes what the plain version
+    gives on the ids the solvers build on the device."""
+    poses, X, K, models, oi, op, oc, uv, states = _scene(rng)
+    prob = problem_to_device(build_problem(poses, X, K, models, oi, op, oc, uv,
+                                           pose_states=states, bucket=True), CPU)
+    I, C = prob.poses.shape[0], prob.cam_params.shape[0]
+    B = I + C
+    O = prob.obs_image.shape[0]
+    assert O > len(oi)  # padding rows
+    blk = torch.stack([prob.obs_image, I + prob.obs_cam], dim=1)
+    ids2 = torch.cat([blk[:, 0], blk[:, 1]])
+    hess = torch.cat([blk[:, a] * B + blk[:, b] for a in range(2) for b in range(2)])
+    for plan, ids, S, Kc in ((prob.plan_img, prob.obs_image, I, 42),
+                             (prob.plan_blk, ids2, B, 9), (prob.plan_hess, hess, B * B, 81)):
+        assert plan.num_rows == ids.shape[0] and plan.num_segments == S
+        c = torch.as_tensor(rng.normal(size=(ids.shape[0], Kc)).astype(np.float32))
+        got = _emulate_planned_sum(c, plan)
+        ref = ka.seg_accum_full_plain(c, ids.to(torch.int32), S)
+        scale = ka.seg_accum_full_plain(c.abs(), ids.to(torch.int32), S)
+        assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    assert prob.plan_blk.max_pieces > 1  # the camera block spans many pieces
+
+
 @pytest.mark.parametrize("case", ["tracks", "straddle"])
 def test_seg_accum_sorted_plain_matches_pallas(rng, case):
     if case == "tracks":  # > 2048 segments, segments cross the 1024-row tiles
@@ -127,12 +213,17 @@ def test_build_problem_and_conversion_match_jax(rng):
     kw = dict(pose_states=states, point_fixed=point_fixed, bucket=True)
     pj = j_build(poses, X, K, models, oi, op, oc, uv, host=True, **kw)
     pt = build_problem(poses, X, K, models, oi, op, oc, uv, **kw)
+    own = ("pt_offsets", "plan_img", "plan_blk", "plan_hess")  # the port's own fields
     for f in pt._fields:
-        if f != "pt_offsets":
+        if f not in own:
             np.testing.assert_array_equal(getattr(pt, f), np.asarray(getattr(pj, f)), f)
     conv = problem_from_jax(pj)
     for f in pt._fields:
-        np.testing.assert_array_equal(getattr(conv, f), getattr(pt, f), f)
+        if f.startswith("plan_"):
+            for k, (a, b) in enumerate(zip(getattr(conv, f), getattr(pt, f))):
+                np.testing.assert_array_equal(a, b, f"{f}[{k}]")
+        else:
+            np.testing.assert_array_equal(getattr(conv, f), getattr(pt, f), f)
     # CSR offsets bound each dense point's real observations.
     n = int(pt.obs_mask.sum())
     ids = np.repeat(np.arange(len(pt.point_rows)), np.diff(pt.pt_offsets))

@@ -8,8 +8,10 @@ without JAX — without the suite's conftest.py, which imports jax:
 
 Tolerances: K1 distances 1e-5 with indices equal except at near-ties
 (best and second within 1e-5: f32 dot products summed in another order
-may swap them); K2/K3 1e-5 of the per-segment sum of |contrib| (K2 adds
-with atomics, in an order that changes from run to run).
+may swap them), exact ties to the lower index; K2/K3 1e-5 of the
+per-segment sum of |contrib| (their sums run in another order than
+index_add_'s). K2 adds in an order fixed by its plan: repeated calls are
+bitwise equal.
 """
 
 import numpy as np
@@ -51,6 +53,17 @@ def _pair(rng, N1, N2, D=128):
     return d1, d2, m1, m2, kp1, kp2
 
 
+def _check_match(got, ref):
+    """Kernel against plain: indices equal off near-ties, distances 1e-5,
+    masked distances exact."""
+    for a, b, s in ((0, 1, 2), (3, 4, 5)):
+        near_tie = (ref[s] - ref[b]) <= 1e-5
+        assert bool(((got[a] == ref[a]) | near_tie).all())
+        real = ref[b] < 1e29
+        assert float((got[b] - ref[b]).abs()[real].max()) <= 1e-5
+        assert torch.equal(got[b][~real], ref[b][~real])
+
+
 @pytest.mark.parametrize("N1,N2", [(1024, 1024), (1000, 937)])
 def test_match_kernel_vs_plain(dev, rng, N1, N2):
     d1, d2, m1, m2, kp1, kp2 = _pair(rng, N1, N2)
@@ -61,15 +74,52 @@ def test_match_kernel_vs_plain(dev, rng, N1, N2):
     ref = km.match_raw_plain(*args)
     torch.cuda.synchronize()
     assert build.launches["match"] == before + 1
-    for a, b, s in ((0, 1, 2), (3, 4, 5)):
-        near_tie = (ref[s] - ref[b]) <= 1e-5
-        assert bool(((got[a] == ref[a]) | near_tie).all())
-        real = ref[b] < 1e29
-        assert float((got[b] - ref[b]).abs()[real].max()) <= 1e-5
-        assert torch.equal(got[b][~real], ref[b][~real])
+    _check_match(got, ref)
     mk, _ = match_features(*[torch.as_tensor(a, device=dev) for a in (d1, d2, m1, m2)])
     mc, _ = match_features(*[torch.as_tensor(a) for a in (d1, d2, m1, m2)])
     assert int((mk.cpu() != mc).sum()) <= 2
+
+
+@pytest.mark.parametrize("N1,N2", [(1024, 1024), (1000, 937)])
+def test_match_kernel_exact_ties_go_to_lower_index(dev, rng, N1, N2):
+    """Exact ties in both directions. Row r of d1 copied into columns a < b
+    of d2 gives row r two equal best distances: its argmin is a, its second
+    equals its best, and no row picks b. Column c of d2 copied into rows
+    a < b of d1 does the same for column c. The pairs sit in different
+    64-wide tiles and in the same one, so both the in-tile and the
+    cross-tile merges decide."""
+    d1, d2, m1, m2, kp1, kp2 = _pair(rng, N1, N2)
+    m1[:] = True
+    m2[:] = True
+    dup2 = {100: (3, 70), 7: (5, 9), 512: (200, 900)}    # row r -> columns a, b
+    dup1 = {40: (10, 600), 300: (17, 30), 128: (64, 65)}  # column c -> rows a, b
+    for r, (a, b) in dup2.items():
+        d2[a], d2[b], kp2[a], kp2[b] = d1[r], d1[r], kp1[r], kp1[r]
+    for c, (a, b) in dup1.items():
+        d1[a], d1[b], kp1[a], kp1[b] = d2[c], d2[c], kp2[c], kp2[c]
+    args = km.padded_operands(*[torch.as_tensor(x, device=dev)
+                                for x in (d1, d2, m1, m2, kp1, kp2)], max_distance=60.0)
+    got = km.match_raw(*args)
+    _check_match(got, km.match_raw_plain(*args))
+    row_arg, row_best, row_second, col_arg, col_best, col_second = (x.cpu() for x in got)
+    for r, (a, b) in dup2.items():
+        assert row_arg[r] == a and row_second[r] == row_best[r]
+        assert not bool((row_arg[:N1] == b).any())
+    for c, (a, b) in dup1.items():
+        assert col_arg[c] == a and col_second[c] == col_best[c]
+        assert not bool((col_arg[:N2] == b).any())
+
+
+def test_match_kernel_refuses_untiled_shapes(dev):
+    x = torch.zeros((100, 128), device=dev)
+    pen = torch.zeros(100, device=dev)
+    with pytest.raises(ValueError):
+        km.match_raw(x, pen, x, pen)
+
+
+def _planned(c, ids, S):
+    plan = ka.make_plan(ids.cpu().numpy(), S).to(c.device)
+    return ka.seg_accum_full(c, ids, S, plan)
 
 
 @pytest.mark.parametrize("O,K,S", [(8192, 9, 17), (8192, 81, 17), (32768, 81, 289),
@@ -77,7 +127,7 @@ def test_match_kernel_vs_plain(dev, rng, N1, N2):
 def test_seg_accum_full_kernel_vs_plain(dev, rng, O, K, S):
     c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
     ids = torch.as_tensor(rng.integers(0, S, O).astype(np.int32), device=dev)
-    got = ka.seg_accum_full(c, ids, S)
+    got = _planned(c, ids, S)
     ref = ka.seg_accum_full_plain(c, ids, S)
     scale = ka.seg_accum_full_plain(c.abs(), ids, S)
     assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
@@ -91,12 +141,52 @@ def test_seg_accum_full_kernel_vs_plain_cg_matvec(dev, rng, K, S):
     O = 40960 * (2 if K == 9 else 1)
     c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
     ids = torch.as_tensor(np.sort(rng.integers(0, S, O)).astype(np.int32), device=dev)
+    plan = ka.make_plan(ids.cpu().numpy(), S).to(dev)
     before = build.launches["seg_accum_full"]
-    got = ka.seg_accum_full(c, ids, S)
+    got = ka.seg_accum_full(c, ids, S, plan)
     assert build.launches["seg_accum_full"] == before + 1
     ref = ka.seg_accum_full_plain(c, ids, S)
     scale = ka.seg_accum_full_plain(c.abs(), ids, S)
     assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("case", ["all_one_id", "half_one_id", "random", "out_of_range"])
+@pytest.mark.parametrize("K", [9, 81])
+def test_seg_accum_full_kernel_is_bitwise_repeatable(dev, rng, case, K):
+    """Repeated calls give the same bits: every row on one id (the camera
+    block's own reduction), half the rows on one id (both entries of every
+    observation, the camera block taking the second half), random ids, and
+    ids outside [0, S), which are dropped."""
+    O, S = 151552, 201
+    if case == "all_one_id":
+        ids = np.full(O, 200)
+    elif case == "half_one_id":
+        ids = np.concatenate([rng.integers(0, 200, O // 2), np.full(O // 2, 200)])
+    elif case == "random":
+        ids = rng.integers(0, S, O)
+    else:
+        ids = rng.integers(-20, S + 20, O)
+    c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
+    ids = torch.as_tensor(ids.astype(np.int32), device=dev)
+    plan = ka.make_plan(ids.cpu().numpy(), S).to(dev)
+    outs = [ka.seg_accum_full(c, ids, S, plan) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = ka.seg_accum_full_plain(c, ids, S)
+    scale = ka.seg_accum_full_plain(c.abs(), ids, S)
+    assert bool(((outs[0] - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_seg_accum_full_kernel_needs_a_matching_plan(dev, rng):
+    """A CUDA call without a plan raises (the sort is host work, done once
+    per problem), and so does a plan of other ids' shape."""
+    c = torch.zeros((64, 9), device=dev)
+    ids = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ka.seg_accum_full(c, ids, 4)
+    with pytest.raises(ValueError):
+        ka.seg_accum_full(c, ids, 4, ka.make_plan(np.zeros(63, np.int32), 4).to(dev))
+    with pytest.raises(ValueError):
+        ka.seg_accum_full(c, ids, 5, ka.make_plan(np.zeros(64, np.int32), 4).to(dev))
 
 
 @pytest.mark.parametrize("O,K", [(8192, 12), (20480, 3), (40960, 3)])

@@ -108,3 +108,45 @@ def test_kernel_plain_version_equals_pallas_raw(rng, interpret_pallas):
         real = r < 1e29
         np.testing.assert_allclose(g[real], r[real], rtol=0, atol=1e-5)
         np.testing.assert_array_equal(g[~real], r[~real])
+
+
+def test_kernel_plain_version_exact_ties_equal_pallas(rng, interpret_pallas):
+    """Exact ties in both directions (a row of d1 copied into two columns
+    of d2, a column of d2 copied into two rows of d1) go to the lower index
+    in the kernel's plain version as in the Pallas kernel; the CUDA kernel
+    is held to the plain version on the card (tests/test_torch_gpu.py)."""
+    pm = interpret_pallas
+    d1, d2, m1, m2, kp1, kp2 = _pair(rng, 256, 256)
+    m1[:] = True
+    m2[:] = True
+    for r, (a, b) in {100: (3, 70), 7: (5, 9)}.items():
+        d2[a], d2[b], kp2[a], kp2[b] = d1[r], d1[r], kp1[r], kp1[r]
+    for c, (a, b) in {40: (10, 200), 30: (17, 31)}.items():
+        d1[a], d1[b], kp1[a], kp1[b] = d2[c], d2[c], kp2[c], kp2[c]
+    ops = km.padded_operands(*_t(d1, d2, m1, m2, kp1, kp2), max_distance=60.0)
+    got = km.match_raw_plain(*ops)
+    rowpen, pen2 = ops[1].numpy(), ops[3].numpy()
+    ref = pm._match_pallas_raw(*_j(d1, rowpen[:, None], d2, pen2[None, :], kp1, kp2), 60.0)
+    for k in (0, 3):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+    assert int(got[0][100]) == 3 and int(got[0][7]) == 5
+    assert int(got[3][40]) == 10 and int(got[3][30]) == 17
+
+
+@pytest.mark.parametrize("D", [100, 128])
+def test_padded_operands_pad_descriptors_to_the_kernel_stage(rng, D):
+    """padded_operands pads rows and columns to 128 and the descriptor to a
+    multiple of 32 dims with zeros: the plain version's 2-NN statistics on
+    the padded operands equal those of the unpadded descriptors."""
+    d1, d2, m1, m2, kp1, kp2 = _pair(rng, 200, 150, D=D)
+    ops = km.padded_operands(*_t(d1, d2, m1, m2, kp1, kp2), max_distance=60.0)
+    assert ops[0].shape == (256, -(-D // 32) * 32) and ops[2].shape == (256, ops[0].shape[1])
+    got = km.match_raw_plain(*ops)
+    ref = km.match_raw_plain(torch.nn.functional.pad(torch.as_tensor(d1), (0, 0, 0, 56)),
+                             ops[1],
+                             torch.nn.functional.pad(torch.as_tensor(d2), (0, 0, 0, 106)),
+                             ops[3], *ops[4:])
+    for k in (0, 3):
+        np.testing.assert_array_equal(got[k].numpy(), ref[k].numpy())
+    for k in (1, 2, 4, 5):
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=1e-5)
