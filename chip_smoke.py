@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of mavmap_tpu_torch on one CUDA GPU (run from the repo root).
 
-    python3 chip_smoke.py [--kernels-only] [--survey-ids NPZ]
+    python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -36,12 +36,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 10. prints the kernels' JSON line, the card line, and last the result line.
 
 The launch counters are zeroed just before each mapping phase (5-7, 9) and
-read just after it. --kernels-only runs phases 1-4 (and 8 on the ids that
-an earlier full run saved with --survey-ids) and 10, so two checkouts can
-be timed in one call. Imports nothing of JAX or of the JAX package.
+read just after it. Imports nothing of JAX or of the JAX package.
 """
 
-import argparse
 import json
 import math
 import os
@@ -674,6 +671,7 @@ def survey_phase(torch, dev):
     the global problem as built for the kernel checks)."""
     import numpy as np
     from mavmap_tpu_torch.ba import build_problem
+    from mavmap_tpu_torch.ba.core import solver_plans, with_plans
     from mavmap_tpu_torch.ops.cuda import build
     from mavmap_tpu_torch.utils.synthetic import make_uav_scene, mapper_ate, render_features
 
@@ -703,6 +701,17 @@ def survey_phase(torch, dev):
                          oi, op, oc, xy, bucket=True)
     g = s["global"]
     cg = g["cg_iters"]
+    # Host time of the K2 plans of this problem: those of the solver that
+    # ran (what bundle_adjust builds) and all three.
+    names = solver_plans(True, g["solver"])
+    t0 = time.perf_counter()
+    with_plans(prob, names)
+    t1 = time.perf_counter()
+    with_plans(prob)
+    t2 = time.perf_counter()
+    print(f"survey global problem's K2 plans: {1000 * (t1 - t0):.1f} ms of host time for "
+          f"the {g['solver']} solver's {list(names)}, {1000 * (t2 - t1):.1f} ms for all three",
+          flush=True)
     print(f"survey global BA: {g['num_residuals'] // 2} observations "
           f"(capacity {prob.obs_image.shape[0]}), {len(points)} points "
           f"({prob.point_rows.shape[0]} dense rows), {prob.poses.shape[0]} pose blocks + "
@@ -719,17 +728,7 @@ def survey_phase(torch, dev):
     return launches, prob
 
 
-def survey_ids(prob):
-    """The id arrays of the survey's global problem that the kernel checks
-    at its shapes need (saved with --survey-ids for a --kernels-only run)."""
-    import numpy as np
-
-    return {"obs_image": np.asarray(prob.obs_image), "obs_cam": np.asarray(prob.obs_cam),
-            "pt_offsets": np.asarray(prob.pt_offsets),
-            "num_images": prob.poses.shape[0], "num_cams": prob.cam_params.shape[0]}
-
-
-def check_survey_shapes(torch, dev, ids):
+def check_survey_shapes(torch, dev, prob):
     """K2/K3 at the survey's global CG shapes, random values on the real ids:
     K2 (2O, 9) and (2O, 81) into the B = I + C blocks (the selfcal matvec
     and preconditioner reduce both entries of every observation at once),
@@ -739,11 +738,11 @@ def check_survey_shapes(torch, dev, ids):
     import numpy as np
 
     rng = np.random.default_rng(3)
-    I, C = int(ids["num_images"]), int(ids["num_cams"])
+    I, C = prob.poses.shape[0], prob.cam_params.shape[0]
     B = I + C
-    obs_image = ids["obs_image"].astype(np.int32)
+    obs_image = prob.obs_image.astype(np.int32)
     O = len(obs_image)
-    ids2 = np.concatenate([obs_image, I + ids["obs_cam"]]).astype(np.int32)
+    ids2 = np.concatenate([obs_image, I + prob.obs_cam]).astype(np.int32)
     out = {"max_abs_err": 0.0, "full": [], "sorted": []}
     for what, seg, K, S in (("survey", ids2, 9, B), ("survey", ids2, 81, B),
                             ("survey one id", np.full(O, I, np.int32), 81, B),
@@ -752,7 +751,7 @@ def check_survey_shapes(torch, dev, ids):
         r = _check_seg_full_shape(torch, c, torch.as_tensor(seg, device=dev), S, what)
         out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
         out["full"].append(r)
-    offsets = ids["pt_offsets"].astype(np.int32)
+    offsets = prob.pt_offsets.astype(np.int32)
     Pd = len(offsets) - 1
     c = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32), device=dev)
     r = _check_seg_sorted_shape(torch, c, torch.as_tensor(offsets, device=dev), Pd, "survey")
@@ -823,21 +822,21 @@ def cg_vs_dense_phase(torch, dev):
 def _kernel_line(phases, k1, k2, k3, ks):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
-    the survey's CG matvec (2O, 9), K3 the survey's (O, 3); the first timed
-    shape where the survey did not run), with every timed shape listed."""
+    the survey's CG matvec (2O, 9), K3 the survey's (O, 3)), with every
+    timed shape listed."""
     def launches(k):
-        return phases.get("main", {}).get(k, 0), {p: n[k] for p, n in phases.items()}
+        return phases["main"][k], {p: n[k] for p, n in phases.items()}
 
     rows = []
     for name, source, replaces, shapes, head, err in (
             ("match", "mavmap_tpu_torch/csrc/match.cu", "mavmap_tpu/ops/pallas/match.py:106",
              k1["shapes"], k1["shapes"][0], k1["max_abs_err"]),
             ("seg_accum_full", "mavmap_tpu_torch/csrc/ba_accum.cu",
-             "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks.get("full", []),
-             (ks.get("full") or k2["shapes"])[0], max(k2["max_abs_err"], ks.get("max_abs_err", 0))),
+             "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks["full"], ks["full"][0],
+             max(k2["max_abs_err"], ks["max_abs_err"])),
             ("seg_accum_sorted", "mavmap_tpu_torch/csrc/ba_accum.cu",
-             "mavmap_tpu/ops/pallas/ba_accum.py:179", k3["shapes"] + ks.get("sorted", []),
-             (ks.get("sorted") or k3["shapes"])[0], max(k3["max_abs_err"], ks.get("sorted_err", 0)))):
+             "mavmap_tpu/ops/pallas/ba_accum.py:179", k3["shapes"] + ks["sorted"],
+             ks["sorted"][0], max(k3["max_abs_err"], ks["sorted_err"]))):
         n_main, by_phase = launches(name)
         row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=n_main,
                    launches_by_phase=by_phase, max_abs_err=err)
@@ -851,17 +850,8 @@ def _kernel_line(phases, k1, k2, k3, ks):
     return json.dumps({"kernels": rows})
 
 
-def main(argv=None):
-    import numpy as np
+def main():
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="time and check the kernels alone, without the mapping phases")
-    ap.add_argument("--survey-ids", metavar="NPZ",
-                    help="where the survey's problem ids are saved after a full run, and "
-                         "read from with --kernels-only to check the kernels at its shapes")
-    args = ap.parse_args(argv)
 
     dev, name, smi = device_phase()
     import mavmap_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -872,21 +862,11 @@ def main(argv=None):
     k1 = check_match(torch, dev)
     k2 = check_seg_full(torch, dev)
     k3 = check_seg_sorted(torch, dev)
-    phases, ks, ids = {}, {}, None
-    if args.kernels_only:
-        if args.survey_ids:
-            ids = dict(np.load(args.survey_ids))
-    else:
-        phases = {"main": main_path_phase(torch, dev), "chained": chained_phase(torch, dev)}
-        phases["survey"], survey_prob = survey_phase(torch, dev)
-        ids = survey_ids(survey_prob)
-        if args.survey_ids:
-            np.savez(args.survey_ids, **ids)
-    if ids is not None:
-        _phase("kernels at the survey's shapes")
-        ks = check_survey_shapes(torch, dev, ids)
-    if not args.kernels_only:
-        phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
+    phases = {"main": main_path_phase(torch, dev), "chained": chained_phase(torch, dev)}
+    phases["survey"], survey_prob = survey_phase(torch, dev)
+    _phase("kernels at the survey's shapes")
+    ks = check_survey_shapes(torch, dev, survey_prob)
+    phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
     print(_kernel_line(phases, k1, k2, k3, ks))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

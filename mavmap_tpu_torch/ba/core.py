@@ -16,11 +16,11 @@ Port of mavmap_tpu/ba/core.py (reference src/base3d/bundle_adjustment.{h,cc}):
     FIXED_X, bundle_adjustment.h:33-35), IMU rotation priors, GCP pinning.
 
 The per-image and per-block reductions go through CUDA kernel K2
-(ops/cuda/ba_accum.py seg_accum_full, with the plans that build_problem
-makes for its three id arrays) and the per-point reductions through K3
-(seg_accum_sorted) when the problem lives on a CUDA device, the CG
-matvec's included; on the CPU the wrappers run their plain PyTorch
-versions. The LM and CG loops are Python loops with an early exit (one
+(ops/cuda/ba_accum.py seg_accum_full, keyed by the plans that
+bundle_adjust builds for the solver it runs, `with_plans`) and the
+per-point reductions through K3 (seg_accum_sorted) when the problem lives
+on a CUDA device, the CG matvec's included; on the CPU the wrappers run
+their plain PyTorch versions, K2's keyed by the same plans. The LM and CG loops are Python loops with an early exit (one
 host sync per iteration).
 
 `bundle_adjust_async` keeps the JAX package's dispatch/finalize interface
@@ -86,8 +86,9 @@ class BAProblem(NamedTuple):
     pt_offsets[s+1] observe dense point s. Compared with the JAX BAProblem,
     the co-observation pair fields and the by-image sort (img_order,
     obs_image_sorted) are gone, `pt_offsets` replaces the banded kernel's
-    `pt_gather_rows`, and three K2 plans (`seg_plans`) take the sort's part:
-    every K2 call of the solvers keys its rows by one of their id arrays.
+    `pt_gather_rows`, and three K2 plans take the sort's part: every K2
+    call of the solvers sums by one of them, and by nothing else. They are
+    None until `with_plans` builds those that a solver needs.
     """
 
     poses: object            # (I, 6) rvec+tvec
@@ -107,24 +108,45 @@ class BAProblem(NamedTuple):
     point_rows: object       # (Pd,) int32 dense row -> full point row (pads: P)
     point_free_dense: object  # (Pd,) f32
     pt_offsets: object       # (Pd + 1,) int32 CSR offsets of obs_point_dense
-    plan_img: SegPlan        # obs_image into the I images
-    plan_blk: SegPlan        # both entries, cat(obs_image, I + obs_cam), into B = I + C
-    plan_hess: SegPlan       # the 4 entry pairs blk[:, a] * B + blk[:, b] into B^2
+    plan_img: SegPlan = None   # obs_image into the I images
+    plan_blk: SegPlan = None   # both entries, cat(obs_image, I + obs_cam), into B = I + C
+    plan_hess: SegPlan = None  # the 4 entry pairs blk[:, a] * B + blk[:, b] into B^2
 
 
-def seg_plans(obs_image, obs_cam, num_images, num_cams):
-    """Host: the K2 plans of a problem's three id arrays (numpy in): image
-    ids into the I images; both block entries of every observation (the
-    image's pose block, then I + its camera's intrinsics block) into the
-    B = I + C blocks; and the four (a, b) entry pairs in the order (0, 0),
-    (0, 1), (1, 0), (1, 1), each blk[:, a] * B + blk[:, b], into B^2."""
-    obs_image = np.asarray(obs_image, np.int64)
-    obs_cam = np.asarray(obs_cam, np.int64)
-    B = num_images + num_cams
-    blk = (obs_image, num_images + obs_cam)
-    hess = np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)])
-    return (make_plan(obs_image, num_images), make_plan(np.concatenate(blk), B),
-            make_plan(hess, B * B))
+PLANS = ("plan_img", "plan_blk", "plan_hess")
+
+
+def solver_plans(selfcal, solver):
+    """The K2 plans that a solver sums by: the image plan for the pose-only
+    steps, the block plan for the self-calibrating ones, and the B^2 plan
+    for the dense self-calibrating step's Hessian alone."""
+    if not selfcal:
+        return ("plan_img",)
+    return ("plan_blk", "plan_hess") if solver == "dense" else ("plan_blk",)
+
+
+def _make_problem_plan(prob: BAProblem, name):
+    I, C = len(prob.poses), len(prob.cam_params)
+    B = I + C
+    obs_image = np.asarray(prob.obs_image, np.int64)
+    if name == "plan_img":
+        return make_plan(obs_image, I)
+    blk = (obs_image, I + np.asarray(prob.obs_cam, np.int64))
+    if name == "plan_blk":
+        return make_plan(np.concatenate(blk), B)
+    return make_plan(np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)]),
+                     B * B)
+
+
+def with_plans(prob: BAProblem, names=PLANS) -> BAProblem:
+    """Host: `prob` with the named K2 plans built from its ids (those it
+    has are kept). plan_img keys the image ids into the I images; plan_blk
+    both block entries of every observation (the image's pose block, then
+    I + its camera's intrinsics block) into the B = I + C blocks; plan_hess
+    the four (a, b) entry pairs in the order (0, 0), (0, 1), (1, 0), (1, 1),
+    each blk[:, a] * B + blk[:, b], into B^2."""
+    return prob._replace(**{n: _make_problem_plan(prob, n) for n in names
+                            if getattr(prob, n) is None})
 
 
 def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
@@ -214,8 +236,6 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
         rot_prior_weight = pad(np.asarray(rot_prior_weight, np.float32), I)
 
     obs_image = pad(obs_image, obs_capacity, fill=int(obs_image[-1]) if O else 0)
-    obs_cam = pad(obs_cam, obs_capacity)
-    plan_img, plan_blk, plan_hess = seg_plans(obs_image, obs_cam, I, len(cam_params))
     return BAProblem(
         poses=poses,
         points=points,
@@ -225,7 +245,7 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
         # masked rows contribute zeros wherever they land.
         obs_image=obs_image,
         obs_point=pad(obs_point, obs_capacity, fill=int(obs_point[-1]) if O else 0),
-        obs_cam=obs_cam,
+        obs_cam=pad(obs_cam, obs_capacity),
         obs_uv=pad(obs_uv, obs_capacity),
         obs_mask=pad(np.ones(O, bool), obs_capacity, False),
         pose_free=pose_free,
@@ -236,15 +256,12 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
         point_rows=point_rows,
         point_free_dense=point_free_dense,
         pt_offsets=offsets_from_sorted_ids(group_id, Pd),
-        plan_img=plan_img,
-        plan_blk=plan_blk,
-        plan_hess=plan_hess,
     )
 
 
 def problem_to_device(prob: BAProblem, device) -> BAProblem:
-    """Host (numpy) problem -> tensors on `device`."""
-    return BAProblem(*(a.to(device) if isinstance(a, SegPlan)
+    """Host (numpy) problem -> tensors on `device` (plans not built stay None)."""
+    return BAProblem(*(a if a is None else a.to(device) if isinstance(a, SegPlan)
                        else torch.as_tensor(np.asarray(a), device=device) for a in prob))
 
 
@@ -323,19 +340,13 @@ def _rot_prior_blocks(prob: BAProblem, poses):
     return vmap(rot_one)(poses, prob.rot_prior, prob.rot_prior_weight, prob.pose_free)
 
 
-def _seg_img(prob: BAProblem, vals, I):
-    """Image-keyed reduction (any trailing shape) — kernel K2."""
+def _seg_plan(plan, vals):
+    """Reduction of rows keyed by one of the problem's K2 plans into its
+    segments (any trailing shape) — kernel K2. The rows are in the order of
+    the plan's id array (with_plans)."""
+    S = plan.num_segments
     flat = vals.reshape(vals.shape[0], -1).contiguous()
-    return seg_accum_full(flat, prob.obs_image, I, prob.plan_img).reshape(
-        (I,) + vals.shape[1:])
-
-
-def _seg_ids(ids, vals, S, plan):
-    """Reduction keyed by unsorted ids into S segments — K2, with the
-    problem's plan of those ids."""
-    flat = vals.reshape(vals.shape[0], -1).contiguous()
-    return seg_accum_full(flat, ids.to(torch.int32).contiguous(), S, plan).reshape(
-        (S,) + vals.shape[1:])
+    return seg_accum_full(flat, None, S, plan).reshape((S,) + vals.shape[1:])
 
 
 def _seg_pt(prob: BAProblem, vals):
@@ -371,7 +382,8 @@ def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
             Jp[k][i] = Jp[k][i] * pfd_o
 
     # Per-image 6x6 blocks + gradient: one (O, 42) reduction.
-    UB = _seg_img(prob, cm.stack_cols(cm.jtwj_cols(Jc, Jc, w) + cm.jtwr_cols(Jc, r2, w)), I)
+    UB = _seg_plan(prob.plan_img,
+                   cm.stack_cols(cm.jtwj_cols(Jc, Jc, w) + cm.jtwr_cols(Jc, r2, w)))
     U = UB[:, :36].reshape(I, 6, 6)
     bc = UB[:, 36:]
     # Per-point 3x3 blocks + gradient: one (O, 12) reduction.
@@ -398,7 +410,7 @@ def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
     T = cm.stack_cols(Tcols)
 
     bp_o = cm.cols_of(bp[prob.obs_point_dense])
-    g_local = _seg_img(prob, cm.stack_cols(cm.matvec_cols(Tcols, bp_o, 6, 3)), I)
+    g_local = _seg_plan(prob.plan_img, cm.stack_cols(cm.matvec_cols(Tcols, bp_o, 6, 3)))
     return U, Vinv, bp, G, T, bc - g_local
 
 
@@ -487,8 +499,8 @@ def _lm_step_cg(prob: BAProblem, poses, points_d, lam, scale, cg_iters: int, cg_
     I = poses.shape[0]
     U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale)
     free = prob.pose_free
-    D_local = _seg_img(prob, cm.stack_cols(
-        cm.abt_cols(cm.cols_of(T), cm.cols_of(G), 6, 3, 6)), I).reshape(I, 6, 6)
+    D_local = _seg_plan(prob.plan_img, cm.stack_cols(
+        cm.abt_cols(cm.cols_of(T), cm.cols_of(G), 6, 3, 6))).reshape(I, 6, 6)
     # Pin fixed components so the blocks stay invertible.
     D = (U - D_local) * free[:, :, None] * free[:, None, :] + torch.diag_embed(1.0 - free)
     Minv = torch.linalg.inv(D)
@@ -500,7 +512,7 @@ def _lm_step_cg(prob: BAProblem, poses, points_d, lam, scale, cg_iters: int, cg_
         y = torch.einsum("iab,ib->ia", U, x)
         tp = _seg_pt(prob, cm.matTvec(G3, x[prob.obs_image]))
         s = cm.matvec(V3, tp)
-        y2 = _seg_img(prob, cm.matvec(G3, s[prob.obs_point_dense]), I)
+        y2 = _seg_plan(prob.plan_img, cm.matvec(G3, s[prob.obs_point_dense]))
         return (y - y2) * free
 
     x = _pcg(matvec, Minv, -g_red * free, free, cg_iters, cg_tol, stats)
@@ -512,11 +524,10 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
                              lam, scale):
     """Assembly with the shared per-camera intrinsics as extra unknowns.
 
-    Returns (Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
-    Ur9): per-observation entry Jacobians (entry 0 = pose block 9-padded,
-    entry 1 = intrinsics block), their block ids blk (O,2) over the B = I + C
-    blocks and both entries' ids in one (2O,) array (prob.plan_blk's), robust
-    weights, damped point blocks, couplings G/T (27 columns
+    Returns (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9):
+    per-observation entry Jacobians (entry 0 = pose block 9-padded, entry 1
+    = intrinsics block), their block ids blk (O,2) over the B = I + C
+    blocks, robust weights, damped point blocks, couplings G/T (27 columns
     per entry), gradient and reduced gradient (B, 9), the undamped direct
     diagonal blocks Ddiag (B, 9, 9) and the pose-row prior blocks Ur9.
     """
@@ -543,12 +554,12 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
             Jk[k][i] = Jk[k][i] * cf_o[:, i]
     Ecols = [[[Jc[k][i] if i < 6 else zero for i in range(9)] for k in range(2)], Jk]
     blk = torch.stack([prob.obs_image, I + prob.obs_cam], dim=1)  # (O, 2)
-    ids2 = torch.cat([blk[:, 0], blk[:, 1]])  # both entries: one K2 call each
 
-    g = _seg_ids(ids2, torch.cat([cm.stack_cols(cm.jtwr_cols(Ecols[a], r2, w))
-                                  for a in range(2)]), B, prob.plan_blk)
-    Ddiag = _seg_ids(ids2, torch.cat([cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[a], w))
-                                      for a in range(2)]), B, prob.plan_blk).reshape(B, 9, 9)
+    # Both entries in one K2 call: entry 0's rows, then entry 1's (plan_blk).
+    g = _seg_plan(prob.plan_blk, torch.cat([cm.stack_cols(cm.jtwr_cols(Ecols[a], r2, w))
+                                            for a in range(2)]))
+    Ddiag = _seg_plan(prob.plan_blk, torch.cat([
+        cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[a], w)) for a in range(2)])).reshape(B, 9, 9)
 
     Vbp = _seg_pt(prob, cm.stack_cols(cm.jtwj_cols(Jp, Jp, w) + cm.jtwr_cols(Jp, r2, w)))
     Vcols = cm.cols_of(Vbp[:, :9])
@@ -568,9 +579,9 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
     Gcols = [cm.jtwj_cols(Ecols[a], Jp, w) for a in range(2)]
     Tcols = [cm.matmul_cols(Gcols[a], Vinv_o, 9, 3, 3) for a in range(2)]
     bp_o = cm.cols_of(bp[prob.obs_point_dense])
-    g_red = g - _seg_ids(ids2, torch.cat([cm.stack_cols(cm.matvec_cols(Tcols[a], bp_o, 9, 3))
-                                          for a in range(2)]), B, prob.plan_blk)
-    return Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9
+    g_red = g - _seg_plan(prob.plan_blk, torch.cat([
+        cm.stack_cols(cm.matvec_cols(Tcols[a], bp_o, 9, 3)) for a in range(2)]))
+    return Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag, Ur9
 
 
 def _selfcal_backsub(prob: BAProblem, Vinv, bp, Gcols, blk, dx):
@@ -592,19 +603,15 @@ def _lm_step_selfcal(prob: BAProblem, poses, points_d, cam_params, cam_free, lam
     I = poses.shape[0]
     C = cam_params.shape[0]
     B = I + C
-    (Ecols, blk, _, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
+    (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
      Ur9) = _assemble_selfcal_blocks(prob, poses, points_d, cam_params, cam_free,
                                      lam, scale)
 
     # Full direct Hessian: the 4 entry combinations of each observation in
-    # ONE segment sum over 4O rows into B^2 blocks (prob.plan_hess's order).
-    h_ids, h_vals = [], []
-    for a in range(2):
-        for b in range(2):
-            h_vals.append(cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[b], w)))
-            h_ids.append(blk[:, a] * B + blk[:, b])
-    H = _seg_ids(torch.cat(h_ids), torch.cat(h_vals), B * B, prob.plan_hess).reshape(
-        B, B, 9, 9)
+    # ONE segment sum over 4O rows into B^2 blocks (in plan_hess's order).
+    H = _seg_plan(prob.plan_hess, torch.cat([
+        cm.stack_cols(cm.jtwj_cols(Ecols[a], Ecols[b], w))
+        for a in range(2) for b in range(2)])).reshape(B, B, 9, 9)
     idx_i = torch.arange(I, device=w.device)
     H[idx_i, idx_i] += Ur9
 
@@ -643,7 +650,7 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
     I = poses.shape[0]
     C = cam_params.shape[0]
     B = I + C
-    (Ecols, blk, ids2, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
+    (Ecols, blk, w, Vinv, bp, Gcols, Tcols, g, g_red, Ddiag,
      Ur9) = _assemble_selfcal_blocks(prob, poses, points_d, cam_params, cam_free,
                                      lam, scale)
     # Marquardt damping from the undamped direct diagonal.
@@ -651,9 +658,9 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
     pose_free9 = torch.cat([prob.pose_free, torch.zeros((I, 3), device=w.device)], dim=1)
     free = torch.cat([pose_free9, cam_free], dim=0)  # (B, 9)
 
-    D_schur = _seg_ids(ids2, torch.cat([
-        cm.stack_cols(cm.abt_cols(Tcols[a], Gcols[a], 9, 3, 9)) for a in range(2)]),
-        B, prob.plan_blk).reshape(B, 9, 9)
+    D_schur = _seg_plan(prob.plan_blk, torch.cat([
+        cm.stack_cols(cm.abt_cols(Tcols[a], Gcols[a], 9, 3, 9)) for a in range(2)])).reshape(
+        B, 9, 9)
     D = (Ddiag + torch.diag_embed(damp) - D_schur) * free[:, :, None] * free[:, None, :]
     Minv = torch.linalg.inv(D + torch.diag_embed(1.0 - free))
 
@@ -669,9 +676,8 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
         sv_o = cm.matvec(V3, tp)[prob.obs_point_dense]  # (O, 3)
         # Direct term E^T W E x minus the Schur term G V^-1 G^T x (G carries
         # the weights already), both entries reduced together.
-        y = _seg_ids(ids2, torch.cat([
-            cm.matTvec(E3[a], u) - cm.matvec(G3[a], sv_o) for a in range(2)]), B,
-            prob.plan_blk)
+        y = _seg_plan(prob.plan_blk, torch.cat([
+            cm.matTvec(E3[a], u) - cm.matvec(G3[a], sv_o) for a in range(2)]))
         y[:I] += torch.einsum("iab,ib->ia", Ur9, x[:I])
         return (y + damp * x) * free
 
@@ -823,10 +829,11 @@ def bundle_adjust_async(prob: BAProblem, options: BAOptions, device, num_obs=Non
     host once per LM iteration, so the solve runs here, when it is
     dispatched, and finalize() only converts. The mapper keeps the JAX
     package's schedule: it applies the results where the JAX package pulls
-    them, so every later step sees the same map."""
-    prob = problem_to_device(prob, device)
+    them, so every later step sees the same map. The K2 plans of the
+    solver that runs are built here, on the host, and no others."""
     selfcal = options.refine_camera_params
     solver = _resolve_solver(prob, options)
+    prob = problem_to_device(with_plans(prob, solver_plans(selfcal, solver)), device)
     stats = {}
     args = (float(options.loss_scale_factor), options.lambda_init, options.lambda_up,
             options.lambda_down, options.function_tolerance, options.max_num_iterations)

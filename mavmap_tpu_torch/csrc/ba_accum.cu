@@ -6,9 +6,9 @@
 // with the (S, K) accumulator resident in VMEM across a sequential grid,
 // which adds in the same order on every run. Here the host builds a plan
 // once per problem (ops/cuda/ba_accum.py make_plan): `order`, the rows
-// stably sorted by id, and each segment cut into pieces of at most R rows
-// (R <= 1024), so a segment that holds half the rows (the camera block of a
-// self-calibrating problem) spreads over many blocks instead of one.
+// stably sorted by id, and each segment cut into pieces of at most
+// PIECE_ROWS rows, so a segment that holds half the rows (the camera block
+// of a self-calibrating problem) spreads over many blocks instead of one.
 //   pass 1 (seg_pieces_kernel): one block per piece. It stages the piece's
 //     row indices in shared memory, and each thread (q, c) of a G x KC
 //     layout adds rows q, q+G, q+2G, ... of column c in that order (eight
@@ -46,7 +46,7 @@
 namespace {
 
 constexpr int PIECE_THREADS = 256;      // pass 1 block
-constexpr int MAX_PIECE_ROWS = 1024;    // ops/cuda/ba_accum.py MAX_PIECE_ROWS
+constexpr int PIECE_ROWS = 256;         // ops/cuda/ba_accum.py PIECE_ROWS
 constexpr int MERGE_MAX_THREADS = 1024;  // pass 2 block, at most
 constexpr int SORTED_THREADS = 256;
 
@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(PIECE_THREADS)
 seg_pieces_kernel(const float* __restrict__ contrib, const int* __restrict__ order,
                   const int* __restrict__ piece_starts, int K, int KC, int G,
                   float* __restrict__ partial) {
-  __shared__ int rows[MAX_PIECE_ROWS];
+  __shared__ int rows[PIECE_ROWS];
   __shared__ float red[PIECE_THREADS];
   const int p = blockIdx.x;
   const int a = piece_starts[p];

@@ -7,7 +7,7 @@ with numpy, so nothing here imports jax or mavmap_tpu.
 import numpy as np
 import torch
 
-from .ba.core import BAProblem, seg_plans
+from .ba.core import BAProblem, with_plans
 from .ops.cuda.ba_accum import offsets_from_sorted_ids
 
 
@@ -17,17 +17,16 @@ def problem_from_jax(prob) -> BAProblem:
 
     The JAX problem's pair fields and by-image sort are dropped; the CSR
     offsets of the dense point ids are rebuilt from `obs_point_dense` over
-    the real (masked-in) observations, which come first, and the K2 plans
-    from the image and camera ids."""
+    the real (masked-in) observations, which come first, and all three K2
+    plans from the image and camera ids (every solver step can then run on
+    it directly)."""
     a = {k: np.asarray(getattr(prob, k)) for k in (
         "poses", "points", "cam_params", "cam_models", "obs_image", "obs_point",
         "obs_cam", "obs_uv", "obs_mask", "pose_free", "point_free", "rot_prior",
         "rot_prior_weight", "obs_point_dense", "point_rows", "point_free_dense")}
     n_real = int(a["obs_mask"].sum())
     Pd = len(a["point_rows"])
-    plan_img, plan_blk, plan_hess = seg_plans(a["obs_image"], a["obs_cam"], len(a["poses"]),
-                                              len(a["cam_params"]))
-    return BAProblem(
+    return with_plans(BAProblem(
         poses=a["poses"].astype(np.float32),
         points=a["points"].astype(np.float32),
         cam_params=a["cam_params"].astype(np.float32),
@@ -45,10 +44,7 @@ def problem_from_jax(prob) -> BAProblem:
         point_rows=a["point_rows"].astype(np.int32),
         point_free_dense=a["point_free_dense"].astype(np.float32),
         pt_offsets=offsets_from_sorted_ids(a["obs_point_dense"], Pd, num_rows=n_real),
-        plan_img=plan_img,
-        plan_blk=plan_blk,
-        plan_hess=plan_hess,
-    )
+    ))
 
 
 def features_to_device(features, device):

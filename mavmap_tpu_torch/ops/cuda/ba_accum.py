@@ -6,7 +6,7 @@
                      ba_accum.py seg_accum_full (_full_kernel). A host plan
                      (`make_plan`, built once per BA problem) sorts the rows
                      by id and cuts each segment into pieces of at most
-                     `piece_rows` rows; pass 1 sums each piece, pass 2 each
+                     PIECE_ROWS rows; pass 1 sums each piece, pass 2 each
                      segment's pieces, both in a fixed order: no atomics, no
                      memset, and the same bits on every run.
   seg_accum_sorted — the same sum for rows sorted by a gapless dense id,
@@ -18,8 +18,10 @@
                      deterministic segmented reduction.
 
 Both launch the kernel for CUDA tensors and run the plain PyTorch version
-(index_add_) for CPU tensors, where seg_accum_full ignores the plan. On an
-H100 both are bound by one read of the (O, K) contributions.
+(index_add_) for CPU tensors. Given a plan, seg_accum_full sums by the plan
+alone on either device (the CPU reads each row's segment off the plan's
+pieces), so the plan is the one key of every planned call. On an H100 both
+are bound by one read of the (O, K) contributions.
 """
 
 from typing import NamedTuple
@@ -29,26 +31,24 @@ import torch
 
 from . import build
 
-PIECE_ROWS = 256       # default rows per piece: one pass-1 block each
-MAX_PIECE_ROWS = 1024  # pass 1 stages a piece's row indices in shared memory
+PIECE_ROWS = 256  # rows per piece, one pass-1 block each (csrc/ba_accum.cu)
 
 
 class SegPlan(NamedTuple):
     """The host plan of seg_accum_full for one id array: numpy arrays from
-    `make_plan`, tensors after `to(device)`.
+    `make_plan`; `to(device)` moves the three that the kernel reads.
 
     order         (N,) int32: the rows whose id lies in [0, S), stably
                   sorted by id (the JAX problem's by-image sort, img_order,
                   plays this part there);
-    seg_offsets   (S + 1,) int32: segment s is order[seg_offsets[s]:
-                  seg_offsets[s + 1]];
+    seg_offsets   (S + 1,) int32, host only: segment s is order[
+                  seg_offsets[s]:seg_offsets[s + 1]];
     piece_starts  (n_pieces + 1,) int32: piece p is order[piece_starts[p]:
-                  piece_starts[p + 1]], at most piece_rows rows, never
+                  piece_starts[p + 1]], at most PIECE_ROWS rows, never
                   across two segments;
     seg_pieces    (S + 1,) int32: segment s is pieces seg_pieces[s]:
                   seg_pieces[s + 1] (none for an empty segment);
     num_rows      rows of the id array, which the contributions must have;
-    piece_rows    the piece length cap;
     max_pieces    the most pieces of one segment (sizes pass 2's blocks).
     """
 
@@ -57,24 +57,20 @@ class SegPlan(NamedTuple):
     piece_starts: object
     seg_pieces: object
     num_rows: int
-    piece_rows: int
     max_pieces: int
 
     @property
     def num_segments(self):
-        return self.seg_offsets.shape[0] - 1
+        return self.seg_pieces.shape[0] - 1
 
     def to(self, device):
         return self._replace(**{f: torch.as_tensor(getattr(self, f), device=device)
-                                for f in ("order", "seg_offsets", "piece_starts",
-                                          "seg_pieces")})
+                                for f in ("order", "piece_starts", "seg_pieces")})
 
 
-def make_plan(seg_ids, num_segments, piece_rows=PIECE_ROWS):
+def make_plan(seg_ids, num_segments):
     """Host: the SegPlan of `seg_ids` (any order) into `num_segments`
     segments. Ids outside [0, num_segments) are left out."""
-    if not 0 < piece_rows <= MAX_PIECE_ROWS:
-        raise ValueError(f"piece_rows {piece_rows} not in [1, {MAX_PIECE_ROWS}]")
     ids = np.asarray(seg_ids).astype(np.int64)
     kept = np.flatnonzero((ids >= 0) & (ids < num_segments))
     key = ids[kept]
@@ -83,15 +79,15 @@ def make_plan(seg_ids, num_segments, piece_rows=PIECE_ROWS):
                             kind="stable")]
     counts = np.bincount(key, minlength=num_segments)
     seg_offsets = np.concatenate([[0], np.cumsum(counts)])
-    n_pieces = -(-counts // piece_rows)
+    n_pieces = -(-counts // PIECE_ROWS)
     seg_pieces = np.concatenate([[0], np.cumsum(n_pieces)])
     piece_seg = np.repeat(np.arange(num_segments), n_pieces)
     rank = np.arange(len(piece_seg)) - seg_pieces[piece_seg]  # piece's rank in its segment
-    piece_starts = np.append(seg_offsets[piece_seg] + rank * piece_rows, len(order))
+    piece_starts = np.append(seg_offsets[piece_seg] + rank * PIECE_ROWS, len(order))
     return SegPlan(order=order.astype(np.int32), seg_offsets=seg_offsets.astype(np.int32),
                    piece_starts=piece_starts.astype(np.int32),
                    seg_pieces=seg_pieces.astype(np.int32), num_rows=len(ids),
-                   piece_rows=int(piece_rows), max_pieces=int(n_pieces.max(initial=0)))
+                   max_pieces=int(n_pieces.max(initial=0)))
 
 
 def offsets_from_sorted_ids(seg_ids, num_segments, num_rows=None):
@@ -118,23 +114,34 @@ def seg_accum_full_plain(contrib, seg_ids, num_segments):
     return out.index_add_(0, ids, contrib.float())[:num_segments]
 
 
-def _seg_accum_full_cuda(contrib, plan, num_segments):
+def seg_accum_planned_plain(contrib, plan):
+    """Plain PyTorch version of seg_accum_full keyed by a plan (tensors on
+    contrib's device): each kept row's segment is read off the plan's
+    pieces, the arrays that the kernel reads, and the rows are summed by
+    index_add_. No host sync (the output sizes come from the shapes)."""
+    dev = contrib.device
+    n_pieces = plan.piece_starts.shape[0] - 1
+    piece_seg = torch.repeat_interleave(torch.arange(plan.num_segments, device=dev),
+                                        plan.seg_pieces.diff().long(), output_size=n_pieces)
+    row_seg = torch.repeat_interleave(piece_seg, plan.piece_starts.diff().long(),
+                                      output_size=plan.order.shape[0])
+    out = torch.zeros((plan.num_segments, contrib.shape[1]), dtype=torch.float32, device=dev)
+    return out.index_add_(0, row_seg, contrib[plan.order.long()].float())
+
+
+def _seg_accum_full_cuda(contrib, plan):
     dev = contrib.device
     build.require(contrib, "contrib", torch.float32, 2, dev)
     for name in ("order", "piece_starts", "seg_pieces"):
         build.require(getattr(plan, name), f"plan.{name}", torch.int32, 1, dev)
-    O, K = contrib.shape
-    if plan.num_rows != O or plan.num_segments != num_segments:
-        raise ValueError(f"seg_accum_full: a plan of {plan.num_rows} rows into "
-                         f"{plan.num_segments} segments for ({O}, {K}) -> {num_segments}")
-    if plan.piece_rows > MAX_PIECE_ROWS:
-        raise ValueError(f"seg_accum_full: pieces of {plan.piece_rows} rows")
     n_pieces = plan.piece_starts.shape[0] - 1
+    K = contrib.shape[1]
+    S = plan.num_segments
     partial = torch.empty((n_pieces, K), dtype=torch.float32, device=dev)
-    out = torch.empty((num_segments, K), dtype=torch.float32, device=dev)
+    out = torch.empty((S, K), dtype=torch.float32, device=dev)
     build.check(build.library().mavmap_seg_accum_full(
         contrib.data_ptr(), plan.order.data_ptr(), plan.piece_starts.data_ptr(), n_pieces,
-        plan.seg_pieces.data_ptr(), int(num_segments), K, int(plan.max_pieces),
+        plan.seg_pieces.data_ptr(), S, K, int(plan.max_pieces),
         partial.data_ptr(), out.data_ptr(), build.stream_ptr(dev)), "mavmap_seg_accum_full")
     build.launches["seg_accum_full"] += 1
     return out
@@ -143,15 +150,23 @@ def _seg_accum_full_cuda(contrib, plan, num_segments):
 def seg_accum_full(contrib, seg_ids, num_segments, plan=None):
     """out[s, :] = sum over o with seg_ids[o] == s of contrib[o, :].
 
-    contrib: (O, K) f32; seg_ids: (O,) int32, any order. A CUDA call needs
-    `plan`, the SegPlan of seg_ids on the same device (make_plan(...).to),
-    and raises without one: the sort is host work, done once per problem.
-    A CPU call runs the plain version and ignores the plan."""
+    contrib: (O, K) f32; seg_ids: (O,) int32 in any order, or None with a
+    plan. `plan` is the SegPlan of the ids on contrib's device
+    (make_plan(...).to); given one, the sum goes by the plan alone and the
+    ids are not read, on either device. A CUDA call needs the plan and
+    raises without one: the sort is host work, done once per problem. A
+    CPU call without one runs the plain version on the ids."""
+    if plan is not None:
+        if plan.num_rows != contrib.shape[0] or plan.num_segments != num_segments:
+            raise ValueError(f"seg_accum_full: a plan of {plan.num_rows} rows into "
+                             f"{plan.num_segments} segments for {tuple(contrib.shape)} -> "
+                             f"{num_segments}")
+        if contrib.is_cuda:
+            return _seg_accum_full_cuda(contrib, plan)
+        return seg_accum_planned_plain(contrib, plan)
     if contrib.is_cuda:
-        if plan is None:
-            raise ValueError("seg_accum_full: a CUDA call needs the ids' plan "
-                             "(make_plan on the host, then .to(device))")
-        return _seg_accum_full_cuda(contrib, plan, num_segments)
+        raise ValueError("seg_accum_full: a CUDA call needs the ids' plan "
+                         "(make_plan on the host, then .to(device))")
     return seg_accum_full_plain(contrib, seg_ids, num_segments)
 
 

@@ -38,9 +38,9 @@ from mavmap_tpu.ops.rotation import rotmat_from_rvec as j_rot
 
 from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
 from mavmap_tpu_torch.ba.core import (
-    _cg_tolerance, _gather_dense_points, _lm_loop, _lm_loop_selfcal, _lm_step_cg,
+    PLANS, _cg_tolerance, _gather_dense_points, _lm_loop, _lm_loop_selfcal, _lm_step_cg,
     _lm_step_selfcal_cg, _resolve_solver, _selfcal_cam_free, pose_refinement,
-    problem_to_device)
+    problem_to_device, solver_plans, with_plans)
 from mavmap_tpu_torch.interop import problem_from_jax
 from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
@@ -71,12 +71,13 @@ def test_seg_accum_full_plain_matches_pallas(rng, O, K, S):
 
 @pytest.mark.parametrize("O,K,S", [(5000, 42, 37), (3000, 3, 2500), (100, 81, 9)])
 def test_seg_accum_full_with_plan_matches_pallas(rng, O, K, S):
-    """A CPU call with the ids' plan runs the plain version too (the plan
-    is ignored there) and matches the Pallas kernel as a call without one."""
+    """A CPU call with the ids' plan sums by the plan alone (the ids are not
+    passed) and matches the Pallas kernel, and a call on the ids bit for
+    bit: the plan keeps each segment's rows in their order."""
     c = rng.normal(size=(O, K)).astype(np.float32)
     ids = rng.integers(0, S, size=O).astype(np.int32)
     plan = ka.make_plan(ids, S).to(CPU)
-    got = ka.seg_accum_full(torch.as_tensor(c), torch.as_tensor(ids), S, plan).numpy()
+    got = ka.seg_accum_full(torch.as_tensor(c), None, S, plan).numpy()
     ref = np.asarray(j_full(jnp.asarray(c), jnp.asarray(ids), S, interpret=True))
     scale = np.zeros((S, K), np.float32)
     np.add.at(scale, ids, np.abs(c))
@@ -85,19 +86,31 @@ def test_seg_accum_full_with_plan_matches_pallas(rng, O, K, S):
     np.testing.assert_array_equal(got, without)
 
 
-@pytest.mark.parametrize("piece_rows", [256, 7, 1024])
-def test_make_plan_against_numpy(rng, piece_rows):
+def test_seg_accum_full_plan_must_fit(rng):
+    """A plan of other rows or segments than the call's raises on the CPU
+    as on the card."""
+    c = torch.as_tensor(rng.normal(size=(64, 3)).astype(np.float32))
+    with pytest.raises(ValueError):
+        ka.seg_accum_full(c, None, 4, ka.make_plan(np.zeros(63, np.int32), 4).to(CPU))
+    with pytest.raises(ValueError):
+        ka.seg_accum_full(c, None, 5, ka.make_plan(np.zeros(64, np.int32), 4).to(CPU))
+
+
+@pytest.mark.parametrize("long_rows", [2900, 2 * ka.PIECE_ROWS, ka.PIECE_ROWS + 1])
+def test_make_plan_against_numpy(rng, long_rows):
     """The plan: order is numpy's stable sort of the in-range ids (ids
     outside [0, S) dropped), seg_offsets its CSR offsets, and the pieces
-    cover every segment exactly once, in order, at most piece_rows rows
-    each, never across segments. Segment 5 is far longer than a piece;
-    segments 0, 7 and S - 1 are empty."""
+    cover every segment exactly once, in order, at most PIECE_ROWS rows
+    each, never across segments. Segment 5 has long_rows rows more than
+    the others, so it spans several pieces; segments 0, 7 and S - 1 are
+    empty."""
     S = 12
+    piece_rows = ka.PIECE_ROWS
     ids = rng.integers(1, S - 1, size=3000)
     ids = ids[ids != 7]
-    ids = np.concatenate([ids, np.full(2900, 5), [-1, S, S + 40, -7]])
+    ids = np.concatenate([ids, np.full(long_rows, 5), [-1, S, S + 40, -7]])
     ids = rng.permutation(ids).astype(np.int32)
-    plan = ka.make_plan(ids, S, piece_rows)
+    plan = ka.make_plan(ids, S)
     keep = np.flatnonzero((ids >= 0) & (ids < S))
     np.testing.assert_array_equal(plan.order, keep[np.argsort(ids[keep], kind="stable")])
     assert plan.order.dtype == np.int32 and plan.num_rows == len(ids)
@@ -113,9 +126,7 @@ def test_make_plan_against_numpy(rng, piece_rows):
         if counts[s]:  # the segment's pieces tile exactly its rows
             assert plan.piece_starts[p0] == plan.seg_offsets[s]
             assert plan.piece_starts[p1] == plan.seg_offsets[s + 1]
-    assert plan.max_pieces == -(-counts.max() // piece_rows)
-    with pytest.raises(ValueError):
-        ka.make_plan(ids, S, 2048)
+    assert plan.max_pieces == -(-counts.max() // piece_rows) > 1
 
 
 def _emulate_planned_sum(c, plan):
@@ -132,11 +143,11 @@ def _emulate_planned_sum(c, plan):
 def test_problem_plans_emulated_two_passes_match_plain(rng):
     """The three plans of a bucketed self-calibrating problem (image ids,
     both block entries, the four Hessian entry pairs), padding rows
-    included, give through the kernel's two passes what the plain version
-    gives on the ids the solvers build on the device."""
+    included, give through the kernel's two passes, and through the
+    planned plain version, what the plain version gives on those ids."""
     poses, X, K, models, oi, op, oc, uv, states = _scene(rng)
-    prob = problem_to_device(build_problem(poses, X, K, models, oi, op, oc, uv,
-                                           pose_states=states, bucket=True), CPU)
+    prob = problem_to_device(with_plans(build_problem(poses, X, K, models, oi, op, oc, uv,
+                                                      pose_states=states, bucket=True)), CPU)
     I, C = prob.poses.shape[0], prob.cam_params.shape[0]
     B = I + C
     O = prob.obs_image.shape[0]
@@ -148,10 +159,10 @@ def test_problem_plans_emulated_two_passes_match_plain(rng):
                              (prob.plan_blk, ids2, B, 9), (prob.plan_hess, hess, B * B, 81)):
         assert plan.num_rows == ids.shape[0] and plan.num_segments == S
         c = torch.as_tensor(rng.normal(size=(ids.shape[0], Kc)).astype(np.float32))
-        got = _emulate_planned_sum(c, plan)
         ref = ka.seg_accum_full_plain(c, ids.to(torch.int32), S)
         scale = ka.seg_accum_full_plain(c.abs(), ids.to(torch.int32), S)
-        assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+        for got in (_emulate_planned_sum(c, plan), ka.seg_accum_full(c, None, S, plan)):
+            assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
     assert prob.plan_blk.max_pieces > 1  # the camera block spans many pieces
 
 
@@ -218,8 +229,10 @@ def test_build_problem_and_conversion_match_jax(rng):
         if f not in own:
             np.testing.assert_array_equal(getattr(pt, f), np.asarray(getattr(pj, f)), f)
     conv = problem_from_jax(pj)
+    assert all(getattr(pt, f) is None for f in PLANS)  # built for the solver that runs
+    pt = with_plans(pt)
     for f in pt._fields:
-        if f.startswith("plan_"):
+        if f in PLANS:
             for k, (a, b) in enumerate(zip(getattr(conv, f), getattr(pt, f))):
                 np.testing.assert_array_equal(a, b, f"{f}[{k}]")
         else:
@@ -272,6 +285,23 @@ def test_lm_loop_selfcal_matches_jax(rng):
     _rel_close(float(out_t[3]), float(out_j[3]), 1e-4)
     # Self-calibration removes most of the 7 px focal error in 6 iterations.
     assert abs(float(out_t[2][0, 0]) - 700.0) < 3.5
+
+
+@pytest.mark.parametrize("selfcal,solver", [(False, "dense"), (False, "cg"), (True, "dense"),
+                                            (True, "cg")])
+def test_bundle_adjust_builds_only_its_solver_plans(rng, selfcal, solver):
+    """bundle_adjust builds the K2 plans of the solver it runs and no
+    others, and they suffice: a solver step that reached a plan left
+    unbuilt (None) would raise."""
+    poses, X, K, models, oi, op, oc, uv, states = _scene(rng, focal_err=0.01)
+    prob = build_problem(poses, X, K, models, oi, op, oc, uv, pose_states=states,
+                         bucket=True)
+    names = solver_plans(selfcal, solver)
+    built = with_plans(prob, names)
+    assert [f for f in PLANS if getattr(built, f) is not None] == list(names)
+    _, _, info = bundle_adjust(prob, BAOptions(max_num_iterations=2, solver=solver,
+                                               refine_camera_params=selfcal), CPU)
+    assert info["solver"] == solver and info["final_cost"] < info["initial_cost"]
 
 
 def test_bundle_adjust_entry(rng):

@@ -117,20 +117,18 @@ def test_match_kernel_refuses_untiled_shapes(dev):
         km.match_raw(x, pen, x, pen)
 
 
-def _planned(c, ids, S):
-    plan = ka.make_plan(ids.cpu().numpy(), S).to(c.device)
-    return ka.seg_accum_full(c, ids, S, plan)
-
-
 @pytest.mark.parametrize("O,K,S", [(8192, 9, 17), (8192, 81, 17), (32768, 81, 289),
                                    (32768, 81, 1089), (5000, 42, 2500)])
 def test_seg_accum_full_kernel_vs_plain(dev, rng, O, K, S):
+    """The kernel, given the plan alone, against the plain version on the
+    ids and the plain version keyed by the same plan."""
     c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
     ids = torch.as_tensor(rng.integers(0, S, O).astype(np.int32), device=dev)
-    got = _planned(c, ids, S)
-    ref = ka.seg_accum_full_plain(c, ids, S)
+    plan = ka.make_plan(ids.cpu().numpy(), S).to(dev)
+    got = ka.seg_accum_full(c, None, S, plan)
     scale = ka.seg_accum_full_plain(c.abs(), ids, S)
-    assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    for ref in (ka.seg_accum_full_plain(c, ids, S), ka.seg_accum_planned_plain(c, plan)):
+        assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 @pytest.mark.parametrize("K,S", [(6, 200), (9, 201)])
