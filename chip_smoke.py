@@ -8,12 +8,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
  1. device: a CUDA device is required (no CPU fallback); prints the card's
     name and power limit as nvidia-smi reports them;
  2. build: compiles the CUDA kernels of mavmap_tpu_torch/csrc with nvcc;
- 3. timer check: the device timer against a sleep kernel of known length;
+ 3. timer check: the device timer against a sleep kernel of known length,
+    and the launch floor: a near-empty kernel (torch.cuda._sleep(1)) under
+    the same timer;
  4. kernels: holds each kernel against its plain PyTorch version on the
-    card at the mapper's shapes, and reports per shape its device time
-    (calls replayed back to back from a CUDA graph, median of 5), host time
-    per call, the plain version's and the library call's device times, its
-    bound and the share of it reached, and the profiler's kernel time;
+    card at the mapper's shapes (K3 also bit for bit against the plain
+    version on a CPU copy, K2 and K3 against a second call), and reports
+    per shape its device time (calls replayed back to back from a CUDA
+    graph, median of 5), host time per call, the plain version's and the
+    library call's device times, its bound and the share of it reached,
+    and the profiler's kernel time;
  5. main path: the sequential mapper over bench.py's 30-image scene —
     process_initial, process for every later frame with a 10-image
     self-calibrating window bundle adjustment after each success, then one
@@ -23,6 +27,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     the same scene — chains of 6 frames through process_chain_k, one
     deferred asynchronous window bundle adjustment per chain, flush_ba and
     the global bundle adjustment — checking 30/30, the ATE and launches;
+    run twice, the two maps must be equal bit for bit (poses, points, ATE);
+    then K2 at the per-(point, block) plan's shapes of its last window
+    problem and of its global problem, beside index_add_;
  7. survey: the same loop over benchmarks/pipeline_scale.py's scene at 200
     images, whose global bundle adjustment (>= 64 cameras) runs the
     matrix-free CG solver — checking the registered count and the ATE
@@ -177,6 +184,12 @@ def timer_check(torch):
           f"times at {1000 * ms:.3f} µs", flush=True)
     if not 0.9 * expect_ms <= ms <= 1.1 * expect_ms + 0.0015:
         raise AssertionError(f"device timer: {ms} ms for a {expect_ms} ms kernel")
+    # The launch floor: a kernel that does next to nothing, under the same
+    # timer, is the least any kernel launch costs in a replayed graph.
+    floor_ms, _ = _time_ms(lambda: torch.cuda._sleep(1))
+    print(f"launch floor: {1000 * floor_ms:.3f} µs per launch (torch.cuda._sleep(1) "
+          f"under the graph timer)", flush=True)
+    return floor_ms
 
 
 def _bound(nbytes, flops):
@@ -254,7 +267,7 @@ def _match_inputs(torch, rng, dev, N1, N2, D=128, prefilter=300.0):
 
 K1_KERNELS = ("match_tile_kernel", "match_merge_kernel")
 K2_KERNELS = ("seg_pieces_kernel", "seg_merge_kernel")
-K3_KERNELS = ("seg_sorted_kernel",)
+K3_KERNELS = ("seg_rows_kernel",)
 
 
 def _k1_cost(N1, N2, D, use_kp):
@@ -373,13 +386,22 @@ def check_seg_full(torch, dev):
 
 
 def _check_seg_sorted_shape(torch, c, off, S, what):
-    """K3 on one (contributions, CSR offsets) pair: held to its plain
-    version at 1e-5 of the per-segment sum of |contrib| and timed beside
-    torch.segment_reduce over the same offsets."""
+    """K3 on one (contributions, CSR offsets) pair: equal bit for bit to its
+    plain version run on a CPU copy and to a second call, held to the plain
+    version on the card (index_add_ with atomics) at 1e-5 of the
+    per-segment sum of |contrib|, and timed beside torch.segment_reduce
+    over the same offsets."""
     from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
     rows, K = c.shape
-    got = ka._seg_accum_sorted_cuda(c, off, S)
+    got = ka.seg_accum_sorted(c, off, S)
+    again = ka.seg_accum_sorted(c, off, S)
+    ref_cpu = ka.seg_accum_sorted_plain(c.cpu(), off.cpu(), S)
+    bitwise_cpu = bool(torch.equal(got.cpu(), ref_cpu))
+    bitwise = bool(torch.equal(got, again))
+    if not (bitwise_cpu and bitwise):
+        raise AssertionError(f"K3 {what} ({rows},{K})->{S}: equals the CPU's plain version "
+                             f"bit for bit: {bitwise_cpu}; repeats: {bitwise}")
     ref = ka.seg_accum_sorted_plain(c, off, S)
     scale = ka.seg_accum_sorted_plain(c.abs(), off, S)
     abs_err, rel = _seg_err(got, ref, scale)
@@ -398,10 +420,12 @@ def _check_seg_sorted_shape(torch, c, off, S, what):
         raise AssertionError(f"K3 {what}: torch.segment_reduce disagrees ({lib_err})")
     r = _timed(torch, [rows, K, S], lambda: ka._seg_accum_sorted_cuda(c, off, S),
                lambda: ka.seg_accum_sorted_plain(c, off, S), library,
-               4 * (rows * K + (S + 1) + S * K), rows * K, K3_KERNELS)
-    r.update(max_abs_err=abs_err, rel_err=rel)
-    print(f"K3 seg_accum_sorted {what} ({rows},{K})->{S}: max_abs_err {abs_err:.3g} "
-          f"(rel {rel:.3g}); " + _fmt(r), flush=True)
+               4 * (n_rows * K + (S + 1) + S * K), n_rows * K, K3_KERNELS)
+    r.update(max_abs_err=abs_err, rel_err=rel, bitwise_cpu=bitwise_cpu,
+             bitwise_repeat=bitwise, rows_summed=n_rows)
+    print(f"K3 seg_accum_sorted {what} ({rows},{K})->{S}, {n_rows} rows in segments: "
+          f"max_abs_err {abs_err:.3g} (rel {rel:.3g}) against the card's plain version, equal "
+          f"bit for bit to the CPU's and to a second call; " + _fmt(r), flush=True)
     return r
 
 
@@ -582,6 +606,8 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0):
         st["window_ba_s"] += ds
         return out
 
+    window_prob = []
+
     def local_ba():
         window = sorted(m.image_idx_to_id)[-10:]
         if len(window) > 2:
@@ -589,6 +615,7 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0):
             m.adjust_bundle(window[2:], window[:2], ba_options=window_ba, async_=True,
                             defer=True)
             st["window_ba_s"] += time.perf_counter() - t0
+            window_prob[:] = [m._deferred_ba[-1][2]]  # the problem as built, not yet solved
 
     _sync(torch, dev)
     t_start = time.perf_counter()
@@ -626,7 +653,8 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0):
     return m, {"wall_s": wall, "stages_s": st, "window_iters": window_iters,
                "global": ginfo, "chains": c.get("chains", 0), "pulls": c.get("pulls", 0),
                "ba_applied": c.get("ba_applied", 0),
-               "two_stage_selfcal": "ba_selfcal_iters" in c}
+               "two_stage_selfcal": "ba_selfcal_iters" in c,
+               "window_prob": window_prob[0] if window_prob else None}
 
 
 def _report_loop(name, m, n_images, ate, ate_limit, s, launches):
@@ -646,23 +674,72 @@ def _report_loop(name, m, n_images, ate, ate_limit, s, launches):
           f"launches {json.dumps(launches)}", flush=True)
 
 
-def chained_phase(torch, dev):
-    """bench.py's chained loop over bench.py's 30-image scene."""
+def _map_state(m, ate):
+    """What a run mapped: registered poses, valid 3-D points and the ATE."""
+    import numpy as np
+
+    reg = [iid for iid in range(m.store.num_images) if m.store.image_registered[iid]]
+    return {"poses": np.concatenate([m.store.image_rvecs[reg], m.store.image_tvecs[reg]], 1),
+            "points": m.store.point3D_xyz[m.store.point3D_valid].copy(), "ate": ate}
+
+
+def chained_phase(torch, dev, name="chained"):
+    """bench.py's chained loop over bench.py's 30-image scene. Returns
+    (launches, the map's state, the mapper, its last window problem)."""
     from mavmap_tpu_torch.ops.cuda import build
     from mavmap_tpu_torch.utils.synthetic import mapper_ate
 
-    _phase("chained")
+    _phase(name)
     scene, prov = _bench_scene()
     build.reset_launches()
     m, s = bench_loop(torch, dev, scene, prov, NUM_IMAGES)
     launches = dict(build.launches)
     ate = float(mapper_ate(m, scene))
     limit = min(0.05, 2.0 * JAX_CPU_CHAINED_ATE_M)
-    _report_loop("chained", m, NUM_IMAGES, ate, limit, s, launches)
-    _check_map(m, NUM_IMAGES, NUM_IMAGES, ate, limit, "chained")
+    _report_loop(name, m, NUM_IMAGES, ate, limit, s, launches)
+    _check_map(m, NUM_IMAGES, NUM_IMAGES, ate, limit, name)
     lm_iters = s["window_iters"] + s["global"]["iterations"]
-    _check_launches("chained", launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
-    return launches
+    _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
+    return launches, _map_state(m, ate), m, s["window_prob"]
+
+
+def check_repeat(first, second):
+    """The chained loop run twice maps the same bits: every sum of the path
+    adds in an order fixed by a plan, and RANSAC draws from a seeded
+    generator."""
+    import numpy as np
+
+    same = {k: bool(np.array_equal(first[k], second[k])) for k in ("poses", "points", "ate")}
+    print(f"chained run twice: bitwise equal {json.dumps(same)}; ATE {first['ate']!r} / "
+          f"{second['ate']!r} m, {len(first['points'])} / {len(second['points'])} points",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"chained loop: two runs differ ({same})")
+    return same
+
+
+def check_ptblk_shapes(torch, dev, m, window_prob):
+    """K2 at the shapes of the dense self-calibrating step's per-(point,
+    block) aggregation (plan_ptblk: [That | Ghat] of both block entries,
+    54 columns, into Pd B segments), random values on the ids of the chained
+    loop's last window problem and of its global problem, beside
+    index_add_."""
+    import numpy as np
+    from mavmap_tpu_torch.ba import build_problem
+    from mavmap_tpu_torch.ba.core import plan_ids
+
+    _phase("kernels at the per-(point, block) shapes")
+    _, poses, _, points, oi, op, oc, xy = m.ba_problem_arrays()
+    global_prob = build_problem(poses, points, m.store.camera_params, m.store.camera_models,
+                                oi, op, oc, xy, bucket=True)
+    rng = np.random.default_rng(4)
+    out = []
+    for what, prob in (("window ptblk", window_prob), ("global ptblk", global_prob)):
+        ids, S = plan_ids(prob, "plan_ptblk")
+        c = torch.as_tensor(rng.normal(size=(len(ids), 54)).astype(np.float32), device=dev)
+        out.append(_check_seg_full_shape(torch, c, torch.as_tensor(ids.astype(np.int32),
+                                                                   device=dev), S, what))
+    return out
 
 
 def survey_phase(torch, dev):
@@ -702,7 +779,8 @@ def survey_phase(torch, dev):
     g = s["global"]
     cg = g["cg_iters"]
     # Host time of the K2 plans of this problem: those of the solver that
-    # ran (what bundle_adjust builds) and all three.
+    # ran (what bundle_adjust builds) and all five (the per-(point, block)
+    # plans key Pd B segments: the dense solver's alone).
     names = solver_plans(True, g["solver"])
     t0 = time.perf_counter()
     with_plans(prob, names)
@@ -710,7 +788,7 @@ def survey_phase(torch, dev):
     with_plans(prob)
     t2 = time.perf_counter()
     print(f"survey global problem's K2 plans: {1000 * (t1 - t0):.1f} ms of host time for "
-          f"the {g['solver']} solver's {list(names)}, {1000 * (t2 - t1):.1f} ms for all three",
+          f"the {g['solver']} solver's {list(names)}, {1000 * (t2 - t1):.1f} ms for all five",
           flush=True)
     print(f"survey global BA: {g['num_residuals'] // 2} observations "
           f"(capacity {prob.obs_image.shape[0]}), {len(points)} points "
@@ -819,11 +897,11 @@ def cg_vs_dense_phase(torch, dev):
     return dict(build.launches)
 
 
-def _kernel_line(phases, k1, k2, k3, ks):
+def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
     the survey's CG matvec (2O, 9), K3 the survey's (O, 3)), with every
-    timed shape listed."""
+    timed shape listed and the launch floor beside them."""
     def launches(k):
         return phases["main"][k], {p: n[k] for p, n in phases.items()}
 
@@ -832,8 +910,9 @@ def _kernel_line(phases, k1, k2, k3, ks):
             ("match", "mavmap_tpu_torch/csrc/match.cu", "mavmap_tpu/ops/pallas/match.py:106",
              k1["shapes"], k1["shapes"][0], k1["max_abs_err"]),
             ("seg_accum_full", "mavmap_tpu_torch/csrc/ba_accum.cu",
-             "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks["full"], ks["full"][0],
-             max(k2["max_abs_err"], ks["max_abs_err"])),
+             "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks["full"] + kp,
+             ks["full"][0], max([k2["max_abs_err"], ks["max_abs_err"]]
+                                + [r["max_abs_err"] for r in kp])),
             ("seg_accum_sorted", "mavmap_tpu_torch/csrc/ba_accum.cu",
              "mavmap_tpu/ops/pallas/ba_accum.py:179", k3["shapes"] + ks["sorted"],
              ks["sorted"][0], max(k3["max_abs_err"], ks["sorted_err"]))):
@@ -843,6 +922,7 @@ def _kernel_line(phases, k1, k2, k3, ks):
         row.update({k: head[k] for k in ("shape", "ms", "call_us", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by", "bound_resource", "share",
                                           "profiler_us")})
+        row["launch_floor_ms"] = floor_ms
         if name == "match":
             row["library_note"] = "no single PyTorch call gives both directions' top-2"
         row["shapes"] = shapes
@@ -857,17 +937,22 @@ def main():
     import mavmap_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_phase()
-    timer_check(torch)
+    floor_ms = timer_check(torch)
     _phase("kernels")
     k1 = check_match(torch, dev)
     k2 = check_seg_full(torch, dev)
     k3 = check_seg_sorted(torch, dev)
-    phases = {"main": main_path_phase(torch, dev), "chained": chained_phase(torch, dev)}
+    phases = {"main": main_path_phase(torch, dev)}
+    phases["chained"], first, m, window_prob = chained_phase(torch, dev)
+    phases["chained_repeat"], second, _, _ = chained_phase(torch, dev, "chained repeat")
+    check_repeat(first, second)
+    kp = check_ptblk_shapes(torch, dev, m, window_prob)
+    del m, window_prob
     phases["survey"], survey_prob = survey_phase(torch, dev)
     _phase("kernels at the survey's shapes")
     ks = check_survey_shapes(torch, dev, survey_prob)
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
-    print(_kernel_line(phases, k1, k2, k3, ks))
+    print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

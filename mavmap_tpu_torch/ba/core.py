@@ -15,13 +15,16 @@ Port of mavmap_tpu/ba/core.py (reference src/base3d/bundle_adjustment.{h,cc}):
   - gauge fixing by masking parameter rows (BA_POSE_FREE / FIXED /
     FIXED_X, bundle_adjustment.h:33-35), IMU rotation priors, GCP pinning.
 
-The per-image and per-block reductions go through CUDA kernel K2
-(ops/cuda/ba_accum.py seg_accum_full, keyed by the plans that
+The per-image, per-block and per-(point, block) reductions go through CUDA
+kernel K2 (ops/cuda/ba_accum.py seg_accum_full, keyed by the plans that
 bundle_adjust builds for the solver it runs, `with_plans`) and the
-per-point reductions through K3 (seg_accum_sorted) when the problem lives
-on a CUDA device, the CG matvec's included; on the CPU the wrappers run
-their plain PyTorch versions, K2's keyed by the same plans. The LM and CG loops are Python loops with an early exit (one
-host sync per iteration).
+per-point reductions through K3 (seg_accum_sorted, over the CSR offsets
+that build_problem makes) when the problem lives on a CUDA device, the CG
+matvec's included; on the CPU the wrappers run their plain PyTorch
+versions, K2's keyed by the same plans. Every sum of a solve adds in an
+order fixed by its plan or its offsets, none by atomics, so a solve gives
+the same bits on every run. The LM and CG loops are Python loops with an
+early exit (one host sync per iteration).
 
 `bundle_adjust_async` keeps the JAX package's dispatch/finalize interface
 but runs the solve when it is called: the loops sync the host every
@@ -86,9 +89,9 @@ class BAProblem(NamedTuple):
     pt_offsets[s+1] observe dense point s. Compared with the JAX BAProblem,
     the co-observation pair fields and the by-image sort (img_order,
     obs_image_sorted) are gone, `pt_offsets` replaces the banded kernel's
-    `pt_gather_rows`, and three K2 plans take the sort's part: every K2
-    call of the solvers sums by one of them, and by nothing else. They are
-    None until `with_plans` builds those that a solver needs.
+    `pt_gather_rows`, and five K2 plans take the sort's part: every K2 call
+    of the solvers sums by one of them, and by nothing else. They are None
+    until `with_plans` builds those that a solver needs.
     """
 
     poses: object            # (I, 6) rvec+tvec
@@ -111,41 +114,57 @@ class BAProblem(NamedTuple):
     plan_img: SegPlan = None   # obs_image into the I images
     plan_blk: SegPlan = None   # both entries, cat(obs_image, I + obs_cam), into B = I + C
     plan_hess: SegPlan = None  # the 4 entry pairs blk[:, a] * B + blk[:, b] into B^2
+    plan_ptimg: SegPlan = None  # obs_point_dense * I + obs_image into Pd I
+    plan_ptblk: SegPlan = None  # both entries, obs_point_dense * B + blk[:, a], into Pd B
 
 
-PLANS = ("plan_img", "plan_blk", "plan_hess")
+PLANS = ("plan_img", "plan_blk", "plan_hess", "plan_ptimg", "plan_ptblk")
 
 
 def solver_plans(selfcal, solver):
     """The K2 plans that a solver sums by: the image plan for the pose-only
-    steps, the block plan for the self-calibrating ones, and the B^2 plan
-    for the dense self-calibrating step's Hessian alone."""
+    steps, the block plan for the self-calibrating ones; the dense steps add
+    their per-(point, block) plan (_ptblk_agg), and the self-calibrating one
+    the B^2 plan of its Hessian."""
     if not selfcal:
-        return ("plan_img",)
-    return ("plan_blk", "plan_hess") if solver == "dense" else ("plan_blk",)
+        return ("plan_img", "plan_ptimg") if solver == "dense" else ("plan_img",)
+    return ("plan_blk", "plan_hess", "plan_ptblk") if solver == "dense" else ("plan_blk",)
 
 
-def _make_problem_plan(prob: BAProblem, name):
-    I, C = len(prob.poses), len(prob.cam_params)
+def plan_ids(prob: BAProblem, name):
+    """Host: (ids, S), the id array that the named K2 plan keys and its
+    segment count; a call summing by the plan has its rows in this order.
+    plan_img keys the image ids into the I images; plan_blk both block
+    entries of every observation (the image's pose block, then I + its
+    camera's intrinsics block) into the B = I + C blocks; plan_hess the four
+    (a, b) entry pairs in the order (0, 0), (0, 1), (1, 0), (1, 1), each
+    blk[:, a] * B + blk[:, b], into B^2; plan_ptimg each observation's
+    (dense point, image) pair into Pd I; plan_ptblk both entries' (dense
+    point, block) pairs, entry 0's rows then entry 1's, into Pd B. Padding
+    rows keep their ids (the last real point and image, camera 0): their
+    values are zero wherever they land."""
+    I, C, Pd = len(prob.poses), len(prob.cam_params), len(prob.point_rows)
     B = I + C
     obs_image = np.asarray(prob.obs_image, np.int64)
-    if name == "plan_img":
-        return make_plan(obs_image, I)
+    pt = np.asarray(prob.obs_point_dense, np.int64)
     blk = (obs_image, I + np.asarray(prob.obs_cam, np.int64))
+    if name == "plan_img":
+        return obs_image, I
     if name == "plan_blk":
-        return make_plan(np.concatenate(blk), B)
-    return make_plan(np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)]),
-                     B * B)
+        return np.concatenate(blk), B
+    if name == "plan_hess":
+        return np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)]), B * B
+    if name == "plan_ptimg":
+        return pt * I + obs_image, Pd * I
+    if name == "plan_ptblk":
+        return np.concatenate([pt * B + blk[a] for a in range(2)]), Pd * B
+    raise ValueError(f"unknown K2 plan {name!r}")
 
 
 def with_plans(prob: BAProblem, names=PLANS) -> BAProblem:
-    """Host: `prob` with the named K2 plans built from its ids (those it
-    has are kept). plan_img keys the image ids into the I images; plan_blk
-    both block entries of every observation (the image's pose block, then
-    I + its camera's intrinsics block) into the B = I + C blocks; plan_hess
-    the four (a, b) entry pairs in the order (0, 0), (0, 1), (1, 0), (1, 1),
-    each blk[:, a] * B + blk[:, b], into B^2."""
-    return prob._replace(**{n: _make_problem_plan(prob, n) for n in names
+    """Host: `prob` with the named K2 plans built from its ids (plan_ids;
+    those it has are kept)."""
+    return prob._replace(**{n: make_plan(*plan_ids(prob, n)) for n in names
                             if getattr(prob, n) is None})
 
 
@@ -423,18 +442,24 @@ def _backsub_points(prob: BAProblem, Vinv, bp, G, dc):
     return -dp * prob.point_free_dense[:, None]
 
 
-def _ptblk_agg(prob: BAProblem, vals, nblk, blk_ids):
-    """Per-(point, block) aggregation: (O, K) values -> (Pd, nblk, K/3, 3).
+def _ptblk_agg(prob: BAProblem, plan, T, G):
+    """Per-(point, block) aggregation of the couplings: T and G list the
+    (O, 3m) values of each block entry of the observations, in `plan`'s
+    entry order (plan_ptimg: the image alone; plan_ptblk: the image's pose
+    block, then the camera's intrinsics block) -> That, Ghat (Pd, nblk, m, 3).
 
     The Schur off-diagonal is sum_p That_p[i] Ghat_p[j]^T; aggregating the
     couplings per (point, block) first replaces the pair enumeration with
-    one segment sum plus one batched matmul. (An XLA segment_sum in the
-    JAX package, not a Pallas kernel: index_add_ here.)"""
+    one segment sum plus one batched matmul. The JAX package sums each
+    entry with an XLA segment_sum; here one K2 call over [T | G] of every
+    entry sums by the plan, in the same order on every run."""
     Pd = prob.point_rows.shape[0]
-    ids = prob.obs_point_dense.long() * nblk + blk_ids.long()
-    out = torch.zeros((Pd * nblk, vals.shape[1]), dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, ids, vals)
-    return out.reshape(Pd, nblk, vals.shape[1] // 3, 3)
+    nblk = plan.num_segments // Pd
+    k = T[0].shape[1]
+    agg = _seg_plan(plan, torch.cat([torch.cat([t, g], dim=1) for t, g in zip(T, G)]))
+    agg = agg.reshape(Pd, nblk, 2 * k)
+    return (agg[..., :k].reshape(Pd, nblk, k // 3, 3),
+            agg[..., k:].reshape(Pd, nblk, k // 3, 3))
 
 
 def _lm_step(prob: BAProblem, poses, points_d, lam, scale):
@@ -442,8 +467,7 @@ def _lm_step(prob: BAProblem, poses, points_d, lam, scale):
     I = poses.shape[0]
     U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale)
 
-    That = _ptblk_agg(prob, T, I, prob.obs_image)  # (Pd, I, 6, 3)
-    Ghat = _ptblk_agg(prob, G, I, prob.obs_image)
+    That, Ghat = _ptblk_agg(prob, prob.plan_ptimg, [T], [G])  # (Pd, I, 6, 3) each
     S_off = torch.einsum("pbij,pckj->bcik", That, Ghat)
     idx = torch.arange(I, device=poses.device)
     S = -S_off
@@ -585,10 +609,17 @@ def _assemble_selfcal_blocks(prob: BAProblem, poses, points_d, cam_params, cam_f
 
 
 def _selfcal_backsub(prob: BAProblem, Vinv, bp, Gcols, blk, dx):
-    Gt_dx = sum(
-        _seg_pt(prob, cm.stack_cols(
-            cm.matTvec_cols(Gcols[a], cm.cols_of(dx[blk[:, a]]), 9, 3)))
-        for a in range(2))
+    """dp_p = -V^-1 (bp_p + sum_a sum_{o in p} G_{o,a}^T dx[blk_{o,a}]).
+
+    One K3 call sums both entries side by side (6 columns), then the two
+    per-point sums are added: the JAX package's association (two sums, then
+    their sum) in one launch. Adding the entries per observation first
+    moves the weakly pinned principal point of a self-calibrating solve by
+    more f32 rounding than the solvers' agreement allows."""
+    Gt = torch.cat([cm.matTvec(cm.stack_cols(Gcols[a]).reshape(-1, 9, 3), dx[blk[:, a]])
+                    for a in range(2)], dim=1)
+    Gt2 = _seg_pt(prob, Gt)
+    Gt_dx = Gt2[:, :3] + Gt2[:, 3:]
     rhs = cm.cols_of(bp + Gt_dx)
     dp = cm.stack_cols(cm.matvec_cols(cm.cols_of(Vinv), rhs, 3, 3))
     return -dp * prob.point_free_dense[:, None]
@@ -616,10 +647,8 @@ def _lm_step_selfcal(prob: BAProblem, poses, points_d, cam_params, cam_free, lam
     H[idx_i, idx_i] += Ur9
 
     # Schur off-diagonal via per-(point, block) aggregation over both entries.
-    G2 = [cm.stack_cols(Gcols[a]) for a in range(2)]  # (O, 27)
-    T2 = [cm.stack_cols(Tcols[a]) for a in range(2)]
-    That = _ptblk_agg(prob, T2[0], B, blk[:, 0]) + _ptblk_agg(prob, T2[1], B, blk[:, 1])
-    Ghat = _ptblk_agg(prob, G2[0], B, blk[:, 0]) + _ptblk_agg(prob, G2[1], B, blk[:, 1])
+    That, Ghat = _ptblk_agg(prob, prob.plan_ptblk, [cm.stack_cols(Tcols[a]) for a in range(2)],
+                            [cm.stack_cols(Gcols[a]) for a in range(2)])  # (Pd, B, 9, 3) each
     S = H - torch.einsum("pbij,pckj->bcik", That, Ghat)
     # Marquardt damping on the diagonal blocks (diag of the UNDAMPED H).
     dH = torch.diagonal(Ddiag, dim1=-2, dim2=-1)

@@ -33,13 +33,26 @@
 //
 // mavmap_seg_accum_sorted replaces seg_accum_sorted (_sorted_kernel): the
 // same sum for observations sorted by a gapless dense point id. The TPU
-// kernel needs a banded one-hot per 1024-row tile, a carry row between
-// tiles and a gather epilogue; with the CSR offsets that the host builds
-// with the problem (offsets[s] .. offsets[s+1] are segment s's rows) it is a
-// plain segmented reduction: one thread per (segment, column), so a warp
-// covers a group of consecutive segments and reads their contiguous rows.
-// No carry, no atomics, deterministic. Bound: one read of O x K floats
-// (tracks are short, so the per-thread loops are a few rows long).
+// kernel multiplies each 1024-row tile by a banded one-hot, carries the
+// last segment's partial row into the next tile and gathers each segment's
+// total from its last tile in an epilogue. Here the host builds the CSR
+// offsets with the problem (offsets[s] .. offsets[s+1] are segment s's
+// rows), and seg_rows_kernel gives one thread to each (segment, column):
+// it reads the segment's two offsets, starts the loads of its first
+// ROW_BATCH rows at once (rows past the segment's end load its last row
+// again, a valid address whose value is never added, so no branch splits
+// the warp), then adds them in row order from 0.0; a longer segment takes
+// a second batch the same way, and rows past 2 ROW_BATCH are added one by
+// one. The additions are a sequential loop over the rows, the order of
+// index_add_ on the CPU: the kernel gives the bits of the plain version run
+// on the CPU, on every run, and needs no memset and no atomics.
+// Bound on an H100: one read of O x K floats and of the offsets, one write
+// of S x K floats. At the mapper's sizes (at most a few MB) two dependent
+// rounds of loads (offsets, then rows) and the launch set the time. A
+// loop of one dependent load per row makes a warp wait for its longest
+// track; here the loads of up to 2 ROW_BATCH rows are in flight together.
+// Staging groups of whole segments in shared memory and adding from there
+// was slower at the survey's shape (benchmarks/torch_k3_designs.py).
 
 #include <cuda_runtime.h>
 
@@ -49,6 +62,7 @@ constexpr int PIECE_THREADS = 256;      // pass 1 block
 constexpr int PIECE_ROWS = 256;         // ops/cuda/ba_accum.py PIECE_ROWS
 constexpr int MERGE_MAX_THREADS = 1024;  // pass 2 block, at most
 constexpr int SORTED_THREADS = 256;
+constexpr int ROW_BATCH = 8;            // rows of a segment whose loads go out together
 
 // Column sums of n rows of src (K columns): the i-th row is rows[i]
 // (GATHER) or base + i. Thread t is lane q = t / KC of column c = t % KC
@@ -121,16 +135,32 @@ seg_merge_kernel(const float* __restrict__ partial, const int* __restrict__ seg_
                      out + (size_t)s * K);
 }
 
+// Thread t sums column t % K of segment t / K (t < S K, checked by the
+// caller to fit an int).
 __global__ void __launch_bounds__(SORTED_THREADS)
-seg_sorted_kernel(const float* __restrict__ contrib, const int* __restrict__ offsets,
-                  int S, int K, float* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * SORTED_THREADS + threadIdx.x;
-  if (t >= (long long)S * K) return;
-  const int s = (int)(t / K);
-  const int col = (int)(t - (long long)s * K);
-  const int a = offsets[s], b = offsets[s + 1];
+seg_rows_kernel(const float* __restrict__ contrib, const int* __restrict__ offsets, int S,
+                int K, float* __restrict__ out) {
+  const int t = blockIdx.x * SORTED_THREADS + threadIdx.x;
+  if (t >= S * K) return;
+  const int s = t / K;
+  const int col = t - s * K;
+  const int a = __ldg(offsets + s);
+  const int n = __ldg(offsets + s + 1) - a;
   float acc = 0.f;
-  for (int r = a; r < b; ++r) acc += contrib[(long long)r * K + col];
+  if (n > 0) {
+    const float* p = contrib + (long long)a * K + col;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q > 0 && n <= ROW_BATCH) break;
+      float v[ROW_BATCH];
+#pragma unroll
+      for (int u = 0; u < ROW_BATCH; ++u)
+        v[u] = __ldg(p + (long long)min(q * ROW_BATCH + u, n - 1) * K);
+#pragma unroll
+      for (int u = 0; u < ROW_BATCH; ++u) acc = q * ROW_BATCH + u < n ? acc + v[u] : acc;
+    }
+    for (int r = 2 * ROW_BATCH; r < n; ++r) acc += __ldg(p + (long long)r * K);
+  }
   out[t] = acc;
 }
 
@@ -161,13 +191,13 @@ int mavmap_seg_accum_full(const float* contrib, const int* order, const int* pie
   return (int)cudaGetLastError();
 }
 
-// offsets (S + 1,) nondecreasing; out (S, K) is fully written.
+// offsets (S + 1,) nondecreasing, S K < 2^31; out (S, K) is fully written.
 int mavmap_seg_accum_sorted(const float* contrib, const int* offsets, int S, int K,
                             float* out, cudaStream_t stream) {
   const long long n = (long long)S * K;
   if (n == 0) return (int)cudaGetLastError();
   const int blocks = (int)((n + SORTED_THREADS - 1) / SORTED_THREADS);
-  seg_sorted_kernel<<<blocks, SORTED_THREADS, 0, stream>>>(contrib, offsets, S, K, out);
+  seg_rows_kernel<<<blocks, SORTED_THREADS, 0, stream>>>(contrib, offsets, S, K, out);
   return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,9 @@ def problem_from_jax(prob) -> BAProblem:
 
     The JAX problem's pair fields and by-image sort are dropped; the CSR
     offsets of the dense point ids are rebuilt from `obs_point_dense` over
-    the real (masked-in) observations, which come first, and all three K2
-    plans from the image and camera ids (every solver step can then run on
-    it directly)."""
+    the real (masked-in) observations, which come first, and all K2 plans
+    from the image, camera and dense point ids (every solver step can then
+    run on it directly)."""
     a = {k: np.asarray(getattr(prob, k)) for k in (
         "poses", "points", "cam_params", "cam_models", "obs_image", "obs_point",
         "obs_cam", "obs_uv", "obs_mask", "pose_free", "point_free", "rot_prior",

@@ -14,8 +14,11 @@
                      segment s). Replaces the banded Pallas kernel
                      seg_accum_sorted (_sorted_kernel) and its carry/gather
                      epilogue (gather_rows_for_sorted): the host builds the
-                     offsets with the problem, so the kernel is a plain
-                     deterministic segmented reduction.
+                     offsets with the problem; one thread per (segment,
+                     column) loads the segment's rows in batches of eight,
+                     all in flight, and adds them in row order, so the
+                     kernel gives the bits of the plain version run on the
+                     CPU.
 
 Both launch the kernel for CUDA tensors and run the plain PyTorch version
 (index_add_) for CPU tensors. Given a plan, seg_accum_full sums by the plan
@@ -172,8 +175,10 @@ def seg_accum_full(contrib, seg_ids, num_segments, plan=None):
 
 def seg_accum_sorted_plain(contrib, offsets, num_segments):
     """Plain PyTorch version of seg_accum_sorted. Each row's segment is
-    found by a search of the offsets; rows outside offsets[0]:offsets[-1]
-    land on a spare last row (no host sync, as in seg_accum_full_plain)."""
+    found by a search of the offsets, and index_add_ adds the rows; on the
+    CPU it adds them one index after another, from 0, the kernel's order,
+    so the two agree bit for bit. Rows outside offsets[0]:offsets[-1] land
+    on a spare last row (no host sync, as in seg_accum_full_plain)."""
     rows = torch.arange(contrib.shape[0], device=contrib.device)
     ids = torch.searchsorted(offsets.long(), rows, right=True) - 1
     ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
@@ -186,10 +191,10 @@ def _seg_accum_sorted_cuda(contrib, offsets, num_segments):
     dev = contrib.device
     build.require(contrib, "contrib", torch.float32, 2, dev)
     build.require(offsets, "offsets", torch.int32, 1, dev)
-    if offsets.shape[0] != num_segments + 1:
-        raise ValueError(f"offsets: {offsets.shape[0]} entries for "
-                         f"{num_segments} segments")
     K = contrib.shape[1]
+    if num_segments * K >= 1 << 31:
+        raise ValueError(f"seg_accum_sorted: {num_segments} x {K} sums, the kernel "
+                         f"indexes fewer than 2^31")
     out = torch.empty((num_segments, K), dtype=torch.float32, device=dev)
     build.check(build.library().mavmap_seg_accum_sorted(
         contrib.data_ptr(), offsets.data_ptr(), int(num_segments), K,
@@ -200,7 +205,9 @@ def _seg_accum_sorted_cuda(contrib, offsets, num_segments):
 
 def seg_accum_sorted(contrib, offsets, num_segments):
     """Segment sums of rows grouped by CSR offsets (num_segments + 1,) int32:
-    out[s] = sum of contrib[offsets[s]:offsets[s+1]]."""
+    out[s] = sum of contrib[offsets[s]:offsets[s+1]], added in row order."""
+    if offsets.shape[0] != num_segments + 1:
+        raise ValueError(f"offsets: {offsets.shape[0]} entries for {num_segments} segments")
     if contrib.is_cuda:
         return _seg_accum_sorted_cuda(contrib, offsets, num_segments)
     return seg_accum_sorted_plain(contrib, offsets, num_segments)

@@ -31,7 +31,8 @@ from mavmap_tpu.ba import build_problem as j_build
 from mavmap_tpu.ba.core import (
     _gather_dense_points as j_gather, _lm_loop as j_lm_loop,
     _lm_loop_selfcal as j_lm_loop_selfcal, _lm_step_cg as j_lm_step_cg,
-    _lm_step_selfcal_cg as j_lm_step_selfcal_cg, _selfcal_cam_free as j_cam_free,
+    _lm_step_selfcal_cg as j_lm_step_selfcal_cg, _ptblk_agg as j_ptblk_agg,
+    _selfcal_backsub as j_selfcal_backsub, _selfcal_cam_free as j_cam_free,
     pose_refinement as j_pose_refinement)
 from mavmap_tpu.ops.pallas.ba_accum import seg_accum_full as j_full, seg_accum_sorted as j_sorted
 from mavmap_tpu.ops.rotation import rotmat_from_rvec as j_rot
@@ -39,8 +40,8 @@ from mavmap_tpu.ops.rotation import rotmat_from_rvec as j_rot
 from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
 from mavmap_tpu_torch.ba.core import (
     PLANS, _cg_tolerance, _gather_dense_points, _lm_loop, _lm_loop_selfcal, _lm_step_cg,
-    _lm_step_selfcal_cg, _resolve_solver, _selfcal_cam_free, pose_refinement,
-    problem_to_device, solver_plans, with_plans)
+    _lm_step_selfcal_cg, _ptblk_agg, _resolve_solver, _selfcal_backsub, _selfcal_cam_free,
+    pose_refinement, problem_to_device, solver_plans, with_plans)
 from mavmap_tpu_torch.interop import problem_from_jax
 from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
@@ -185,6 +186,62 @@ def test_seg_accum_sorted_plain_matches_pallas(rng, case):
     assert np.all(got[len(lens):] == 0.0)
 
 
+def _track_case_offsets(rng, case, tail=37):
+    """CSR offsets of track lengths shaped like K3's edge cases, then a tail
+    of empty segments as bucketing leaves: "tracks" 1-12 rows; "batches"
+    segments of 7, 8, 9, 15, 16, 17, 40 and 300 rows, either side of the
+    kernel's two batches of eight rows and past them (its serial tail);
+    "empty_runs" runs of empty segments between short ones."""
+    if case == "tracks":
+        lens = rng.integers(1, 13, size=3000)
+    elif case == "batches":
+        lens = np.array([3, 7, 8, 9, 1, 15, 16, 17, 2, 40, 300, 5])
+    else:
+        lens = np.concatenate([rng.integers(1, 6, 50), np.zeros(300, np.int64),
+                               rng.integers(1, 6, 70), np.zeros(3, np.int64), [9]])
+    return np.concatenate([[0], np.cumsum(lens), np.full(tail, lens.sum())]).astype(np.int32)
+
+
+def _emulate_row_walk(c, off):
+    """K3's additions in numpy f32: per (segment, column) a sum from 0.0
+    adding one row at a time in row order (the kernel's batches of eight
+    loads change when rows arrive, not the order they are added in). Every
+    addition rounds to f32, as the kernel's."""
+    lo, hi = off[:-1].astype(np.int64), off[1:].astype(np.int64)
+    acc = np.zeros((len(lo), c.shape[1]), np.float32)
+    for r in range(int((hi - lo).max(initial=0))):
+        live = lo + r < hi
+        acc[live] = acc[live] + c[lo[live] + r]
+    return acc
+
+
+@pytest.mark.parametrize("K", [3, 12])
+@pytest.mark.parametrize("case", ["tracks", "batches", "empty_runs"])
+def test_seg_accum_sorted_walk_is_bitwise_plain(rng, case, K):
+    """K3's order of additions, emulated one row at a time in f32, equals
+    the plain version on the CPU bit for bit: index_add_ there adds the
+    rows in the same order from the same 0.0. Rows past the offsets
+    (bucket padding) are read by neither, and empty segments are 0."""
+    off = _track_case_offsets(rng, case)
+    S = len(off) - 1
+    c = rng.normal(size=(int(off[-1]) + 11, K)).astype(np.float32)
+    walk = _emulate_row_walk(c, off)
+    plain = ka.seg_accum_sorted(torch.as_tensor(c), torch.as_tensor(off), S).numpy()
+    np.testing.assert_array_equal(walk.view(np.uint32), plain.view(np.uint32))
+    assert np.all(walk[np.diff(off) == 0] == 0.0)
+
+
+def test_seg_accum_sorted_offsets_must_fit(rng):
+    """Offsets of another segment count than the call's raise on the CPU as
+    on the card."""
+    off = _track_case_offsets(rng, "tracks")
+    S = len(off) - 1
+    c = torch.as_tensor(rng.normal(size=(int(off[-1]), 3)).astype(np.float32))
+    assert ka.seg_accum_sorted(c, torch.as_tensor(off), S).shape == (S, 3)
+    with pytest.raises(ValueError):
+        ka.seg_accum_sorted(c, torch.as_tensor(off), S - 1)
+
+
 # ------------------------------------------------------------------ problems
 
 
@@ -224,7 +281,8 @@ def test_build_problem_and_conversion_match_jax(rng):
     kw = dict(pose_states=states, point_fixed=point_fixed, bucket=True)
     pj = j_build(poses, X, K, models, oi, op, oc, uv, host=True, **kw)
     pt = build_problem(poses, X, K, models, oi, op, oc, uv, **kw)
-    own = ("pt_offsets", "plan_img", "plan_blk", "plan_hess")  # the port's own fields
+    own = ("pt_offsets",) + PLANS  # the port's own fields
+    assert set(own) <= set(pt._fields)
     for f in pt._fields:
         if f not in own:
             np.testing.assert_array_equal(getattr(pt, f), np.asarray(getattr(pj, f)), f)
@@ -241,6 +299,16 @@ def test_build_problem_and_conversion_match_jax(rng):
     n = int(pt.obs_mask.sum())
     ids = np.repeat(np.arange(len(pt.point_rows)), np.diff(pt.pt_offsets))
     np.testing.assert_array_equal(ids, pt.obs_point_dense[:n])
+    # The per-(point, block) plans key each observation's dense point and
+    # block: plan_ptblk entry 0's rows (the image), then entry 1's (the camera).
+    I, B, Pd = len(pt.poses), len(pt.poses) + len(pt.cam_params), len(pt.point_rows)
+    for f, ids, S in (("plan_ptimg", pt.obs_point_dense * I + pt.obs_image, Pd * I),
+                      ("plan_ptblk", np.concatenate([pt.obs_point_dense * B + pt.obs_image,
+                                                     pt.obs_point_dense * B + I + pt.obs_cam]),
+                       Pd * B)):
+        ref = ka.make_plan(ids, S)
+        for k, (a, b) in enumerate(zip(getattr(pt, f), ref)):
+            np.testing.assert_array_equal(a, b, f"{f}[{k}]")
 
 
 def _jax_problem(rng, focal_err=0.0, priors=False):
@@ -258,6 +326,67 @@ def _jax_problem(rng, focal_err=0.0, priors=False):
 
 LM = dict(scale=1.0, lambda_init=1e-4, lambda_up=10.0, lambda_down=0.5,
           function_tolerance=0.0)
+
+
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_ptblk_agg_matches_jax(rng, selfcal):
+    """The per-(point, block) aggregation of the dense steps, one K2 call
+    over [T | G] of every block entry summed by plan_ptimg (pose-only) or
+    plan_ptblk (self-calibrating), against the JAX package's segment_sum
+    of each entry (the two entries' sums added) on the same problem and
+    values; padding rows carry zeros, as in the solver. Per segment within
+    1e-6 of its sum of |values|: both add the same rows, and no segment
+    holds rows of both entries (entry 1's blocks are I and up)."""
+    pj, pt = _jax_problem(rng, focal_err=0.01 if selfcal else 0.0)
+    jpj = jax.tree.map(jnp.asarray, pj)
+    I, Pd = pt.poses.shape[0], pt.point_rows.shape[0]
+    B = I + pt.cam_params.shape[0]
+    m, nblk = (9, B) if selfcal else (6, I)
+    blk = [np.asarray(pj.obs_image), I + np.asarray(pj.obs_cam)][:2 if selfcal else 1]
+    mask = np.asarray(pj.obs_mask)[:, None]
+
+    def values():
+        return [np.where(mask, rng.normal(size=(len(mask), 3 * m)), 0.0).astype(np.float32)
+                for _ in blk]
+
+    T, G = values(), values()
+    got = _ptblk_agg(pt, pt.plan_ptblk if selfcal else pt.plan_ptimg,
+                     [torch.as_tensor(t) for t in T], [torch.as_tensor(g) for g in G])
+    for g, vals in zip(got, (T, G)):
+        def jax_sum(f):
+            return sum(np.asarray(j_ptblk_agg(jpj, jnp.asarray(f(v)), nblk, jnp.asarray(b),
+                                              sorted_ids=a == 0))
+                       for a, (v, b) in enumerate(zip(vals, blk)))
+        ref, scale = jax_sum(lambda v: v), jax_sum(np.abs)
+        assert g.shape == ref.shape == (Pd, nblk, m, 3)
+        assert np.all(np.abs(g.numpy() - ref) <= 1e-6 * scale)
+        assert float(scale.max()) > 0
+
+
+def test_selfcal_backsub_matches_jax(rng):
+    """The self-calibrating back-substitution sums both block entries by
+    point in one K3 call (6 columns side by side) and adds the two sums, as
+    the JAX package adds its two per-entry sums: the same additions, so
+    within 1e-6 of the updates' scale (JAX's segment_sum may add a point's
+    rows in another order)."""
+    pj, pt = _jax_problem(rng, focal_err=0.01)
+    jpj = jax.tree.map(jnp.asarray, pj)
+    I, Pd, O = pt.poses.shape[0], pt.point_rows.shape[0], pt.obs_image.shape[0]
+    B = I + pt.cam_params.shape[0]
+    mask = np.asarray(pj.obs_mask)[:, None]
+    Vinv = rng.normal(size=(Pd, 9)).astype(np.float32)
+    bp = rng.normal(size=(Pd, 3)).astype(np.float32)
+    dx = (rng.normal(size=(B, 9)) * 1e-2).astype(np.float32)
+    Gc = [np.where(mask, rng.normal(size=(O, 27)), 0.0).astype(np.float32) for _ in range(2)]
+    blk = np.stack([np.asarray(pj.obs_image), I + np.asarray(pj.obs_cam)], 1).astype(np.int32)
+    ref = j_selfcal_backsub(jpj, jnp.asarray(Vinv), jnp.asarray(bp),
+                            [[jnp.asarray(g[:, i]) for i in range(27)] for g in Gc],
+                            jnp.asarray(blk), jnp.asarray(dx))
+    got = _selfcal_backsub(pt, torch.as_tensor(Vinv), torch.as_tensor(bp),
+                           [[torch.as_tensor(g[:, i]) for i in range(27)] for g in Gc],
+                           torch.as_tensor(blk), torch.as_tensor(dx))
+    assert float(np.abs(np.asarray(ref)).max()) > 0
+    _rel_close(got.numpy(), np.asarray(ref), 1e-6)
 
 
 def test_lm_loop_matches_jax(rng):
@@ -299,6 +428,8 @@ def test_bundle_adjust_builds_only_its_solver_plans(rng, selfcal, solver):
     names = solver_plans(selfcal, solver)
     built = with_plans(prob, names)
     assert [f for f in PLANS if getattr(built, f) is not None] == list(names)
+    # The dense steps aggregate per (point, block) by their own plan.
+    assert (("plan_ptblk" if selfcal else "plan_ptimg") in names) == (solver == "dense")
     _, _, info = bundle_adjust(prob, BAOptions(max_num_iterations=2, solver=solver,
                                                refine_camera_params=selfcal), CPU)
     assert info["solver"] == solver and info["final_cost"] < info["initial_cost"]

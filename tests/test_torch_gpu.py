@@ -8,10 +8,12 @@ without JAX — without the suite's conftest.py, which imports jax:
 
 Tolerances: K1 distances 1e-5 with indices equal except at near-ties
 (best and second within 1e-5: f32 dot products summed in another order
-may swap them), exact ties to the lower index; K2/K3 1e-5 of the
-per-segment sum of |contrib| (their sums run in another order than
+may swap them), exact ties to the lower index; K2 1e-5 of the
+per-segment sum of |contrib| (its sums run in another order than
 index_add_'s). K2 adds in an order fixed by its plan: repeated calls are
-bitwise equal.
+bitwise equal. K3 adds each segment's rows in row order, as index_add_
+does on the CPU: it equals its plain version run on a CPU copy bit for
+bit, and so does a dense self-calibrating bundle adjustment run twice.
 """
 
 import numpy as np
@@ -187,17 +189,98 @@ def test_seg_accum_full_kernel_needs_a_matching_plan(dev, rng):
         ka.seg_accum_full(c, ids, 5, ka.make_plan(np.zeros(64, np.int32), 4).to(dev))
 
 
+def _sorted_call(dev, c, off):
+    """K3 on the card on numpy contributions and offsets; returns (the card's
+    sums, the plain version's on a CPU copy, the call's arguments on the
+    card)."""
+    S = len(off) - 1
+    args = (torch.as_tensor(c, device=dev), torch.as_tensor(off, device=dev), S)
+    before = build.launches["seg_accum_sorted"]
+    got = ka.seg_accum_sorted(*args)
+    torch.cuda.synchronize()
+    assert build.launches["seg_accum_sorted"] == before + 1
+    ref = ka.seg_accum_sorted_plain(torch.as_tensor(c), torch.as_tensor(off), S)
+    return got.cpu(), ref, args
+
+
 @pytest.mark.parametrize("O,K", [(8192, 12), (20480, 3), (40960, 3)])
 def test_seg_accum_sorted_kernel_vs_plain(dev, rng, O, K):
+    """Tracks of 2-9 rows, bucketed to 1024 segments, rows past the last
+    offset: the kernel equals the plain version on a CPU copy bit for bit,
+    and the plain version on the card (index_add_ with atomics) to 1e-5 of
+    the per-segment sum of |contrib|."""
     lens = rng.integers(2, 10, size=O // 6)
     S = -(-len(lens) // 1024) * 1024
-    off = torch.as_tensor(ka.offsets_from_sorted_ids(np.repeat(np.arange(len(lens)), lens), S),
-                          device=dev)
-    c = torch.as_tensor(rng.normal(size=(O, K)).astype(np.float32), device=dev)
-    got = ka.seg_accum_sorted(c, off, S)
-    ref = ka.seg_accum_sorted_plain(c, off, S)
-    scale = ka.seg_accum_sorted_plain(c.abs(), off, S)
-    assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+    off = ka.offsets_from_sorted_ids(np.repeat(np.arange(len(lens)), lens), S)
+    c = rng.normal(size=(O, K)).astype(np.float32)
+    got, ref, (cd, od, _) = _sorted_call(dev, c, off)
+    assert torch.equal(got, ref)
+    scale = ka.seg_accum_sorted_plain(cd.abs(), od, S).cpu()
+    card = ka.seg_accum_sorted_plain(cd, od, S).cpu()
+    assert bool(((got - card).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("K", [3, 6, 12])
+@pytest.mark.parametrize("case", ["batches", "empty_runs", "empty_tail", "all_empty",
+                                  "unaligned"])
+def test_seg_accum_sorted_kernel_edge_cases_bitwise(dev, rng, case, K):
+    """The kernel's edge cases, each equal bit for bit to the plain version
+    on a CPU copy: segments either side of its two batches of eight rows
+    and past them (7, 8, 9, 15, 16, 17, 40, 300 rows: the serial tail);
+    runs of empty segments; a tail of empty segments from bucketing; no
+    row in any segment; and contributions starting 1-3 floats past a
+    16-byte boundary (a view into a larger tensor)."""
+    if case == "batches":
+        lens = np.array([3, 7, 8, 9, 1, 15, 16, 17, 2, 40, 300, 5])
+    elif case == "empty_runs":
+        lens = np.concatenate([rng.integers(1, 6, 50), np.zeros(300, np.int64),
+                               rng.integers(1, 6, 70), [9]])
+    elif case == "all_empty":
+        lens = np.zeros(100, np.int64)
+    else:
+        lens = rng.integers(1, 13, size=3000)
+    tail = 1024 - len(lens) % 1024 if case == "empty_tail" else 0
+    off = np.concatenate([[0], np.cumsum(lens), np.full(tail, lens.sum())]).astype(np.int32)
+    c = rng.normal(size=(int(off[-1]) + 5, K)).astype(np.float32)
+    if case == "unaligned":
+        for shift in (1, 2, 3):
+            base = torch.as_tensor(rng.normal(size=c.size + shift).astype(np.float32),
+                                   device=dev)
+            view = base[shift:].view(c.shape)
+            assert view.data_ptr() % 16 == 4 * shift
+            got = ka.seg_accum_sorted(view, torch.as_tensor(off, device=dev), len(off) - 1)
+            ref = ka.seg_accum_sorted_plain(view.cpu(), torch.as_tensor(off), len(off) - 1)
+            assert torch.equal(got.cpu(), ref)
+        return
+    got, ref, _ = _sorted_call(dev, c, off)
+    assert torch.equal(got, ref)
+    assert bool((got[torch.as_tensor(np.diff(off) == 0)] == 0).all())
+
+
+def test_seg_accum_sorted_kernel_is_bitwise_repeatable(dev, rng):
+    """Repeated calls at the survey's shape give the same bits."""
+    lens = np.minimum(rng.geometric(0.35, size=49000) + 1, 30)
+    lens = lens[np.cumsum(lens) <= 149490]  # the survey's real rows, then padding
+    off = ka.offsets_from_sorted_ids(np.repeat(np.arange(len(lens)), lens), 49152)
+    c = rng.normal(size=(151552, 3)).astype(np.float32)
+    _, ref, args = _sorted_call(dev, c, off)
+    outs = [ka.seg_accum_sorted(*args) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0].cpu(), ref)
+
+
+def test_seg_accum_sorted_kernel_refuses_bad_offsets(dev):
+    """A CUDA call raises on offsets of another segment count, or not int32,
+    before any launch."""
+    off = ka.offsets_from_sorted_ids(np.repeat(np.arange(100), 3), 128)
+    c = torch.zeros((300, 3), device=dev)
+    od = torch.as_tensor(off, device=dev)
+    before = build.launches["seg_accum_sorted"]
+    with pytest.raises(ValueError):
+        ka.seg_accum_sorted(c, od, 127)
+    with pytest.raises(TypeError):
+        ka.seg_accum_sorted(c, od.long(), 128)
+    assert build.launches["seg_accum_sorted"] == before
 
 
 def _ba_problem(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
@@ -256,6 +339,24 @@ def test_bundle_adjust_gpu_vs_cpu(dev, rng, selfcal):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-3 * np.abs(c).max())
     if selfcal:
         np.testing.assert_allclose(ig["cam_params"], ic["cam_params"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("selfcal", [True, False])
+def test_bundle_adjust_dense_is_bitwise_repeatable(dev, rng, selfcal):
+    """The dense solve run twice on the card returns the same bits: poses,
+    points and (self-calibrating) intrinsics. Every sum of the step adds in
+    an order fixed by a plan (K2's plans, plan_ptblk / plan_ptimg for the
+    per-(point, block) aggregation) or by the offsets (K3), none by atomics."""
+    prob = _ba_problem(rng)
+    opts = BAOptions(max_num_iterations=6, refine_camera_params=selfcal, solver="dense",
+                     function_tolerance=0.0)
+    runs = [bundle_adjust(prob, opts, dev) for _ in range(2)]
+    (p0, x0, i0), (p1, x1, i1) = runs
+    assert i0["solver"] == "dense" and i0["iterations"] == i1["iterations"] == 6
+    assert np.array_equal(p0, p1) and np.array_equal(x0, x1)
+    assert i0["final_cost"] == i1["final_cost"]
+    if selfcal:
+        assert np.array_equal(i0["cam_params"], i1["cam_params"])
 
 
 @pytest.mark.parametrize("selfcal", [False, True])
