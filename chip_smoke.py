@@ -40,10 +40,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     against their plain versions and timed as in phase 4;
  9. CG against dense: one ~40-camera problem solved by both solvers, with
     and without self-calibration, on the card;
-10. prints the kernels' JSON line, the card line, and last the result line.
+10. pipeline: run_pipeline in sequential mode over the survey's scene and
+    features with a vocabulary tree, as benchmarks/pipeline_scale.py runs
+    it: the batched initial-pair search, chains of 4 with a deferred window
+    bundle adjustment each, loop detection every 20 frames and as the
+    rescue, the back-fill, the global bundle adjustment and one closure
+    sweep — checking the registered count and the ATE against the JAX
+    package's on the CPU, that loops were closed and that batched K1 ran;
+11. prints the kernels' JSON line, the card line, and last the result line.
 
-The launch counters are zeroed just before each mapping phase (5-7, 9) and
-read just after it. Imports nothing of JAX or of the JAX package.
+Phase 4 also holds K1 with a slot axis (the batched steps' and the
+pre-gates' launches) slot by slot against its plain version and bit for
+bit against the single-pair launch on each slot's pair. The launch
+counters are zeroed just before each mapping phase (5-7, 9, 10) and read
+just after it. Imports nothing of JAX or of the JAX package.
 """
 
 import json
@@ -69,6 +79,13 @@ JAX_CPU_SURVEY_ATE_M = 0.052406
 JAX_CPU_SURVEY_REGISTERED = 200
 CHAIN = 6
 SURVEY_IMAGES = 200
+# The JAX package's run_pipeline on the CPU over the pipeline phase's scene,
+# tree and options (benchmarks/jax_pipeline_yardstick.py, mapper seeds 0-2:
+# 200/200, ATE 0.008439 / 0.008514 / 0.008387 m, 94 loop closures and 425
+# sweep closures in each; recorded in PERF.md). The port must register as
+# many and stay under 2x the seed-0 ATE.
+JAX_CPU_PIPELINE_ATE_M = 0.008439
+JAX_CPU_PIPELINE_REGISTERED = 200
 
 
 def _phase(name):
@@ -285,6 +302,28 @@ def _seg_cost(rows, K, S):
     return 4 * (rows * K + rows + S * K), rows * K
 
 
+def _check_match_slots(torch, got, ref, what):
+    """K1 against its plain version (one pair, or every slot of a batched
+    call): indices equal off near-ties (best and second within 1e-5),
+    distances to 1e-5, masked distances exact. Returns the largest distance
+    error."""
+    err = 0.0
+    for arg_i, best_i, second_i in ((0, 1, 2), (3, 4, 5)):
+        gb, rb, rs = got[best_i], ref[best_i], ref[second_i]
+        real = rb < 1e29
+        d_err = float((gb - rb).abs()[real].max())
+        if d_err > 1e-5 or not torch.equal(gb[~real], rb[~real]):
+            raise AssertionError(f"K1 {what}: distance error {d_err} or masked distances differ")
+        s_err = (got[second_i] - rs).abs()[rs < 1e29]
+        if s_err.numel() and float(s_err.max()) > 1e-5:
+            raise AssertionError(f"K1 {what}: second-distance error {float(s_err.max())}")
+        bad = (got[arg_i] != ref[arg_i]) & ((rs - rb) > 1e-5)
+        if bool(bad.any()):
+            raise AssertionError(f"K1 {what}: {int(bad.sum())} indices differ off near-ties")
+        err = max(err, d_err)
+    return err
+
+
 def check_match(torch, dev):
     """K1 at 1024x1024x128 with the prefilter, and ragged 1000x937."""
     import numpy as np
@@ -298,25 +337,7 @@ def check_match(torch, dev):
         got = km._match_raw_cuda(*args)
         ref = km.match_raw_plain(*args)
         torch.cuda.synchronize()
-        err = 0.0
-        for arg_i, best_i, second_i in ((0, 1, 2), (3, 4, 5)):
-            ga, ra = got[arg_i].long(), ref[arg_i].long()
-            gb, rb, rs = got[best_i], ref[best_i], ref[second_i]
-            real = rb < 1e29
-            d_err = (gb - rb).abs()
-            err = max(err, float(d_err[real].max()))
-            if not torch.equal(gb[~real], rb[~real]):
-                raise AssertionError(f"K1 {N1}x{N2}: masked distances differ")
-            if float(d_err[real].max()) > 1e-5:
-                raise AssertionError(f"K1 {N1}x{N2}: distance error {float(d_err.max())}")
-            s_err = (got[second_i] - rs).abs()[rs < 1e29]
-            if s_err.numel() and float(s_err.max()) > 1e-5:
-                raise AssertionError(f"K1 {N1}x{N2}: second-distance error {float(s_err.max())}")
-            bad = ga != ra
-            near_tie = (rs - rb) <= 1e-5
-            if bool((bad & ~near_tie).any()):
-                raise AssertionError(
-                    f"K1 {N1}x{N2}: {int((bad & ~near_tie).sum())} indices differ off near-ties")
+        err = _check_match_slots(torch, got, ref, f"{N1}x{N2}")
         # The whole matcher (ratio test + cross-check) on the card vs the CPU.
         mk, ok_k = km.match_brute_force_cuda(d1, d2, m1, m2, kp1, kp2, max_distance=maxd)
         mc, ok_c = km.match_brute_force_cuda(d1.cpu(), d2.cpu(), m1.cpu(), m2.cpu(),
@@ -335,6 +356,55 @@ def check_match(torch, dev):
               + _fmt(r), flush=True)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["shapes"].append(r)
+    return out
+
+
+def check_match_batched(torch, dev):
+    """K1 with a slot axis at the mapper's batched shapes, each 1024x1024x128:
+    32 slots with the first side shared and the prefilter on (the batched
+    two-view search), 32 slots with the second side shared and the prefilter
+    on (register_view_batch: loop-closure registration), 32 pairs with the
+    prefilter on (register_view_pairs: the back-fill and the closure sweep),
+    30 slots with the first side shared and no prefilter (the loop detector's
+    match-count pre-gate over its 30 candidates) and 64 pairs without it (the
+    closure sweep's pair pre-gate). Each is held slot by slot against its
+    plain version, and bit for bit against the single-pair launch on every
+    slot's pair."""
+    from mavmap_tpu_torch.ops.cuda import match as km
+
+    rng = __import__("numpy").random.default_rng(6)
+    out = []
+    for B, shared, prefilter in ((32, 1, True), (32, 2, True), (32, 0, True), (30, 1, False),
+                                 (64, 0, False)):
+        pairs, maxd = zip(*[_match_inputs(torch, rng, dev, 1024, 1024) for _ in range(B)])
+        # Per-slot stacks of (d1, d2, m1, m2, kp1, kp2); the shared side is slot 0's.
+        t = [pairs[0][i] if shared and i % 2 == shared - 1 else torch.stack([p[i] for p in pairs])
+             for i in range(6)]
+        args = km.padded_operands(*t, maxd[0] if prefilter else None)
+        got = km._match_raw_cuda(*args)
+        ref = km.match_raw_batched_plain(*args)
+        torch.cuda.synchronize()
+        what = f"batched {B} " + ("pairs", "shared first side", "shared second side")[shared]
+        err = _check_match_slots(torch, got, ref, what)
+        for b in range(B):
+            single = km._match_raw_cuda(*[None if a is None else (a[b] if a.dim() == x else a)
+                                          for a, x in zip(args[:6], (3, 2, 3, 2, 3, 3))],
+                                        args[6])
+            if not all(torch.equal(g[b], s) for g, s in zip(got, single)):
+                raise AssertionError(f"K1 {what}: slot {b} differs from its single-pair launch")
+        P1, D = args[0].shape[-2:]
+        n1, n2 = (1 if shared == 1 else B), (1 if shared == 2 else B)
+        nbytes = 4 * (n1 * P1 * D + n2 * P1 * D + n1 * P1 + n2 * P1
+                      + (2 * (n1 + n2) * P1 if prefilter else 0)) + 12 * 2 * B * P1
+        flops = B * (2 * P1 * P1 * D + (4 * P1 * P1 if prefilter else 0))
+        r = _timed(torch, [B, P1, P1, D], lambda: km._match_raw_cuda(*args),
+                   lambda: km.match_raw_batched_plain(*args), None, nbytes, flops, K1_KERNELS)
+        r.update(max_abs_err=err, slots=B, shared_side=shared or None, prefilter=prefilter,
+                 bitwise_single=True)
+        print(f"K1 match {what} {B}x{P1}x{P1}x{D} prefilter {prefilter}: max_abs_err {err:.3g} "
+              f"against the plain version, every slot equal bit for bit to its single-pair "
+              f"launch; " + _fmt(r), flush=True)
+        out.append(r)
     return out
 
 
@@ -742,25 +812,34 @@ def check_ptblk_shapes(torch, dev, m, window_prob):
     return out
 
 
-def survey_phase(torch, dev):
-    """bench.py's chained loop over benchmarks/pipeline_scale.py's scene at
-    SURVEY_IMAGES images; the global BA resolves to CG. Returns (launches,
-    the global problem as built for the kernel checks)."""
+def _survey_scene():
+    """benchmarks/pipeline_scale.py's scene cut to SURVEY_IMAGES images in 4
+    rows, with its rendered features (capacity 1024)."""
     import numpy as np
-    from mavmap_tpu_torch.ba import build_problem
-    from mavmap_tpu_torch.ba.core import solver_plans, with_plans
-    from mavmap_tpu_torch.ops.cuda import build
-    from mavmap_tpu_torch.utils.synthetic import make_uav_scene, mapper_ate, render_features
+    from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
 
-    _phase("survey")
     t0 = time.perf_counter()
     scene = make_uav_scene(num_images=SURVEY_IMAGES, num_points=120 * SURVEY_IMAGES,
                            relief=10.0, rows=4, extent=None, seed=13)
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=32, seed=13)
-    prov = _provider(feats)
+    feats = [(k[:1024], d[:1024]) for k, d in feats]
     print(f"survey scene: {SURVEY_IMAGES} images, {len(scene.points3D)} points, "
           f"{np.mean([len(k) for k, _ in feats]):.1f} features per image, rendered in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return scene, feats
+
+
+def survey_phase(torch, dev, scene, feats):
+    """bench.py's chained loop over benchmarks/pipeline_scale.py's scene at
+    SURVEY_IMAGES images; the global BA resolves to CG. Returns (launches,
+    the global problem as built for the kernel checks)."""
+    from mavmap_tpu_torch.ba import build_problem
+    from mavmap_tpu_torch.ba.core import solver_plans, with_plans
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate
+
+    _phase("survey")
+    prov = _provider(feats)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
@@ -897,6 +976,71 @@ def cg_vs_dense_phase(torch, dev):
     return dict(build.launches)
 
 
+def pipeline_phase(torch, dev, scene, feats):
+    """run_pipeline in sequential mode over the survey's scene and features,
+    with benchmarks/pipeline_scale.py's vocabulary tree and options; held
+    to the JAX package's registered count and 2x its ATE on the CPU, and
+    required to close loops and to launch batched K1."""
+    import numpy as np
+    from mavmap_tpu_torch.loop import train_voc_tree
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate, mapper_ate_profile
+
+    _phase("pipeline")
+    t0 = time.perf_counter()
+    desc = np.concatenate([d for _, d in feats[::10]])
+    tree = train_voc_tree(desc[np.random.default_rng(0).permutation(len(desc))[:8000]],
+                          branching=8, depth=2, iters=3, device=dev)
+    print(f"pipeline: vocabulary tree of {tree.num_words} words trained in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    opts = PipelineOptions(verbose=False, tri_min_angle=1.0, init_tri_min_angle=4.0,
+                           min_track_len=2, loop_detection_period=20, final_closure_sweeps=1,
+                           final_closure_step=2, chain_len=4, ba_local_max_iters=15)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
+                       _provider(feats), opts, voc_tree=tree, device=dev)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches, slots = dict(build.launches), dict(build.slots)
+    peak = torch.cuda.max_memory_allocated(dev)
+    m = res.main_mapper
+    nreg = m.num_proc_images
+    ate = float(mapper_ate(m, scene))
+    limit = 2.0 * JAX_CPU_PIPELINE_ATE_M
+    rep = m.report()
+    print(f"pipeline: registered {nreg}/{SURVEY_IMAGES} in {len(res.mappers)} map(s) in "
+          f"{wall:.3f} s = {SURVEY_IMAGES / wall:.3f} frames/s; ATE {ate!r} m (limit "
+          f"{limit:.6f} m, the JAX package's {JAX_CPU_PIPELINE_ATE_M} m); "
+          f"{m.store.num_points3D} 3-D points", flush=True)
+    print("pipeline timings_s " + json.dumps({k: round(v, 4) for k, v in res.timings.items()}),
+          flush=True)
+    print("pipeline counters " + json.dumps(rep), flush=True)
+    print("pipeline ATE profile per 50 frames " + " ".join(
+        f"[{s}:+{n}]={e:.6f}" for s, n, e in mapper_ate_profile(m, scene, block=50)), flush=True)
+    single = launches["match"] - launches["match_batched"]
+    per_launch = slots["match_batched"] / max(launches["match_batched"], 1)
+    slot_ms = 1000 * rep.get("batch_register_s", 0.0) / max(rep.get("batch_register_slots", 0), 1)
+    print(f"pipeline K1 launches: {single} single, {launches['match_batched']} batched with "
+          f"{slots['match_batched']} slots ({per_launch:.2f} per batched launch); batched "
+          f"registration {slot_ms:.2f} ms of host time per slot over "
+          f"{rep.get('batch_register_slots', 0)} slots; K2 {launches['seg_accum_full']}, "
+          f"K3 {launches['seg_accum_sorted']} launches; peak device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    _check_map(m, SURVEY_IMAGES, JAX_CPU_PIPELINE_REGISTERED, ate, limit, "pipeline")
+    closures = rep.get("loop_closures", 0) + rep.get("sweep_closures", 0)
+    if closures <= 0:
+        raise AssertionError("pipeline: no loop closure committed")
+    if launches["match_batched"] <= 0:
+        raise AssertionError("pipeline: batched K1 never launched")
+    lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
+    _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
+    return dict(launches, match_batched_slots=slots["match_batched"])
+
+
 def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
@@ -908,7 +1052,8 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     rows = []
     for name, source, replaces, shapes, head, err in (
             ("match", "mavmap_tpu_torch/csrc/match.cu", "mavmap_tpu/ops/pallas/match.py:106",
-             k1["shapes"], k1["shapes"][0], k1["max_abs_err"]),
+             k1["shapes"] + k1["batched"], k1["shapes"][0],
+             max([k1["max_abs_err"]] + [r["max_abs_err"] for r in k1["batched"]])),
             ("seg_accum_full", "mavmap_tpu_torch/csrc/ba_accum.cu",
              "mavmap_tpu/ops/pallas/ba_accum.py:79", k2["shapes"] + ks["full"] + kp,
              ks["full"][0], max([k2["max_abs_err"], ks["max_abs_err"]]
@@ -925,6 +1070,7 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
         row["launch_floor_ms"] = floor_ms
         if name == "match":
             row["library_note"] = "no single PyTorch call gives both directions' top-2"
+            row["launches_batched_by_phase"] = {p: n["match_batched"] for p, n in phases.items()}
         row["shapes"] = shapes
         rows.append(row)
     return json.dumps({"kernels": rows})
@@ -940,6 +1086,7 @@ def main():
     floor_ms = timer_check(torch)
     _phase("kernels")
     k1 = check_match(torch, dev)
+    k1["batched"] = check_match_batched(torch, dev)
     k2 = check_seg_full(torch, dev)
     k3 = check_seg_sorted(torch, dev)
     phases = {"main": main_path_phase(torch, dev)}
@@ -948,10 +1095,13 @@ def main():
     check_repeat(first, second)
     kp = check_ptblk_shapes(torch, dev, m, window_prob)
     del m, window_prob
-    phases["survey"], survey_prob = survey_phase(torch, dev)
+    scene, feats = _survey_scene()
+    phases["survey"], survey_prob = survey_phase(torch, dev, scene, feats)
     _phase("kernels at the survey's shapes")
     ks = check_survey_shapes(torch, dev, survey_prob)
+    del survey_prob
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
+    phases["pipeline"] = pipeline_phase(torch, dev, scene, feats)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -36,6 +36,19 @@
 //     (N2/64, N1, 2 + arg), columns (N1/64, N2, 2 + arg).
 //   pass 2 (match_merge_kernel): one thread per row and per column merges
 //     its partials in ascending tile order.
+// Batch axis (the TPU kernel under jax.vmap, as register_view_batch,
+// register_view_pairs, two_view_init_batch and the loop-closure pre-gates
+// run it): blockIdx.z is the slot in both launches. Each side has its own
+// batch flag; a side that every slot shares (the current image of
+// register_view_batch, the first image of two_view_init_batch, the query
+// of a match-count pre-gate) is read from the same rows by every slot.
+// Scratch and outputs carry a leading slot axis. A slot runs exactly the
+// arithmetic of a single-pair launch, which is the launch with one slot. Both
+// kernels are templates on kBatched: the launch with one slot takes the
+// instance without the per-slot pointer offsets (on an H100 they made the
+// single-pair launch 1.6 us slower, 16.2-16.7 -> 17.8-18.3 us, when computed
+// at run time: benchmarks/torch_k1_ab.py), so its code is that of the
+// kernel before the slot axis.
 // Every merge of two partial top-2 sets keeps the exact top-2 of the union
 // and breaks equal minima on the index, so the result does not depend on
 // the order in which threads meet, and ties go to the lower index as
@@ -114,17 +127,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(THREADS)
 match_tile_kernel(const float* __restrict__ d1, const float* __restrict__ d2,
                   const float* __restrict__ rowpen, const float* __restrict__ pen2,
                   const float* __restrict__ kp1, const float* __restrict__ kp2,
-                  float maxd2, int use_kp, int N1, int N2, int D,
+                  float maxd2, int use_kp, int batch1, int batch2, int N1, int N2, int D,
                   float* __restrict__ row_part_d, int* __restrict__ row_part_arg,
                   float* __restrict__ col_part_d, int* __restrict__ col_part_arg) {
   __shared__ __align__(16) float sA[2][BM * LDS];
   __shared__ __align__(16) float sB[2][BN * LDS];
   __shared__ float s_n1[BM];
   __shared__ Top2 s_col[THREADS / 32][BN];
+
+  if constexpr (kBatched) {
+    // This slot's operands (a shared side stays at slot 0) and partials.
+    const size_t b = blockIdx.z;
+    const size_t b1 = batch1 ? b : 0, b2 = batch2 ? b : 0;
+    d1 += b1 * N1 * D;
+    rowpen += b1 * N1;
+    d2 += b2 * N2 * D;
+    pen2 += b2 * N2;
+    if (use_kp) {
+      kp1 += b1 * 2 * N1;
+      kp2 += b2 * 2 * N2;
+    }
+    row_part_d += b * (N2 / BN) * N1 * 2;
+    row_part_arg += b * (N2 / BN) * N1;
+    col_part_d += b * (N1 / BM) * N2 * 2;
+    col_part_arg += b * (N1 / BM) * N2;
+  }
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -284,11 +316,23 @@ __device__ __forceinline__ Top2 merge_tiles(const float* __restrict__ part_d,
   return m;
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(MERGE_THREADS)
 match_merge_kernel(const float* __restrict__ row_part_d, const int* __restrict__ row_part_arg,
                    const float* __restrict__ col_part_d, const int* __restrict__ col_part_arg,
                    int N1, int N2, int* __restrict__ row_arg, float* __restrict__ row_d,
                    int* __restrict__ col_arg, float* __restrict__ col_d) {
+  if constexpr (kBatched) {
+    const size_t b = blockIdx.y;  // the slot
+    row_part_d += b * (N2 / BN) * N1 * 2;
+    row_part_arg += b * (N2 / BN) * N1;
+    col_part_d += b * (N1 / BM) * N2 * 2;
+    col_part_arg += b * (N1 / BM) * N2;
+    row_arg += b * N1;
+    row_d += b * N1 * 2;
+    col_arg += b * N2;
+    col_d += b * 2 * N2;
+  }
   const int t = blockIdx.x * MERGE_THREADS + threadIdx.x;
   if (t < N1) {
     const Top2 m = merge_tiles(row_part_d, row_part_arg, N2 / BN, N1, t);
@@ -308,26 +352,43 @@ match_merge_kernel(const float* __restrict__ row_part_d, const int* __restrict__
 
 extern "C" {
 
-// Both launches. N1 % 64 == 0, N2 % 64 == 0, D % 32 == 0, and d1/d2 16-byte
-// aligned (the wrapper checks and pads). Scratch: row_part_d (N2/64, N1, 2),
-// row_part_arg (N2/64, N1), col_part_d (N1/64, N2, 2), col_part_arg
-// (N1/64, N2). Outputs: row_arg (N1,), row_d (N1, 2) = [best, second],
-// col_arg (N2,), col_d (2, N2) = [best; second].
+// Both launches, for B slots (B = 1: a single pair). N1 % 64 == 0,
+// N2 % 64 == 0, D % 32 == 0, and d1/d2 16-byte aligned (the wrapper checks
+// and pads). batch1 / batch2: 1 if that side holds one set of rows per slot
+// (d1 (B, N1, D), rowpen (B, N1), kp1 (B, N1, 2)), 0 if every slot reads the
+// same (N1, D) rows; likewise d2, pen2, kp2. Scratch: row_part_d
+// (B, N2/64, N1, 2), row_part_arg (B, N2/64, N1), col_part_d (B, N1/64, N2,
+// 2), col_part_arg (B, N1/64, N2). Outputs: row_arg (B, N1), row_d
+// (B, N1, 2) = [best, second], col_arg (B, N2), col_d (B, 2, N2) =
+// [best; second].
 int mavmap_match(const float* d1, const float* d2, const float* rowpen, const float* pen2,
-                 const float* kp1, const float* kp2, float maxd2, int use_kp, int N1, int N2,
-                 int D, float* row_part_d, int* row_part_arg, float* col_part_d,
-                 int* col_part_arg, int* row_arg, float* row_d, int* col_arg, float* col_d,
-                 cudaStream_t stream) {
-  if (N1 <= 0 || N2 <= 0 || D <= 0 || N1 % BM || N2 % BN || D % BK)
+                 const float* kp1, const float* kp2, float maxd2, int use_kp, int B,
+                 int batch1, int batch2, int N1, int N2, int D, float* row_part_d,
+                 int* row_part_arg, float* col_part_d, int* col_part_arg, int* row_arg,
+                 float* row_d, int* col_arg, float* col_d, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || N1 <= 0 || N2 <= 0 || D <= 0 || N1 % BM || N2 % BN || D % BK)
     return (int)cudaErrorInvalidValue;
-  match_tile_kernel<<<dim3(N2 / BN, N1 / BM), THREADS, 0, stream>>>(
-      d1, d2, rowpen, pen2, kp1, kp2, maxd2, use_kp, N1, N2, D, row_part_d, row_part_arg,
-      col_part_d, col_part_arg);
+  const dim3 tiles(N2 / BN, N1 / BM, B), merge((N1 + N2 + MERGE_THREADS - 1) / MERGE_THREADS, B);
+  if (B == 1) {
+    match_tile_kernel<false><<<tiles, THREADS, 0, stream>>>(
+        d1, d2, rowpen, pen2, kp1, kp2, maxd2, use_kp, batch1, batch2, N1, N2, D, row_part_d,
+        row_part_arg, col_part_d, col_part_arg);
+  } else {
+    match_tile_kernel<true><<<tiles, THREADS, 0, stream>>>(
+        d1, d2, rowpen, pen2, kp1, kp2, maxd2, use_kp, batch1, batch2, N1, N2, D, row_part_d,
+        row_part_arg, col_part_d, col_part_arg);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  match_merge_kernel<<<(N1 + N2 + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS, 0,
-                       stream>>>(row_part_d, row_part_arg, col_part_d, col_part_arg, N1, N2,
-                                 row_arg, row_d, col_arg, col_d);
+  if (B == 1) {
+    match_merge_kernel<false><<<merge, MERGE_THREADS, 0, stream>>>(
+        row_part_d, row_part_arg, col_part_d, col_part_arg, N1, N2, row_arg, row_d, col_arg,
+        col_d);
+  } else {
+    match_merge_kernel<true><<<merge, MERGE_THREADS, 0, stream>>>(
+        row_part_d, row_part_arg, col_part_d, col_part_arg, N1, N2, row_arg, row_d, col_arg,
+        col_d);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .ba.core import BAProblem, with_plans
+from .loop.voctree import VocTree
 from .ops.cuda.ba_accum import offsets_from_sorted_ids
 
 
@@ -57,3 +58,10 @@ def cameras_to_device(cam_params, cam_models, device):
     """Padded camera arrays (C, 9) / (C,) -> float32 / int32 tensors."""
     return (torch.as_tensor(np.asarray(cam_params, np.float32), device=device),
             torch.as_tensor(np.asarray(cam_models, np.int32), device=device))
+
+
+def voc_tree_from_jax(tree, device) -> VocTree:
+    """A vocabulary tree of the JAX package (anything with `.centers`,
+    `.branching` and `.depth`) -> this package's VocTree on device."""
+    return VocTree([np.asarray(c, np.float32) for c in tree.centers], int(tree.branching),
+                   int(tree.depth), device=device)

@@ -86,7 +86,7 @@ def library():
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.mavmap_match.argtypes = [P, P, P, P, P, P, ctypes.c_float, I, I, I, I,
+    lib.mavmap_match.argtypes = [P, P, P, P, P, P, ctypes.c_float, I, I, I, I, I, I, I,
                                  P, P, P, P, P, P, P, P, P]
     lib.mavmap_seg_accum_full.argtypes = [P, P, P, I, P, I, I, I, P, P, P]
     lib.mavmap_seg_accum_sorted.argtypes = [P, P, I, I, P, P]
@@ -111,12 +111,16 @@ def stream_ptr(device):
 # Launches of each kernel by its wrapper (a count of kernel calls, never of
 # plain-version calls). chip_smoke.py zeroes them before driving the main
 # path and reads them after, to show the path went through the kernels.
-launches = {"match": 0, "seg_accum_full": 0, "seg_accum_sorted": 0}
+# "match" counts every K1 launch; "match_batched" the ones with a slot axis,
+# and slots["match_batched"] the slots those launches ran.
+launches = {"match": 0, "match_batched": 0, "seg_accum_full": 0, "seg_accum_sorted": 0}
+slots = {"match_batched": 0}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, slots):
+        for k in counts:
+            counts[k] = 0
 
 
 def require(t, name, dtype, ndim, device):

@@ -70,6 +70,23 @@ def match_features(d1, d2, mask1=None, mask2=None, kp1=None, kp2=None,
                                   max_distance=max_distance)
 
 
+def match_features_batched(d1s, d2s, masks1=None, masks2=None, kps1=None, kps2=None,
+                           ratio=0.9, max_distance=None):
+    """`match_features` over a leading slot axis, the JAX package's
+    jax.vmap of the matcher: each side is one (B, N, D) stack of
+    descriptors (with (B, N) masks and (B, N, 2) keypoints) or one
+    (N, D) image that every slot shares. One batched K1 launch on CUDA
+    tensors, its plain version on CPU ones; the ratio test and the
+    cross-check run per slot. Returns (matches (B, N1), valid (B, N1)),
+    each slot equal to `match_features` on its pair."""
+    from .cuda.match import match_brute_force_cuda
+
+    if d1s.dim() != 3 and d2s.dim() != 3:
+        raise ValueError("match_features_batched: neither side has a slot axis")
+    return match_brute_force_cuda(d1s, d2s, masks1, masks2, kps1, kps2, ratio=ratio,
+                                  max_distance=max_distance)
+
+
 def median_feature_disparity(kp1, kp2, matches, valid):
     """Median keypoint displacement over matches (reference feature.cc:136-151).
     Invalid entries sort last as +inf; the median is over the first n."""

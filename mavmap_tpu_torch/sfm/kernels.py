@@ -2,15 +2,20 @@
 
 Port of mavmap_tpu/sfm/kernels.py (`two_view_init`, `register_view`, the
 chained `register_chain` / `register_chain_fresh` with their device copy
-of the commit's track rules `_derive_chain_state`, and the host
-unpacking). Each step runs on the device of its input tensors and returns
-packed buffers, `rows` (F, 9|12) and `scalars` (21|13) per frame, laid out
-exactly like the JAX version's, so the two packages can be held against
-each other field by field. All gates return scalars; the host applies the
+of the commit's track rules `_derive_chain_state`, the batched
+`two_view_init_batch` / `register_view_batch` / `register_view_pairs`, and
+the host unpacking). Each step runs on the device of its input tensors and
+returns packed buffers, `rows` (F, 9|12) and `scalars` (21|13) per frame
+(with a leading slot axis from the batched steps), laid out exactly like
+the JAX version's, so the two packages can be held against each other
+field by field. All gates return scalars; the host applies the
 accept/reject logic.
 
-RANSAC draws its samples from an explicit torch.Generator; `samples`
-injects (T, S) sample indices instead (tests feed the JAX package's).
+The batched steps match every slot in one batched K1 launch (the JAX
+package vmaps the whole step); the geometry after the match runs slot by
+slot, in slot order. RANSAC draws its samples from an explicit
+torch.Generator; `samples` injects (T, S) sample indices instead (tests
+feed the JAX package's), with a leading slot axis for the batched steps.
 """
 
 import math
@@ -56,6 +61,38 @@ def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
     """
     matches, valid = matching.match_features(
         desc1, desc2, mask1, mask2, kp1, kp2, ratio=ratio, max_distance=max_distance)
+    return _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_threshold,
+                              essential_trials, hom_trials, max_depth, samples)
+
+
+def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, n2s,
+                        ratio, max_distance, norm_thresholds, essential_trials=512,
+                        hom_trials=128, max_depth=100.0, samples=None):
+    """two_view_init of one first image against B candidate second images
+    (the JAX package's jax.vmap over the candidates, mapper.cc:1027-1036):
+    the first image is shared, the candidates' inputs carry a leading B,
+    norm_thresholds is one float per slot. One batched K1 launch matches
+    every slot; the geometry runs slot by slot. samples: optional
+    (homography (B, T_h, 4), essential (B, T_e, 5)). Returns (rows
+    (B, F, 9), scalars (B, 21))."""
+    matches, valid = matching.match_features_batched(
+        desc1, desc2s, mask1, mask2s, kp1, kp2s, ratio=ratio, max_distance=max_distance)
+    outs = [_two_view_geometry(generator, matches[b], valid[b], kp1, n1, kp2s[b], n2s[b],
+                               float(norm_thresholds[b]), essential_trials, hom_trials,
+                               max_depth, _slot(samples, b))
+            for b in range(matches.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _slot(samples, b):
+    """Slot b's sample tuple of batched samples (None: draw)."""
+    return None if samples is None else tuple(s[b] for s in samples)
+
+
+def _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_threshold,
+                       essential_trials, hom_trials, max_depth, samples):
+    """two_view_init after the match: disparity, homography and 5-point
+    RANSAC, the 8-point refit, pose and triangulation."""
     num_matches = torch.sum(valid)
     med_disp = matching.median_feature_disparity(kp1, kp2, matches, valid)
 
@@ -169,6 +206,18 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
     matches, valid = matching.match_features(
         desc_prev, desc_curr, mask_prev, mask_curr, kp_prev, kp_curr,
         ratio=ratio, max_distance=max_distance)
+    return _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_curr,
+                              prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
+                              cam_params, cam_model, norm_threshold, p3p_trials, hom_trials,
+                              refine_iters, samples)
+
+
+def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_curr,
+                       prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
+                       cam_params, cam_model, norm_threshold, p3p_trials, hom_trials,
+                       refine_iters, samples):
+    """register_view after the match: disparity, homography and P3P
+    RANSAC, the pose refinement, track checks and new triangulations."""
     num_matches = torch.sum(valid)
     med_disp = matching.median_feature_disparity(kp_prev, kp_curr, matches, valid)
 
@@ -347,6 +396,47 @@ def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
                                 scal, ba_poses, ba_points, p3p_trials, hom_trials,
                                 refine_iters, samples)
+
+
+def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,
+                        xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
+                        ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
+                        refine_iters=30, samples=None):
+    """register_view of one current image against B processed candidates
+    (the JAX package's jax.vmap over loop-closure candidates,
+    sequential_mapper.cc:1182-1211): the candidates' features, track state
+    and poses carry a leading B; the current image's features and camera
+    are shared. One batched K1 launch matches every slot; the geometry runs
+    slot by slot. samples: optional (homography (B, T_h, 4), p3p
+    (B, T_p, 4)). Returns (rows (B, F, 12), scalars (B, 13))."""
+    matches, valid = matching.match_features_batched(
+        desc_p, desc_c, mask_p, mask_c, kpp, kp_curr, ratio=ratio, max_distance=max_distance)
+    outs = [_register_geometry(generator, matches[b], valid[b], kpp[b], np_[b], kp_curr, nc_,
+                               xyz[b], has_tri[b], stable[b], prev_rvec[b], prev_tvec[b],
+                               kparams, int(model_code), norm_threshold, p3p_trials,
+                               hom_trials, refine_iters, _slot(samples, b))
+            for b in range(matches.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c, nc_,
+                        xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
+                        ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
+                        refine_iters=30, samples=None):
+    """register_view over B full (current, previous) pairs: both sides carry
+    a leading B, as do kparams (B, 9); model_code and norm_threshold are
+    one value per slot (the back-fill and closure-sweep pairs,
+    mapper.cc:221-299). One batched K1 launch matches every slot; the
+    geometry runs slot by slot. Returns (rows (B, F, 12), scalars
+    (B, 13))."""
+    matches, valid = matching.match_features_batched(
+        desc_p, desc_c, mask_p, mask_c, kpp, kpc, ratio=ratio, max_distance=max_distance)
+    outs = [_register_geometry(generator, matches[b], valid[b], kpp[b], np_[b], kpc[b], nc_[b],
+                               xyz[b], has_tri[b], stable[b], prev_rvec[b], prev_tvec[b],
+                               kparams[b], int(model_code[b]), float(norm_threshold[b]),
+                               p3p_trials, hom_trials, refine_iters, _slot(samples, b))
+            for b in range(matches.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def unpack_register(rows, scalars) -> RegisterResult:

@@ -1,7 +1,7 @@
 """Synthetic UAV-style scenes for tests and benchmarks.
 
 Port of mavmap_tpu/utils/synthetic.py (`make_uav_scene`, `render_features`,
-`mapper_ate`, `ate_rmse`): a terrain point cloud with per-point
+`mapper_ate`, `mapper_ate_profile`, `ate_rmse`): a terrain point cloud with per-point
 descriptors, a serpentine aerial camera trajectory, and projected
 per-image features with pixel noise, descriptor noise, clutter and
 dropout. Scenes are host data (numpy, made from a seed); the few rotation
@@ -154,6 +154,31 @@ def mapper_ate(mapper, scene):
     est = -np.einsum("nij,nj->ni", R.transpose(0, 2, 1),
                      mapper.store.image_tvecs[reg_ids])
     return ate_rmse(est, scene.camera_centers()[idxs])
+
+
+def mapper_ate_profile(mapper, scene, block=100):
+    """Per-block ATE profile: one similarity alignment over every registered
+    frame, then the RMSE of each contiguous `block` of image indices under
+    it — where along the survey the error accumulates (uniform: noise;
+    ramping: drift the loop closures did not remove). Returns
+    [(start_idx, n_frames, rmse_m)]."""
+    reg_ids = [iid for iid in range(mapper.store.num_images)
+               if mapper.store.image_registered[iid]]
+    if len(reg_ids) < 3:
+        return []
+    idxs = np.array([mapper.image_id_to_idx[iid] for iid in reg_ids])
+    R = _rotmats(mapper.store.image_rvecs[reg_ids])
+    est = -np.einsum("nij,nj->ni", R.transpose(0, 2, 1), mapper.store.image_tvecs[reg_ids])
+    gt = scene.camera_centers()[idxs]
+    T = solve_umeyama(_f32(est), _f32(gt))
+    aligned = transform_points(T, _f32(est)).numpy()
+    err2 = np.sum((aligned - gt) ** 2, axis=-1)
+    out = []
+    for s in range(0, int(idxs.max()) + 1, block):
+        sel = (idxs >= s) & (idxs < s + block)
+        if sel.sum():
+            out.append((s, int(sel.sum()), float(np.sqrt(err2[sel].mean()))))
+    return out
 
 
 def ate_rmse(est_centers, gt_centers, mask=None):

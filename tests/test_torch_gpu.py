@@ -14,6 +14,11 @@ index_add_'s). K2 adds in an order fixed by its plan: repeated calls are
 bitwise equal. K3 adds each segment's rows in row order, as index_add_
 does on the CPU: it equals its plain version run on a CPU copy bit for
 bit, and so does a dense self-calibrating bundle adjustment run twice.
+K1 with a slot axis gives every slot the bits of the single-pair launch on
+that slot's pair; register_view_batch gives every slot the bits of
+register_view on the same pair with the same RANSAC draws; the vocabulary
+tree quantizes as on the CPU except at near-ties (two centers within 1e-5
+relative).
 """
 
 import numpy as np
@@ -21,11 +26,15 @@ import pytest
 import torch
 
 from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
+from mavmap_tpu_torch.loop import train_voc_tree
+from mavmap_tpu_torch.models import camera as cam
 from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 from mavmap_tpu_torch.ops.cuda import build
 from mavmap_tpu_torch.ops.cuda import match as km
-from mavmap_tpu_torch.ops.matching import match_features
+from mavmap_tpu_torch.ops.matching import match_features, match_features_batched
 from mavmap_tpu_torch.ops.rotation import rotmat_from_rvec
+from mavmap_tpu_torch.sfm.kernels import register_view, register_view_batch
+from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
 
 pytestmark = pytest.mark.gpu
 
@@ -117,6 +126,171 @@ def test_match_kernel_refuses_untiled_shapes(dev):
     pen = torch.zeros(100, device=dev)
     with pytest.raises(ValueError):
         km.match_raw(x, pen, x, pen)
+
+
+def _batched_pairs(rng, B, N1, N2, shared1, ties):
+    """B descriptor pairs; side 1 one image for every slot when shared1.
+    With ties, every slot's pairs carry exact ties in both directions (a
+    row of d1 copied into two columns of d2, a column of d2 copied into two
+    rows of d1), in the same 64-wide tile and across tiles."""
+    pairs = [list(_pair(rng, N1, N2)) for _ in range(B)]
+    if shared1:
+        for p in pairs[1:]:
+            p[0], p[2], p[4] = pairs[0][0], pairs[0][2], pairs[0][4]
+    if ties:
+        for b, (d1, d2, m1, m2, kp1, kp2) in enumerate(pairs):
+            m1[:] = True
+            m2[:] = True
+            for r, (a, c) in {100: (3, 70), 7: (5 + b % 3, 9 + b % 3)}.items():
+                d2[a], d2[c], kp2[a], kp2[c] = d1[r], d1[r], kp1[r], kp1[r]
+            if not shared1:
+                for c, (a, r) in {40: (10, 600 % N1), 128: (64, 65)}.items():
+                    d1[a], d1[r], kp1[a], kp1[r] = d2[c], d2[c], kp2[c], kp2[c]
+    stack = [np.stack([p[i] for p in pairs]) for i in range(6)]
+    if shared1:
+        for i in (0, 2, 4):
+            stack[i] = pairs[0][i]
+    return stack
+
+
+def _hold_batched(dev, arrays, B):
+    """One batched K1 launch on the arrays (counted once as batched), every
+    slot equal bit for bit to the single-pair launch on its pair and held to
+    the plain version as the single launch is; the batched matcher's matches
+    equal match_features slot by slot. Returns the raw outputs."""
+    t = [torch.as_tensor(a, device=dev) for a in arrays]
+    args = km.padded_operands(*t, max_distance=60.0)
+    before = dict(build.launches), dict(build.slots)
+    got = km.match_raw(*args)
+    torch.cuda.synchronize()
+    assert build.launches["match"] == before[0]["match"] + 1
+    assert build.launches["match_batched"] == before[0]["match_batched"] + 1
+    assert build.slots["match_batched"] == before[1]["match_batched"] + B
+    assert got[0].shape == (B, args[0].shape[-2]) and got[3].shape == (B, args[2].shape[-2])
+    ref = km.match_raw_batched_plain(*args)
+    for b in range(B):
+        one = [None if a is None else (a[b] if a.dim() == n else a)
+               for a, n in zip(args[:6], (3, 2, 3, 2, 3, 3))]
+        single = km.match_raw(*one, args[6])
+        for g, s1 in zip(got, single):
+            assert torch.equal(g[b], s1)
+        _check_match([g[b] for g in got], [r[b] for r in ref])
+    mb, okb = match_features_batched(*t, max_distance=60.0)
+    for b in range(B):
+        one = [a[b] if a.dim() == n else a for a, n in zip(t, (3, 3, 2, 2, 3, 3))]
+        ms, oks = match_features(*one, max_distance=60.0)
+        assert torch.equal(mb[b], ms) and torch.equal(okb[b], oks)
+    return got
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+@pytest.mark.parametrize("shared1", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+def test_match_kernel_batched_slots_equal_single_launches(dev, rng, B, shared1, ties):
+    """K1 with a slot axis, the first side shared or both per slot, masks
+    and exact ties included (see _hold_batched)."""
+    got = _hold_batched(dev, _batched_pairs(rng, B, 1000, 937, shared1, ties), B)
+    if ties:
+        for b in range(B):
+            assert int(got[0][b, 100]) == 3 and got[2][b, 100] == got[1][b, 100]
+            if not shared1:
+                assert int(got[3][b, 40]) == 10 and got[5][b, 40] == got[4][b, 40]
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+@pytest.mark.parametrize("ties", [False, True])
+def test_match_kernel_batched_shared_second_side(dev, rng, B, ties):
+    """register_view_batch's layout: the first side per slot and the second
+    shared by every slot (the shared-first-side pairs with the sides
+    swapped, so a shared row's tie becomes a tie of a shared column)."""
+    d2, d1s, m2, m1s, kp2, kp1s = _batched_pairs(rng, B, 937, 1000, True, ties)
+    got = _hold_batched(dev, (d1s, d2, m1s, m2, kp1s, kp2), B)
+    if ties:
+        for b in range(B):
+            assert int(got[3][b, 100]) == 3 and got[5][b, 100] == got[4][b, 100]
+
+
+def test_match_kernel_batched_refuses_mismatched_slots(dev):
+    x = torch.zeros((3, 128, 128), device=dev)
+    y = torch.zeros((2, 128, 128), device=dev)
+    with pytest.raises(ValueError):
+        km.match_raw(x, torch.zeros((3, 128), device=dev), y,
+                     torch.zeros((2, 128), device=dev))
+    with pytest.raises(ValueError):  # a penalty without the slot axis of its side
+        km.match_raw(x, torch.zeros(128, device=dev), x,
+                     torch.zeros((3, 128), device=dev))
+
+
+def _register_inputs(dev, F=512, B=3):
+    """One current image and B previous images of a synthetic survey, with
+    each previous image's track state from the ground truth."""
+    scene = make_uav_scene(num_images=B + 1, num_points=1500, relief=10.0, seed=3)
+    feats, gt = render_features(scene, pixel_noise=0.3, clutter=20, seed=3, max_features=F)
+    rng = np.random.default_rng(3)
+    imgs, states = [], []
+    for i in range(B + 1):
+        kp, de = feats[i]
+        k, d, m = np.zeros((F, 2), np.float32), np.zeros((F, 128), np.float32), np.zeros(F, bool)
+        k[:len(kp)], d[:len(kp)], m[:len(kp)] = kp, de, True
+        n = cam.image2normalized_np(k, 1, scene.cam_params[0]).astype(np.float32)
+        imgs.append([torch.as_tensor(a, device=dev) for a in (k, d, m, n)])
+        ids = np.full(F, -1)
+        ids[:len(gt[i])] = gt[i]
+        has_tri = (ids >= 0) & (rng.random(F) < 0.8)
+        xyz = np.zeros((F, 3), np.float32)
+        xyz[has_tri] = scene.points3D[ids[has_tri]] + rng.normal(size=(has_tri.sum(), 3)) * 0.01
+        states.append([torch.as_tensor(a, device=dev) for a in (
+            xyz, has_tri, has_tri & (rng.random(F) < 0.9), scene.rvecs[i], scene.tvecs[i])])
+    return scene, imgs[:B], states[:B], imgs[B]
+
+
+def test_register_view_batch_slots_equal_register_view(dev):
+    """register_view_batch on the card against register_view per slot on the
+    same pairs: with generators seeded alike, the slots draw the same RANSAC
+    samples in slot order, and every output is equal bit for bit."""
+    scene, prevs, states, curr = _register_inputs(dev)
+    K = torch.as_tensor(scene.cam_params[0], device=dev)
+    common = (0.9, 1e9, 4.0 / 700.0)
+    g1 = torch.Generator(device=dev)
+    g1.manual_seed(11)
+    before = build.launches["match_batched"]
+    rows, scalars = register_view_batch(
+        g1, *[torch.stack([p[i] for p in prevs]) for i in range(4)], *curr,
+        *[torch.stack([s[i] for s in states]) for i in range(5)], K, 1, *common, p3p_trials=256)
+    assert build.launches["match_batched"] == before + 1
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(11)
+    for b, (p, st) in enumerate(zip(prevs, states)):
+        r1, s1 = register_view(g2, *p, *curr, *st, K, 1, *common, p3p_trials=256)
+        assert torch.equal(rows[b], r1) and torch.equal(scalars[b], s1)
+    assert float(scalars[:, 5].sum()) >= 1  # P3P succeeded in some slot
+
+
+def test_voc_tree_quantize_on_the_card_equals_cpu(dev):
+    """The vocabulary tree's descent on the card gives the CPU's words, but
+    for descriptors whose two nearest children at some level lie within
+    1e-5 relative."""
+    rng = np.random.default_rng(8)
+    train = rng.normal(size=(6000, 128)).astype(np.float32)
+    train /= np.linalg.norm(train, axis=1, keepdims=True)
+    tree_c = train_voc_tree(train, branching=8, depth=2, iters=3, device="cpu")
+    tree_g = train_voc_tree(train, branching=8, depth=2, iters=3, device=dev)
+    q = rng.normal(size=(32768, 128)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    mask = rng.random(len(q)) > 0.05
+    wc = tree_c.quantize(q, mask).numpy()
+    wg = tree_g.quantize(torch.as_tensor(q, device=dev), torch.as_tensor(mask, device=dev))
+    assert wg.device == dev and wg.dtype == torch.int32
+    wg = wg.cpu().numpy()
+    differ = wg != wc
+    node, tie = np.zeros(len(q), np.int64), np.zeros(len(q), bool)
+    for C in tree_c.centers:  # the CPU's descent, with its margins in f64
+        ch = C.numpy().astype(np.float64)[node[:, None] * 8 + np.arange(8)]
+        d = np.sum((ch - q[:, None, :]) ** 2, axis=-1)
+        s = np.sort(d, axis=1)
+        tie |= s[:, 1] - s[:, 0] <= 1e-5 * s[:, 0]
+        node = node * 8 + np.argmin(d, axis=1)
+    assert not (differ & ~tie).any() and differ.sum() <= 0.001 * len(q)
 
 
 @pytest.mark.parametrize("O,K,S", [(8192, 9, 17), (8192, 81, 17), (32768, 81, 289),

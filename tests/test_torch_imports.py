@@ -26,7 +26,9 @@ def _modules():
 
 def test_port_imports_without_jax():
     mods = _modules()
-    assert "mavmap_tpu_torch.sfm.mapper" in mods and "mavmap_tpu_torch.ba.core" in mods
+    assert {"mavmap_tpu_torch.sfm.mapper", "mavmap_tpu_torch.ba.core",
+            "mavmap_tpu_torch.sfm.pipeline", "mavmap_tpu_torch.loop.voctree",
+            "mavmap_tpu_torch.loop.detector"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -101,7 +103,10 @@ def test_kernel_argument_checks():
 def test_kernel_build_is_keyed_by_source_hash():
     d1 = build._digest()
     assert d1 == build._digest() and len(d1) == 16
-    assert set(build.launches) == {"match", "seg_accum_full", "seg_accum_sorted"}
+    assert set(build.launches) == {"match", "match_batched", "seg_accum_full",
+                                   "seg_accum_sorted"}
     build.launches["match"] += 1
+    build.slots["match_batched"] += 3
     build.reset_launches()
     assert all(v == 0 for v in build.launches.values())
+    assert all(v == 0 for v in build.slots.values())

@@ -6,6 +6,10 @@ the interpreted Pallas kernel for the port's fused path (`match_features`,
 whose CPU branch is the plain version of CUDA kernel K1). Distances agree
 to 1e-5 (f32 sums of 128 products in a different order).
 
+The batched plain version (a slot axis, each side per slot or shared) is
+held against jax.vmap of the interpreted Pallas kernel the same way, and
+the batched matcher equals the single-pair matcher slot by slot.
+
 The kernel itself runs only on a GPU: see tests/test_torch_gpu.py.
 """
 
@@ -16,7 +20,8 @@ import torch
 
 from mavmap_tpu.ops.matching import match_brute_force as j_match
 from mavmap_tpu_torch.ops.cuda import match as km
-from mavmap_tpu_torch.ops.matching import match_brute_force as t_match, match_features
+from mavmap_tpu_torch.ops.matching import (match_brute_force as t_match, match_features,
+                                           match_features_batched)
 
 torch.set_num_threads(2)
 
@@ -150,3 +155,85 @@ def test_padded_operands_pad_descriptors_to_the_kernel_stage(rng, D):
         np.testing.assert_array_equal(got[k].numpy(), ref[k].numpy())
     for k in (1, 2, 4, 5):
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=1e-5)
+
+
+def _slots(rng, B, shared1, ties):
+    """B pairs of 256 x 200 descriptors; side 1 one image for every slot
+    when shared1 (each slot's second image then derived from it); with
+    ties, exact ties in both directions in every slot (only row ties when
+    side 1 is shared)."""
+    pairs = [list(_pair(rng, 256, 200)) for _ in range(B)]
+    for b, p in enumerate(pairs):
+        if shared1:
+            p[0], p[2], p[4] = pairs[0][0], pairs[0][2], pairs[0][4]
+            src = rng.integers(0, 256, 200)
+            d2 = p[0][src] + rng.normal(size=(200, 128)).astype(np.float32) * 0.02
+            p[1] = d2 / np.linalg.norm(d2, axis=1, keepdims=True)
+            p[5] = (p[4][src] + rng.normal(size=(200, 2)) * 30).astype(np.float32)
+        if ties:
+            d1, d2, m1, m2, kp1, kp2 = p
+            m1[:] = True
+            m2[:] = True
+            for r, (a, c) in {100: (3, 70), 7: (5 + b, 9 + b)}.items():
+                d2[a], d2[c], kp2[a], kp2[c] = d1[r], d1[r], kp1[r], kp1[r]
+            if not shared1:
+                for c, (a, r) in {40: (10, 200), 30: (17, 31)}.items():
+                    d1[a], d1[r], kp1[a], kp1[r] = d2[c], d2[c], kp2[c], kp2[c]
+    return [pairs[0][i] if shared1 and i in (0, 2, 4) else np.stack([p[i] for p in pairs])
+            for i in range(6)]
+
+
+@pytest.mark.parametrize("shared1", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+def test_batched_plain_version_equals_vmapped_pallas(rng, interpret_pallas, shared1, ties):
+    """match_raw_batched_plain on 3 slots equals jax.vmap of the Pallas
+    kernel's raw 2-NN statistics (side 1 shared: in_axes None): indices
+    exact, distances to 1e-5, masked distances exact; exact ties to the
+    lower index in both."""
+    import functools
+    import jax
+
+    pm = interpret_pallas
+    B = 3
+    arrays = _slots(rng, B, shared1, ties)
+    ops = km.padded_operands(*_t(*arrays), max_distance=60.0)
+    got = km.match_raw_batched_plain(*ops)
+    assert got[0].shape == (B, 256) and got[3].shape == (B, 256)
+    rowpen, pen2 = ops[1].numpy(), ops[3].numpy()
+    a1 = None if shared1 else 0
+    raw = jax.vmap(functools.partial(pm._match_pallas_raw, max_distance=60.0),
+                   in_axes=(a1, a1, 0, 0, a1, 0))
+    ref = raw(*_j(ops[0].numpy(), rowpen[..., None], ops[2].numpy(), pen2[..., None, :],
+                  ops[4].numpy(), ops[5].numpy()))
+    for k in (0, 3):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+    for k in (1, 2, 4, 5):
+        g, r = got[k].numpy(), np.asarray(ref[k])
+        real = r < 1e29
+        np.testing.assert_allclose(g[real], r[real], rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(g[~real], r[~real])
+    if ties:
+        assert (got[0][:, 100] == 3).all()
+        if not shared1:
+            assert (got[3][:, 40] == 10).all() and (got[3][:, 30] == 17).all()
+
+
+@pytest.mark.parametrize("shared", ["first", "second", "none"])
+@pytest.mark.parametrize("max_distance", [None, 60.0])
+def test_batched_matcher_equals_single_per_slot(rng, shared, max_distance):
+    """match_features_batched equals match_features on every slot's pair,
+    bit for bit (the plain version runs match_raw_plain slot by slot), with
+    the first side, the second side or neither shared by the slots."""
+    B = 4
+    arrays = _slots(rng, B, shared != "none", False)
+    if shared == "second":  # the slots' images first, against the one shared image
+        arrays = [arrays[k] for k in (1, 0, 3, 2, 5, 4)]
+    batched = [a.ndim == (3 if k in (0, 1, 4, 5) else 2) for k, a in enumerate(arrays)]
+    mb, okb = match_features_batched(*_t(*arrays), ratio=0.9, max_distance=max_distance)
+    assert mb.shape == (B, arrays[0].shape[-2]) and mb.dtype == torch.int32
+    for b in range(B):
+        one = [a[b] if bat else a for a, bat in zip(arrays, batched)]
+        ms, oks = match_features(*_t(*one), ratio=0.9, max_distance=max_distance)
+        np.testing.assert_array_equal(mb[b].numpy(), ms.numpy())
+        np.testing.assert_array_equal(okb[b].numpy(), oks.numpy())
+    assert int(okb.sum()) > 30 * B

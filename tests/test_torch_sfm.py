@@ -16,7 +16,13 @@ JAX package.
     equal, refined poses at 1e-4; the chained loop with deferred window BA
     of tests/test_sfm.py through both mappers (outcome-based, as above:
     14/14 each, the port's ATE at most max(2 x JAX's, 0.02 m)); and the
-    deferred/asynchronous BA schedule itself.
+    deferred/asynchronous BA schedule itself;
+  - the batched steps (two_view_init_batch, register_view_batch,
+    register_view_pairs) with every slot's samples derived from the JAX
+    package's keys (jax.random.split(key, B), then the step's own split):
+    per slot, match rows and counts exactly equal to JAX and the refined
+    pose at 1e-4 (register_view's tolerances), and every slot equal bit
+    for bit to the port's single-pair step on the same samples.
 """
 
 import numpy as np
@@ -37,7 +43,9 @@ from mavmap_tpu.ops.ransac import sample_indices
 from mavmap_tpu.sfm import SequentialMapper as JMapper, SequentialMapperOptions as JOpts
 from mavmap_tpu.sfm.kernels import (
     _derive_chain_state as j_derive, register_chain as j_register_chain,
-    register_view as j_register, two_view_init as j_two_view)
+    register_view as j_register, register_view_batch as j_register_batch,
+    register_view_pairs as j_register_pairs, two_view_init as j_two_view,
+    two_view_init_batch as j_two_view_batch)
 from mavmap_tpu.utils.synthetic import (
     make_uav_scene as j_scene, mapper_ate as j_ate, render_features as j_render)
 
@@ -47,7 +55,8 @@ from mavmap_tpu_torch.interop import cameras_to_device, features_to_device
 from mavmap_tpu_torch.sfm import SequentialMapper, SequentialMapperOptions
 from mavmap_tpu_torch.sfm import mapper as mapper_mod
 from mavmap_tpu_torch.sfm.kernels import (
-    _derive_chain_state, register_chain, register_view, two_view_init)
+    _derive_chain_state, register_chain, register_view, register_view_batch,
+    register_view_pairs, two_view_init, two_view_init_batch)
 from mavmap_tpu_torch.utils.synthetic import make_uav_scene, mapper_ate, render_features
 
 torch.set_num_threads(2)
@@ -201,6 +210,129 @@ def test_register_view_matches_jax(scene_feats, rng):
     np.testing.assert_allclose(sc_t[6], sc_j[6], rtol=1e-3)  # final cost (px)
     m = rows_j[:, 1] > 0.5
     np.testing.assert_allclose(rows_t[m, 3:6], rows_j[m, 3:6], rtol=1e-3, atol=1e-5)
+
+
+def test_two_view_init_batch_matches_jax(scene_feats):
+    """Image 0 against candidates 1 and 2 in one batched step."""
+    scene, feats, _ = scene_feats
+    first = _image(scene, feats, 0)
+    cands = [_image(scene, feats, i) for i in (1, 2)]
+    nts = np.full(2, 4.0 / 700.0, np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(21), 2)
+    stack = [np.stack([c[k] for c in cands]) for k in range(4)]
+    rows_j, sc_j = j_two_view_batch(keys, *map(jnp.asarray, first), *map(jnp.asarray, stack),
+                                    jnp.float32(0.9), jnp.float32(1e9), jnp.asarray(nts),
+                                    essential_trials=TRIALS)
+    rows_j, sc_j = np.asarray(rows_j), np.asarray(sc_j)
+    samples = []
+    for b in range(2):
+        valid = jnp.asarray(rows_j[b, :, 1] > 0.5)
+        k_h, k_e = jax.random.split(keys[b])
+        samples.append((np.asarray(sample_indices(k_h, 128, 4, F, valid)),
+                        np.asarray(sample_indices(k_e, TRIALS, 5, F, valid))))
+    batched = tuple(np.stack([sm[k] for sm in samples]) for k in range(2))
+    rows_t, sc_t = two_view_init_batch(None, *_t(*first), *_t(*stack), 0.9, 1e9, nts,
+                                       essential_trials=TRIALS, samples=batched)
+    assert rows_t.shape == rows_j.shape and sc_t.shape == sc_j.shape
+    for b in range(2):
+        np.testing.assert_array_equal(rows_t[b, :, :3].numpy(), rows_j[b, :, :3])
+        np.testing.assert_array_equal(sc_t[b, [0, 2, 3]].numpy(), sc_j[b, [0, 2, 3]])
+        assert sc_t[b, 3] > 40
+        one = two_view_init(None, *_t(*first), *_t(*cands[b]), 0.9, 1e9, float(nts[b]),
+                            essential_trials=TRIALS, samples=samples[b])
+        assert torch.equal(rows_t[b], one[0]) and torch.equal(sc_t[b], one[1])
+
+
+def _prev_state(scene, gt, i, rng):
+    ids = np.full(F, -1)
+    ids[: len(gt[i])] = gt[i]
+    has_tri = (ids >= 0) & (rng.random(F) < 0.8)
+    stable = has_tri & (rng.random(F) < 0.9)
+    xyz = np.zeros((F, 3), np.float32)
+    xyz[has_tri] = scene.points3D[ids[has_tri]] + rng.normal(size=(has_tri.sum(), 3)) * 0.01
+    return xyz, has_tri, stable, scene.rvecs[i], scene.tvecs[i]
+
+
+def _check_register_slots(rows_t, sc_t, rows_j, sc_j, singles):
+    """Per slot: register_view_matches_jax's tolerances against JAX, and the
+    port's single-pair step bit for bit."""
+    assert rows_t.shape == rows_j.shape and sc_t.shape == sc_j.shape
+    for b, one in enumerate(singles):
+        r_t, s_t = rows_t[b].numpy(), sc_t[b].numpy()
+        np.testing.assert_array_equal(r_t[:, :3], rows_j[b, :, :3])
+        np.testing.assert_array_equal(s_t[[0, 2, 3, 4, 5]], sc_j[b, [0, 2, 3, 4, 5]])
+        np.testing.assert_allclose(s_t[1], sc_j[b, 1], rtol=1e-5)
+        np.testing.assert_allclose(s_t[7:13], sc_j[b, 7:13], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(s_t[6], sc_j[b, 6], rtol=1e-3)
+        m = rows_j[b, :, 1] > 0.5
+        np.testing.assert_allclose(r_t[m, 3:6], rows_j[b, m, 3:6], rtol=1e-3, atol=1e-5)
+        assert torch.equal(rows_t[b], one[0]) and torch.equal(sc_t[b], one[1])
+    assert (sc_t[:, 5] == 1.0).all() and (sc_t[:, 4] > 20).all()
+
+
+def _register_samples(keys, rows_j, stables):
+    samples = []
+    for b, stable in enumerate(stables):
+        valid = rows_j[b, :, 1] > 0.5
+        k_h, k_p = jax.random.split(keys[b])
+        samples.append((np.asarray(sample_indices(k_h, 128, 4, F, jnp.asarray(valid))),
+                        np.asarray(sample_indices(k_p, TRIALS, 4, F,
+                                                  jnp.asarray(valid & stable)))))
+    return samples, tuple(np.stack([sm[k] for sm in samples]) for k in range(2))
+
+
+def test_register_view_batch_matches_jax(scene_feats, rng):
+    """Image 2 against processed candidates 1 and 0 (track states from the
+    ground truth) in one batched step, the current image shared."""
+    scene, feats, gt = scene_feats
+    curr = _image(scene, feats, 2)
+    prevs = [_image(scene, feats, i) for i in (1, 0)]
+    states = [_prev_state(scene, gt, i, rng) for i in (1, 0)]
+    K, nt = scene.cam_params[0], 4.0 / 700.0
+    pst = [np.stack([p[k] for p in prevs]) for k in range(4)]
+    sst = [np.stack([st[k] for st in states]) for k in range(5)]
+    keys = jax.random.split(jax.random.PRNGKey(23), 2)
+    rows_j, sc_j = j_register_batch(
+        keys, *map(jnp.asarray, pst), *map(jnp.asarray, curr), *map(jnp.asarray, sst),
+        jnp.asarray(K), jnp.asarray(1, jnp.int32), jnp.float32(0.9), jnp.float32(1e9),
+        jnp.float32(nt), p3p_trials=TRIALS)
+    rows_j, sc_j = np.asarray(rows_j), np.asarray(sc_j)
+    samples, batched = _register_samples(keys, rows_j, [st[1] & st[2] for st in states])
+    rows_t, sc_t = register_view_batch(None, *_t(*pst), *_t(*curr), *_t(*sst), _t(K)[0], 1,
+                                       0.9, 1e9, nt, p3p_trials=TRIALS, samples=batched)
+    singles = [register_view(None, *_t(*prevs[b]), *_t(*curr), *_t(*states[b], K), 1, 0.9, 1e9,
+                             nt, p3p_trials=TRIALS, samples=samples[b]) for b in range(2)]
+    _check_register_slots(rows_t, sc_t, rows_j, sc_j, singles)
+
+
+def test_register_view_pairs_matches_jax(scene_feats, rng):
+    """Three full (current, previous) pairs, both sides per slot, with a
+    norm threshold and camera per slot."""
+    scene, feats, gt = scene_feats
+    pairs = [(2, 1), (1, 0), (2, 0)]
+    currs = [_image(scene, feats, c) for c, _ in pairs]
+    prevs = [_image(scene, feats, p) for _, p in pairs]
+    states = [_prev_state(scene, gt, p, rng) for _, p in pairs]
+    Ks = np.stack([scene.cam_params[0]] * 3)
+    codes = np.ones(3, np.int32)
+    nts = np.array([4.0, 3.5, 4.5], np.float32) / 700.0
+    pst = [np.stack([p[k] for p in prevs]) for k in range(4)]
+    cst = [np.stack([c[k] for c in currs]) for k in range(4)]
+    sst = [np.stack([st[k] for st in states]) for k in range(5)]
+    keys = jax.random.split(jax.random.PRNGKey(29), 3)
+    rows_j, sc_j = j_register_pairs(
+        keys, *map(jnp.asarray, pst), *map(jnp.asarray, cst), *map(jnp.asarray, sst),
+        jnp.asarray(Ks), jnp.asarray(codes), jnp.float32(0.9), jnp.float32(1e9),
+        jnp.asarray(nts), p3p_trials=TRIALS)
+    rows_j, sc_j = np.asarray(rows_j), np.asarray(sc_j)
+    samples, batched = _register_samples(keys, rows_j, [st[1] & st[2] for st in states])
+    rows_t, sc_t = register_view_pairs(None, *_t(*pst), *_t(*cst), *_t(*sst), _t(Ks)[0],
+                                       list(codes), 0.9, 1e9, list(nts), p3p_trials=TRIALS,
+                                       samples=batched)
+    singles = [register_view(None, *_t(*prevs[b]), *_t(*currs[b]), *_t(*states[b], Ks[b]),
+                             1, 0.9, 1e9, float(nts[b]), p3p_trials=TRIALS,
+                             samples=samples[b]) for b in range(3)]
+    _check_register_slots(rows_t, sc_t, rows_j, sc_j, singles)
 
 
 def test_mapper_two_stage_selfcal_gcps_and_problem_arrays(scene_feats):
