@@ -47,13 +47,23 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     rescue, the back-fill, the global bundle adjustment and one closure
     sweep — checking the registered count and the ATE against the JAX
     package's on the CPU, that loops were closed and that batched K1 ran;
-11. prints the kernels' JSON line, the card line, and last the result line.
+11. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
+    pixels: a 40-image survey written as PNG files with imagedata.txt (IMU
+    roll/pitch/yaw), a control-point file and a vocabulary tree trained on
+    the port's own detections; run 1 detects on the card and maps with
+    loop detection, IMU priors, ground control points, the point-cloud
+    filter and a map checkpoint; run 2 resumes from the checkpoint. Held to
+    the JAX package's CLI on the same files (benchmarks/jax_cli_yardstick.py)
+    and to absolute limits; then the detector's device and host time per
+    frame at 800x600 and at one 4000x3000 frame;
+12. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
 counters are zeroed just before each mapping phase (5-7, 9, 10) and read
-just after it. Imports nothing of JAX or of the JAX package.
+just after it (10, 11: the counts of 11 span both CLI runs). Imports
+nothing of JAX or of the JAX package.
 """
 
 import json
@@ -86,6 +96,16 @@ SURVEY_IMAGES = 200
 # many and stay under 2x the seed-0 ATE.
 JAX_CPU_PIPELINE_ATE_M = 0.008439
 JAX_CPU_PIPELINE_REGISTERED = 200
+# The cli phase: its survey and the JAX package's own CLI on the CPU over
+# the same files (benchmarks/jax_cli_yardstick.py, recorded in PERF.md):
+# 21/40 registered (the first row and one rescued frame: no frame of the
+# second row registers against the first in either package), the absolute
+# camera-centre RMSE and each free control point's error.
+CLI_IMAGES = 40
+CLI_FILTER_MAX_ERROR = 2.0
+JAX_CPU_CLI_REGISTERED = 21
+JAX_CPU_CLI_ABS_RMSE_M = 0.20769685080775652
+JAX_CPU_CLI_GCP_ERR_M = {"cp4": 0.00948342847402626, "cp5": 0.0025753420202657084}
 
 
 def _phase(name):
@@ -1041,6 +1061,353 @@ def pipeline_phase(torch, dev, scene, feats):
     return dict(launches, match_batched_slots=slots["match_batched"])
 
 
+# ------------------------------------------------------------------ cli
+
+
+def _rotmat_np(rvec):
+    """Rodrigues in float64 numpy (the smoke's own checks)."""
+    import numpy as np
+
+    rvec = np.asarray(rvec, np.float64)
+    th = np.linalg.norm(rvec)
+    if th < 1e-12:
+        return np.eye(3)
+    k = rvec / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def _euler_np(R):
+    """(rx, ry, rz) with R = Rz(rz) Ry(ry) Rx(rx), float64."""
+    import numpy as np
+
+    return (np.arctan2(R[2, 1], R[2, 2]), np.arctan2(-R[2, 0], np.hypot(R[2, 1], R[2, 2])),
+            np.arctan2(R[1, 0], R[0, 0]))
+
+
+def _rot_from_euler_np(rx, ry, rz):
+    import numpy as np
+
+    cx, sx, cy, sy, cz, sz = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
+    return np.array([[cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx],
+                     [sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx],
+                     [-sy, cy * sx, cy * cx]])
+
+
+def cli_scene():
+    """The cli phase's survey: 40 images in 2 rows at the scene's own
+    800x600 and focal 700."""
+    from mavmap_tpu_torch.utils.synthetic import make_uav_scene
+
+    return make_uav_scene(num_images=CLI_IMAGES, num_points=6000, relief=10.0, rows=2, seed=21)
+
+
+def write_cli_dataset(root, device):
+    """Write the cli phase's files under `root`: data/img<i>.png (rendered,
+    written by utils/imageio.py), data/imagedata.txt (one PINHOLE camera;
+    roll/pitch/yaw of the true rotations plus 0.005 rad of noise),
+    control_points.txt (6 points, the first 4 fixed, projected into every
+    image that sees them, as tests/test_pipeline.py does) and tree.npz (a
+    vocabulary tree trained on the descriptors the port detects, on
+    `device`, in every 10th image). Returns (scene, priors, control points
+    as (name, xyz, fixed))."""
+    import numpy as np
+    from mavmap_tpu_torch.features.detector import detect_image
+    from mavmap_tpu_torch.loop import train_voc_tree
+    from mavmap_tpu_torch.utils.imageio import write_png
+    from mavmap_tpu_torch.utils.synthetic import imu_priors, render_images
+
+    scene = cli_scene()
+    data = os.path.join(root, "data")
+    os.makedirs(data, exist_ok=True)
+    imgs = render_images(scene, texture_contrast=0.25, seed=21)
+    priors = imu_priors(scene, noise=0.005, seed=21)
+    lines = ["# imagedata"]
+    for i, im in enumerate(imgs):
+        write_png(os.path.join(data, f"img{i}.png"), im)
+        # imagedata's angles give the prior as rvec_from_euler(roll, pitch, yaw).
+        roll, pitch, yaw = (float(a) for a in _euler_np(_rotmat_np(priors[i])))
+        cam_def = ", 1, PINHOLE, 700.0, 700.0, 400.0, 300.0" if i == 0 else ""
+        lines.append(f"img{i}, {roll!r}, {pitch!r}, {yaw!r}, 0, 0, 0, 0, 0, 0, 0{cam_def}")
+    with open(os.path.join(data, "imagedata.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    rng = np.random.default_rng(21)
+    cps, cp_lines = [], []
+    for k in range(6):
+        X = [rng.uniform(3.0, 44.0), rng.uniform(1.0, 9.0), rng.uniform(0.0, 3.0)]
+        obs = []
+        for i in range(len(scene.rvecs)):
+            Xc = _rotmat_np(scene.rvecs[i]) @ np.array(X) + scene.tvecs[i]
+            if Xc[2] < 1:
+                continue
+            u = float(700.0 * Xc[0] / Xc[2] + 400.0)
+            v = float(700.0 * Xc[1] / Xc[2] + 300.0)
+            if 0 <= u < 800 and 0 <= v < 600:
+                obs.append((i, u, v))
+        fixed = k < 4
+        cps.append((f"cp{k}", np.array(X), fixed))
+        cp_lines.append(("## " if fixed else "# ") + f"cp{k}, {X[0]!r}, {X[1]!r}, {X[2]!r}")
+        cp_lines += [f"{i}, {u!r}, {v!r}" for i, u, v in obs]
+    with open(os.path.join(root, "control_points.txt"), "w") as f:
+        f.write("\n".join(cp_lines) + "\n")
+
+    desc = np.concatenate([detect_image(imgs[i].astype(np.float32), hessian_threshold=1000.0,
+                                        max_features=1024, device=device)[1]
+                           for i in range(0, len(imgs), 10)])
+    tree = train_voc_tree(desc, branching=8, depth=2, iters=3, device=device)
+    tree.save(os.path.join(root, "tree.npz"))
+    return scene, priors, cps
+
+
+def cli_args(root, out, extra=()):
+    """The cli phase's flags: tests/test_pipeline.py's rendered-image
+    settings, loop detection every 20 frames with the phase's tree over 10
+    candidates, the IMU priors at weight 20, the control points and the
+    filter. No frame of the survey's second row registers against the first
+    (in either package), and each of them is retried with the loop-detection
+    rescue, one registration per candidate: at the default 30 candidates
+    that took 262 s of host time over the two runs on the card, most of the
+    phase (PERF.md)."""
+    return ["--input-path", os.path.join(root, "data"), "--output-path", out,
+            "--cache-path", os.path.join(root, "cache"),
+            "--max-features", "1024", "--min-track-len", "2", "--tri-min-angle", "1.0",
+            "--init-tri-min-angle", "2.0", "--ransac-min-inlier-threshold", "15",
+            "--surf-hessian-threshold", "1000",
+            "--voc-tree-path", os.path.join(root, "tree.npz"), "--loop-detection-period", "20",
+            "--loop-detection-num-images", "10",
+            "--constrain-rotation", "--constrain-rotation-weight", "20",
+            "--use-control-points",
+            "--control-point-data-path", os.path.join(root, "control_points.txt"),
+            "--filter-max-error", str(CLI_FILTER_MAX_ERROR), "--quiet", *extra]
+
+
+def cli_outputs(out):
+    """Read back what the CLI wrote: every output file of a one-map run must
+    exist and parse. Returns {name: (rx, ry, rz, C)} from imagedataout.txt,
+    the control points' estimates {name: xyz}, and the point counts."""
+    import numpy as np
+
+    names = ["imagedataout.txt", "points3D.txt", "points3D.ply", "cameras.wrl",
+             "points3D-min-track-len-2.wrl", "points3D-min-track-len-3.wrl", "points3D.wrl",
+             "points3D-all.wrl", "connections.wrl", "control_points_out.txt"]
+    for n in names:
+        if not os.path.exists(os.path.join(out, n)):
+            raise AssertionError(f"cli: {n} was not written")
+    poses = {}
+    for line in open(os.path.join(out, "imagedataout.txt")):
+        if line.startswith("#"):
+            continue
+        f = [v.strip() for v in line.split(",")]
+        poses[f[0]] = (float(f[1]), float(f[2]), float(f[3]),
+                       np.array([float(f[8]), float(f[9]), float(f[10])]))
+    pts = np.loadtxt(os.path.join(out, "points3D.txt"), delimiter=",", comments="#", ndmin=2)
+    ply = open(os.path.join(out, "points3D.ply")).read().splitlines()
+    n_ply = int(ply[2].split()[-1])
+    if len(ply) != ply.index("end_header") + 1 + n_ply or n_ply != len(pts):
+        raise AssertionError(f"cli: points3D.ply holds {n_ply} vertices, points3D.txt {len(pts)}")
+    for n in names[3:9]:
+        txt = open(os.path.join(out, n)).read()
+        if not txt.startswith("#VRML V2.0 utf8") or txt.count("[") != txt.count("]"):
+            raise AssertionError(f"cli: {n} is not a VRML file")
+    cps = {}
+    for line in open(os.path.join(out, "control_points_out.txt")):
+        if not line.startswith("#"):
+            f = [v.strip() for v in line.split(",")]
+            cps[f[0]] = np.array([float(v) for v in f[1:4]])
+    return poses, cps, len(pts)
+
+
+def cli_metrics(out, scene, priors, cps):
+    """The cli phase's numbers from the CLI's own output files: registered
+    count, the absolute camera-centre RMSE in the control points' frame (no
+    similarity fit), the largest rotation-matrix entry difference to the
+    priors, and |estimate - truth| of each free control point."""
+    import numpy as np
+
+    poses, est, n_points = cli_outputs(out)
+    idx = [int(n[3:]) for n in poses]
+    C = np.stack([p[3] for p in poses.values()])
+    abs_rmse = float(np.sqrt(np.mean(np.sum((C - scene.camera_centers()[idx]) ** 2, -1))))
+    # The writer stores the Euler angles of the camera-to-world rotation.
+    rot = max(float(np.abs(_rot_from_euler_np(*p[:3]).T - _rotmat_np(priors[i])).max())
+              for i, p in zip(idx, poses.values()))
+    gcp = {n: float(np.linalg.norm(est[n] - X)) for n, X, fixed in cps if not fixed}
+    return {"registered": len(poses), "abs_rmse_m": abs_rmse, "rot_prior_max": rot,
+            "gcp_err_m": gcp, "points": n_points, "centers": dict(zip(poses, C.tolist()))}
+
+
+def _timed_detect(torch, dev, img, **kw):
+    """One detect_and_describe call: (kept keypoints, ms between two CUDA
+    events around it on the stream, host ms to the synchronised result).
+    Where the host launches slower than the card runs, the event span is
+    the host's pace: _detect_kernel_ms gives the kernels' own time."""
+    from mavmap_tpu_torch.features.detector import detect_and_describe
+
+    x = torch.as_tensor(img.astype("float32"), device=dev)
+    torch.cuda.synchronize(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    mask = detect_and_describe(x, hessian_threshold=1000.0, **kw)[3]
+    b.record()
+    torch.cuda.synchronize(dev)
+    host_ms = 1000 * (time.perf_counter() - t0)
+    return int(mask.sum()), a.elapsed_time(b), host_ms
+
+
+def _detect_kernel_ms(torch, dev, img, calls=3, **kw):
+    """(device ms of all kernels per detect_and_describe call, kernel
+    launches per call) as torch.profiler (CUPTI) reports them; (None, None)
+    where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mavmap_tpu_torch.features.detector import detect_and_describe
+
+    x = torch.as_tensor(img.astype("float32"), device=dev)
+    detect_and_describe(x, hessian_threshold=1000.0, **kw)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            detect_and_describe(x, hessian_threshold=1000.0, **kw)
+        torch.cuda.synchronize(dev)
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+        if t > 0:
+            us += t
+            n += e.count
+    return (us / calls / 1000, n / calls) if us > 0 else (None, None)
+
+
+def detector_timing(torch, dev, root):
+    """The detector's time per frame on the card: the cli phase's frames at
+    800x600 (their PNGs decoded again, max_features 1024, as the phase ran)
+    and one 4000x3000 frame, a 12 MP survey photo (render_images of a scene
+    at that size, focal 3500; the CLI's default max_features 2048). Each
+    first call warms up and is not counted."""
+    import numpy as np
+    from mavmap_tpu_torch.utils.imageio import read_gray
+    from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_images
+
+    _phase("detector timing")
+    frames = [read_gray(os.path.join(root, "data", f"img{i}.png")) for i in range(CLI_IMAGES)]
+    _timed_detect(torch, dev, frames[0], max_features=1024)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = [_timed_detect(torch, dev, f, max_features=1024) for f in frames]
+    peak = torch.cuda.max_memory_allocated(dev)
+    kept, dev_ms, host_ms = (np.array(c) for c in zip(*rows))
+    kernel_ms, kernels = _detect_kernel_ms(torch, dev, frames[0], max_features=1024)
+    small = {"frames": len(rows), "size": [800, 600], "kernel_ms": kernel_ms,
+             "kernels_per_call": kernels, "event_ms_median": float(np.median(dev_ms)),
+             "event_ms_range": [float(dev_ms.min()), float(dev_ms.max())],
+             "host_ms_median": float(np.median(host_ms)),
+             "host_ms_range": [float(host_ms.min()), float(host_ms.max())],
+             "kept": kept.tolist(), "peak_mib": peak / 2**20}
+    print("detector 800x600: " + json.dumps(small), flush=True)
+
+    t0 = time.perf_counter()
+    big_scene = make_uav_scene(num_images=2, num_points=6000, relief=10.0, rows=1, seed=21,
+                               image_size=(4000, 3000), focal=3500.0)
+    big = render_images(big_scene, texture_contrast=0.25, seed=21)[0]
+    render_s = time.perf_counter() - t0
+    _timed_detect(torch, dev, big, max_features=2048)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [_timed_detect(torch, dev, big, max_features=2048) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    kernel_ms, kernels = _detect_kernel_ms(torch, dev, big, max_features=2048)
+    large = {"size": [4000, 3000], "render_s": render_s, "kernel_ms": kernel_ms,
+             "kernels_per_call": kernels, "event_ms": [r[1] for r in runs],
+             "host_ms": [r[2] for r in runs],
+             "kept": runs[0][0], "peak_mib": peak / 2**20}
+    print("detector 4000x3000: " + json.dumps(large), flush=True)
+    return {"800x600": small, "4000x3000": large}
+
+
+def cli_phase(torch, dev):
+    """The command-line mapper from pixels (see the module docstring, 11):
+    run 1 maps the phase's files with detection on the card, loop
+    detection, IMU priors, control points, the filter and --save-map; run 2
+    resumes with --load-map. Checks: the registered count at least the JAX
+    package's on the same files, the absolute camera-centre RMSE under 2x
+    JAX's, rotations within 0.02 of the priors (tests/test_pipeline.py's
+    bound), each free control point within 2x JAX's error, every output
+    file written and parsed, run 2 within 0.02 m of run 1 (the checkpoint
+    test's bound), and K1-K3 launched in the phase."""
+    import tempfile
+
+    import numpy as np
+    from mavmap_tpu_torch import cli
+    from mavmap_tpu_torch.ops.cuda import build
+
+    _phase("cli")
+    tmp = tempfile.mkdtemp(prefix="mavmap_cli_")
+    t0 = time.perf_counter()
+    scene, priors, cps = write_cli_dataset(tmp, dev)
+    print(f"cli: {CLI_IMAGES} PNG images, imagedata.txt, {len(cps)} control points "
+          f"({sum(c[2] for c in cps)} fixed) and a vocabulary tree written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ckpt = os.path.join(tmp, "map.npz")
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    r1 = cli.run(cli_args(tmp, os.path.join(tmp, "out1"), ["--save-map", ckpt, "--device",
+                                                         str(dev)]))
+    _sync(torch, dev)
+    wall1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = cli.run(cli_args(tmp, os.path.join(tmp, "out2"), ["--load-map", ckpt, "--device",
+                                                         str(dev)]))
+    _sync(torch, dev)
+    wall2 = time.perf_counter() - t0
+    launches, slots = dict(build.launches), dict(build.slots)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if r1.rc != 0 or r2.rc != 0:
+        raise AssertionError(f"cli: return codes {r1.rc} / {r2.rc}")
+    m1 = cli_metrics(os.path.join(tmp, "out1"), scene, priors, cps)
+    m2 = cli_metrics(os.path.join(tmp, "out2"), scene, priors, cps)
+    for name, r, wall, m in (("run 1", r1, wall1, m1), ("run 2 (resumed)", r2, wall2, m2)):
+        stages = dict(detection=r.detection_s, **r.result.timings)
+        print(f"cli {name}: registered {m['registered']}/{CLI_IMAGES} in {wall:.3f} s; absolute "
+              f"camera-centre RMSE {m['abs_rmse_m']!r} m; rotation vs priors {m['rot_prior_max']:.5f};"
+              f" free control points {json.dumps(m['gcp_err_m'])} m; {m['points']} points",
+              flush=True)
+        print(f"cli {name} stages_s " + json.dumps({k: round(v, 4) for k, v in stages.items()}),
+              flush=True)
+        print(f"cli {name} counters " + json.dumps(r.result.main_mapper.report()), flush=True)
+    common = sorted(set(m1["centers"]) & set(m2["centers"]))
+    drift = max(float(np.abs(np.array(m1["centers"][n]) - np.array(m2["centers"][n])).max())
+                for n in common)
+    print(f"cli: run 2 against run 1: {len(common)} common images, largest centre "
+          f"coordinate difference {drift!r} m (limit 0.02); launches {json.dumps(launches)}, "
+          f"batched K1 slots {slots['match_batched']}; peak device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    timing = detector_timing(torch, dev, tmp)
+    if m1["registered"] < JAX_CPU_CLI_REGISTERED:
+        raise AssertionError(f"cli: registered {m1['registered']} < the JAX package's "
+                             f"{JAX_CPU_CLI_REGISTERED}")
+    if not m1["abs_rmse_m"] < 2 * JAX_CPU_CLI_ABS_RMSE_M:
+        raise AssertionError(f"cli: absolute RMSE {m1['abs_rmse_m']} m >= 2x the JAX "
+                             f"package's {JAX_CPU_CLI_ABS_RMSE_M} m")
+    if not m1["rot_prior_max"] < 0.02:
+        raise AssertionError(f"cli: rotations {m1['rot_prior_max']} off the priors")
+    for n, e in m1["gcp_err_m"].items():
+        if not e < 2 * JAX_CPU_CLI_GCP_ERR_M[n]:
+            raise AssertionError(f"cli: control point {n} off by {e} m >= 2x the JAX "
+                                 f"package's {JAX_CPU_CLI_GCP_ERR_M[n]} m")
+    if len(common) != len(m1["centers"]) or not drift < 0.02:
+        raise AssertionError(f"cli: run 2 differs from run 1 ({len(common)} common images, "
+                             f"{drift} m)")
+    if launches["match"] < CLI_IMAGES - 1:
+        raise AssertionError(f"cli: match kernel launched {launches['match']} times")
+    for k in ("seg_accum_full", "seg_accum_sorted"):
+        if launches[k] <= 0:
+            raise AssertionError(f"cli: {k} never launched")
+    return dict(launches, match_batched_slots=slots["match_batched"]), timing
+
+
 def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
@@ -1102,6 +1469,8 @@ def main():
     del survey_prob
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
     phases["pipeline"] = pipeline_phase(torch, dev, scene, feats)
+    del scene, feats
+    phases["cli"], _ = cli_phase(torch, dev)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

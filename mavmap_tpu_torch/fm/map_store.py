@@ -184,6 +184,40 @@ class MapStore:
         self.image_point2D_start.append((start, n))
         return image_id, np.arange(start, start + n)
 
+    # Whole-state replacement: the public arrays by name (a checkpoint's npz
+    # or another store's attributes), and the tracks {point3D id: point2D ids}.
+    STATE_ARRAYS = ("camera_params", "camera_models", "image_rvecs", "image_tvecs",
+                    "image_cameras", "image_registered", "point2D_xy", "point2D_xy_norm",
+                    "point2D_image", "point2D_point3D", "image_point2D_start", "point3D_xyz",
+                    "point3D_valid", "point3D_tri", "point3D_error", "point3D_fixed",
+                    "point3D_track_len")
+
+    def load_state(self, arrays, tracks):
+        """Replace this store's state by `arrays[name]` for every name in
+        STATE_ARRAYS and `tracks`. The point2D and point3D arrays go into
+        the capacity-doubling buffers (the public attributes are views)."""
+        for k in ("camera_params", "camera_models", "image_rvecs", "image_tvecs",
+                  "image_cameras", "image_registered"):
+            setattr(self, k, np.array(arrays[k]))
+        n_p2d = len(arrays["point2D_xy"])
+        self._p2d_len = 0
+        self._reserve_p2d(n_p2d)
+        self._b_xy[:n_p2d] = arrays["point2D_xy"]
+        self._b_xy_norm[:n_p2d] = arrays["point2D_xy_norm"]
+        self._b_image[:n_p2d] = arrays["point2D_image"]
+        self._b_p3d[:n_p2d] = arrays["point2D_point3D"]
+        self._p2d_len = n_p2d
+        self._refresh_p2d_views()
+        self.image_point2D_start = [tuple(int(v) for v in r)
+                                    for r in arrays["image_point2D_start"]]
+        n_p3 = len(arrays["point3D_xyz"])
+        self._p3_len = 0
+        self.reserve_points3D(n_p3)
+        for k in ("point3D_xyz", "point3D_valid", "point3D_tri", "point3D_error",
+                  "point3D_fixed", "point3D_track_len"):
+            getattr(self, k)[:] = arrays[k]
+        self.tracks = {int(pid): [int(x) for x in tr] for pid, tr in tracks.items()}
+
     def point2D_ids_of_image(self, image_id):
         start, n = self.image_point2D_start[image_id]
         return np.arange(start, start + n)

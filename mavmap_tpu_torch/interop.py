@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .ba.core import BAProblem, with_plans
+from .fm.map_store import MapStore
 from .loop.voctree import VocTree
 from .ops.cuda.ba_accum import offsets_from_sorted_ids
 
@@ -65,3 +66,14 @@ def voc_tree_from_jax(tree, device) -> VocTree:
     `.branching` and `.depth`) -> this package's VocTree on device."""
     return VocTree([np.asarray(c, np.float32) for c in tree.centers], int(tree.branching),
                    int(tree.depth), device=device)
+
+
+def map_store_from_jax(store) -> MapStore:
+    """A MapStore of the JAX package (Python or native backend) -> this
+    package's MapStore holding copies of its arrays and tracks."""
+    if hasattr(store, "sync"):
+        store.sync()
+    out = MapStore()
+    out.load_state({k: np.asarray(getattr(store, k)) for k in MapStore.STATE_ARRAYS},
+                   {int(pid): list(tr) for pid, tr in store.tracks.items()})
+    return out

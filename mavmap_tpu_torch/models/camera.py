@@ -32,6 +32,19 @@ CAMERA_MODEL_NAMES = {v: k for k, v in CAMERA_MODEL_CODES.items()}
 CAMERA_MODEL_NUM_PARAMS = {PINHOLE: 4, OPENCV: 8, CATA: 9}
 
 
+def camera_model_code(name: str) -> int:
+    """Model name (or numeric code string) -> integer code (reference
+    camera_models.cc:12-21). Numeric codes are accepted so imagedataout.txt,
+    which stores codes like the reference's writer, reads back."""
+    name = name.strip()
+    if name.lstrip("+-").isdigit():
+        code = int(name)
+        if code not in CAMERA_MODEL_NAMES:
+            raise KeyError(f"unknown camera model code {code}")
+        return code
+    return CAMERA_MODEL_CODES[name.upper()]
+
+
 def pad_params(params, device, dtype=torch.float32):
     """Pad a parameter list/array to MAX_CAM_PARAMS with zeros."""
     params = torch.as_tensor(np.asarray(params), dtype=dtype, device=device)

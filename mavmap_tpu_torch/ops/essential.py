@@ -180,6 +180,21 @@ def _solve_or_nan(A, B):
     return torch.where(bad, torch.full_like(X, float("nan")), X)
 
 
+def _svd_or_nan(A, full_matrices=True):
+    """Batched SVD; NaN factors where a matrix holds a non-finite entry
+    (XLA's behavior — torch.linalg.svd would raise). Degenerate RANSAC
+    samples give such matrices; their candidates are masked out after."""
+    finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    U, S, Vh = torch.linalg.svd(torch.where(finite[..., None, None], A, torch.zeros_like(A)),
+                                full_matrices=full_matrices)
+
+    def nan_where_bad(X, k):
+        keep = finite.reshape(finite.shape + (1,) * k)
+        return torch.where(keep, X, torch.full_like(X, float("nan")))
+
+    return nan_where_bad(U, 2), nan_where_bad(S, 1), nan_where_bad(Vh, 2)
+
+
 def _conv(p, q):
     """Product of two ascending-coefficient polynomials given as lists of
     (T,) coefficient tensors."""
@@ -200,7 +215,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60):
 
     T = points1.shape[0]
     D = _epipolar_design(points1, points2)  # (T, S, 9)
-    _, _, Vt = torch.linalg.svd(D, full_matrices=True)
+    _, _, Vt = _svd_or_nan(D, full_matrices=True)
     basis = Vt[:, -4:].reshape(T, 4, 3, 3)  # E1..E4
     C = basis.permute(0, 2, 3, 1)           # (T, 3, 3, 4)
 
@@ -250,7 +265,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60):
     Az = torch.einsum("tem,mcz->tzec", eq, _table("_SCATTER", eq))  # (T, 4, 10, 10)
     zpow = torch.stack([torch.ones_like(z), z, z * z, z * z * z], dim=-1)
     A = torch.einsum("trk,tkij->trij", zpow, Az)  # (T, 10 roots, 10, 10)
-    _, _, VtA = torch.linalg.svd(A)
+    _, _, VtA = _svd_or_nan(A)
     m = VtA[..., -1, :]  # (T, 10, 10)
 
     x_den = torch.stack([m[..., 4], m[..., 7], m[..., 5], m[..., 8], m[..., 6]], dim=-1)
@@ -289,7 +304,7 @@ def solve_essential_8pt(points1, points2, weights=None):
         D = D * weights.double()[:, None]
     _, V = torch.linalg.eigh(D.T @ D)
     E = V[:, 0].reshape(3, 3)
-    U, s, Vt = torch.linalg.svd(E)
+    U, s, Vt = _svd_or_nan(E)
     sbar = (s[0] + s[1]) / 2.0
     E = U @ torch.diag(torch.stack([sbar, sbar, torch.zeros_like(sbar)])) @ Vt
     E = (E / torch.clamp(torch.linalg.norm(E), min=1e-20)).to(points1.dtype)
@@ -315,7 +330,7 @@ def abs_sampson_residuals(points1, points2, E):
 
 def decompose_essential_matrix(E):
     """E -> (R1, R2, t) candidate decomposition (reference :165-191)."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = _svd_or_nan(E)
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
     W = torch.tensor([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],

@@ -61,6 +61,22 @@ def triangulate_points(proj1, proj2, points1, points2):
     return X[..., :3] / safe_w
 
 
+def triangulate_points_multiview(projs, points2D, mask):
+    """N-view DLT for one track, masked. projs: (V, 3, 4); points2D: (V, 2)
+    normalized; mask: (V,) bool of valid observations. Returns the (3,)
+    world point: the right singular vector of the smallest singular value
+    of the (2V, 4) design matrix, invalid rows zeroed."""
+    P1, P2, P3 = projs[:, 0, :], projs[:, 1, :], projs[:, 2, :]
+    u = points2D[:, 0:1]
+    v = points2D[:, 1:2]
+    rows = torch.cat([u * P3 - P1, v * P3 - P2], dim=0)  # (2V, 4)
+    rows = rows * torch.cat([mask, mask], dim=0)[:, None].to(rows.dtype)
+    X = torch.linalg.svd(rows, full_matrices=False).Vh[-1, :]
+    w = X[3]
+    safe_w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
+    return X[:3] / safe_w
+
+
 def calc_tri_angles(proj1, proj2, points3D):
     """Angle at each 3-D point between the rays to the two camera centers
     (reference triangulation.cc:101-147). points3D (..., N, 3) -> (..., N)."""

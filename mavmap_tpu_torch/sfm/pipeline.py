@@ -5,8 +5,11 @@ Port of mavmap_tpu/sfm/pipeline.py's sequential loop (mapper.cc:563-1257):
 the batched initial-pair search, chained registration with one deferred
 window bundle adjustment per chain and periodic loop detection, the
 per-frame fallback with the loop-detection rescue and sub-map restart,
-then the back-fill of skipped frames, the global bundle adjustment and the
-final closure sweeps. Every step runs on the device given to run_pipeline.
+then the back-fill of skipped frames, the global bundle adjustment, the
+final closure sweeps, ground-control-point geo-registration and the
+point-cloud filter; IMU rotation priors in every bundle adjustment, map
+checkpoints with resume, and the debug dumps. Every mapping step runs on
+the device given to run_pipeline.
 
 Options of the JAX pipeline that this package does not carry yet raise
 NotImplementedError at entry (see _refuse_unported), naming the ROADMAP
@@ -16,9 +19,10 @@ queue item that ports them; none falls back silently.
 import time as _time
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
-from ..ba import BAOptions
+from ..ba import BA_POSE_FIXED, BA_POSE_FIXED_X, BAOptions, build_problem, bundle_adjust
 from .mapper import SequentialMapper
 from .options import SequentialMapperOptions
 
@@ -94,30 +98,24 @@ class PipelineOptions:
     final_closure_sweeps: int = 1
     final_closure_step: int = 2
     mesh_devices: int = 1           # multi-device global BA: not ported
-    checkpoint_period: int = 0      # map checkpoints: not ported
+    # Map checkpoints (beyond the reference): every `checkpoint_period`
+    # committed frames the main mapper's state (map and loop-retrieval
+    # database) is written to `checkpoint_path`; run_pipeline(resume_from=)
+    # continues the sequential loop from the last checkpointed frame.
+    checkpoint_period: int = 0
     checkpoint_path: str = ""
-    debug: bool = False             # debug dumps: not ported
+    debug: bool = False             # per-frame gate diagnostics (and dumps, with a path)
     debug_path: str = ""
 
 
-def _refuse_unported(opts, resume_from):
+def _refuse_unported(opts):
     """Raise NotImplementedError for every option of the JAX pipeline whose
     code this package does not carry, naming its ROADMAP queue item."""
     refused = [
-        (opts.constrain_rotation, "constrain_rotation (IMU rotation priors): ROADMAP queue "
-                                  "item 3"),
-        (opts.use_control_points, "use_control_points (GCP geo-registration): ROADMAP "
-                                  "queue item 6"),
-        (opts.filter_max_error > 0, "filter_max_error > 0 (point-cloud filter): ROADMAP "
-                                    "queue item 6"),
         (opts.parallel_segments > 1, "parallel_segments > 1 (segment-parallel mapping and "
                                      "its merge): ROADMAP queue item 7"),
-        (resume_from is not None or opts.checkpoint_period > 0 or bool(opts.checkpoint_path),
-         "resume_from / checkpoint_period / checkpoint_path (map checkpoints): ROADMAP "
-         "queue item 6"),
         (opts.mesh_devices != 1, "mesh_devices != 1 (multi-device global BA): ROADMAP queue "
                                  "item 8"),
-        (opts.debug, "debug (debug dumps): ROADMAP queue item 6"),
         (opts.pipeline_chains, "pipeline_chains (speculative chain pipelining): on the "
                                "ROADMAP's do-not-port list"),
         (opts.matcher_backend != "auto", f"matcher_backend={opts.matcher_backend!r}: the port "
@@ -167,10 +165,11 @@ class PipelineResult:
         return sum(m.num_proc_images for m in self.mappers)
 
 
-def _local_ba(mapper, opts: PipelineOptions, drop_last=0):
+def _local_ba(mapper, opts: PipelineOptions, rot_priors=None, drop_last=0):
     """The window bundle adjustment after a commit: the last
     local_ba_window_size registered images, the first two fixed, deferred
-    onto the next register step (the solve lands one step later)."""
+    onto the next register step (the solve lands one step later); with the
+    IMU priors under constrain_rotation."""
     reg = sorted(mapper.image_idx_to_id.keys(), key=lambda i: mapper.image_idx_to_id[i])
     if drop_last:
         reg = reg[:-drop_last]
@@ -183,10 +182,11 @@ def _local_ba(mapper, opts: PipelineOptions, drop_last=0):
                              min_track_len=opts.min_track_len,
                              loss_scale_factor=opts.loss_scale_factor,
                              refine_camera_params=opts.local_ba_refine_camera_params),
-        async_=True, defer=True)
+        rot_priors=rot_priors if opts.constrain_rotation else None,
+        rot_prior_weight=opts.constrain_rotation_weight, async_=True, defer=True)
 
 
-def _final_closure_sweeps(mapper, opts: PipelineOptions):
+def _final_closure_sweeps(mapper, opts: PipelineOptions, rot_priors=None):
     """Post-global-BA closure densification (see PipelineOptions). Returns
     the number of closures added over all rounds."""
     if mapper.loop_detector is None or mapper.num_proc_images < 3:
@@ -208,19 +208,24 @@ def _final_closure_sweeps(mapper, opts: PipelineOptions):
         # Re-BA with the intrinsics held at the pre-sweep solution: the global
         # BA before this sweep already converged self-calibration, and the
         # closure commits only add correspondences and merge tracks.
-        _global_ba(mapper, opts, refine_cams=False)
+        _global_ba(mapper, opts, rot_priors, refine_cams=False)
         total += added
     return total
 
 
-def _global_ba(mapper, opts: PipelineOptions, max_iters=None, refine_cams=None):
-    info = mapper.adjust_global_bundle(BAOptions(
-        max_num_iterations=max_iters if max_iters is not None else opts.ba_global_max_iters,
-        function_tolerance=opts.ba_function_tolerance,
-        min_track_len=opts.min_track_len,
-        loss_scale_factor=opts.loss_scale_factor,
-        refine_camera_params=(opts.refine_camera_params if refine_cams is None
-                              else refine_cams)))
+def _global_ba(mapper, opts: PipelineOptions, rot_priors=None, update_errors=False,
+               max_iters=None, refine_cams=None):
+    info = mapper.adjust_global_bundle(
+        BAOptions(max_num_iterations=max_iters if max_iters is not None
+                  else opts.ba_global_max_iters,
+                  function_tolerance=opts.ba_function_tolerance,
+                  min_track_len=opts.min_track_len,
+                  loss_scale_factor=opts.loss_scale_factor,
+                  refine_camera_params=(opts.refine_camera_params if refine_cams is None
+                                        else refine_cams),
+                  update_point3D_errors=update_errors),
+        rot_priors=rot_priors if opts.constrain_rotation else None,
+        rot_prior_weight=opts.constrain_rotation_weight)
     mapper._count("global_ba_runs")
     if info:
         mapper._count("global_ba_iters", int(info.get("iterations", 0)))
@@ -263,6 +268,133 @@ def process_remaining_images(mapper, start_idx, end_idx, opts: PipelineOptions):
     return num
 
 
+def filter_point_cloud(mapper, max_error):
+    """Delete the 3-D points whose mean reprojection error exceeds
+    max_error (reference mapper.cc:382-402). Needs the point errors of a
+    bundle adjustment run with update_point3D_errors. Returns the number
+    deleted."""
+    doomed = [pid for pid in list(mapper.store.tracks.keys())
+              if mapper.store.point3D_valid[pid] and mapper.store.point3D_error[pid] > max_error]
+    for pid in doomed:
+        mapper.store.delete_point3D(pid)
+    return len(doomed)
+
+
+def _f32(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def apply_control_points(mapper, control_points, opts: PipelineOptions):
+    """Geo-registration with ground control points (reference
+    mapper.cc:405-560):
+
+    1. triangulate each control point from its observations in processed
+       images (multiview DLT with the current poses);
+    2. fit the model -> GCP-frame similarity (Umeyama) to the fixed control
+       points, when there are at least 3, and move every pose and point;
+    3. a global bundle adjustment with every triangulated control point
+       appended, the fixed ones pinned at their coordinates (with at least 3
+       fixed ones they give the gauge; else the first pose and the second's
+       x-translation are fixed as usual).
+
+    The small host steps (DLT, similarity) run in float32 on the CPU, as
+    the JAX version runs them; the bundle adjustment on the mapper's
+    device. Returns [(cp, est_xyz or None, track_len, mean_residual)]."""
+    from ..models import camera as cam
+    from ..ops.projection import compose_proj_matrix
+    from ..ops.similarity import solve_umeyama, transform_points, transform_pose
+    from ..ops.triangulation import triangulate_points_multiview
+
+    estimates = []
+    for cp in control_points:
+        projs, obs_n, obs_px, imgs = [], [], [], []
+        for (image_idx, x, y) in cp.points2D:
+            if not mapper.is_image_processed(image_idx):
+                continue
+            rv, tv = mapper.store.get_pose(mapper.image_idx_to_id[image_idx])
+            projs.append(compose_proj_matrix(_f32(rv), _f32(tv)).numpy())
+            ci = mapper.image_cameras[image_idx]
+            obs_n.append(np.asarray(cam.image2normalized_np(
+                np.asarray([x, y], np.float32), int(mapper.cam_models[ci]),
+                mapper.cam_params[ci])))
+            obs_px.append((x, y))
+            imgs.append(image_idx)
+        if len(projs) < 2:
+            estimates.append(None)
+            continue
+        X = triangulate_points_multiview(_f32(np.stack(projs)), _f32(np.stack(obs_n)),
+                                         torch.ones(len(projs), dtype=torch.bool))
+        estimates.append((X.numpy(), imgs, obs_px, obs_n))
+
+    fixed_src = [est[0] for cp, est in zip(control_points, estimates)
+                 if cp.fixed and est is not None]
+    fixed_dst = [cp.xyz for cp, est in zip(control_points, estimates)
+                 if cp.fixed and est is not None]
+    if len(fixed_src) >= 3:
+        T = solve_umeyama(_f32(np.stack(fixed_src)), _f32(np.stack(fixed_dst)))
+        for iid in range(mapper.store.num_images):
+            if mapper.store.image_registered[iid]:
+                rv, tv = mapper.store.get_pose(iid)
+                nrv, ntv = transform_pose(T, _f32(rv), _f32(tv))
+                mapper.store.image_rvecs[iid] = nrv.numpy()
+                mapper.store.image_tvecs[iid] = ntv.numpy()
+        valid = mapper.store.point3D_valid
+        mapper.store.point3D_xyz[valid] = transform_points(
+            T, _f32(mapper.store.point3D_xyz[valid])).numpy()
+        for k, est in enumerate(estimates):
+            if est is not None:
+                X, imgs, obs_px, obs_n = est
+                estimates[k] = (transform_points(T, _f32(X)).numpy(), imgs, obs_px, obs_n)
+
+    # The global problem with the control points' observations appended.
+    (image_ids, poses, point_ids, points, obs_image, obs_point, obs_cam,
+     obs_xy) = mapper.ba_problem_arrays(min_track_len=opts.min_track_len)
+    id_to_row = {iid: k for k, iid in enumerate(image_ids)}
+    n_pts = len(points)
+    extra_pts, extra_fixed = [], []
+    extra_img, extra_pt, extra_cam, extra_xy = [], [], [], []
+    gcp_rows = []
+    for cp, est in zip(control_points, estimates):
+        if est is None:
+            gcp_rows.append(None)
+            continue
+        X, imgs, obs_px, _ = est
+        row = n_pts + len(extra_pts)
+        gcp_rows.append(row)
+        extra_pts.append(cp.xyz if cp.fixed else X)
+        extra_fixed.append(cp.fixed)
+        for image_idx, (x, y) in zip(imgs, obs_px):
+            extra_img.append(id_to_row[mapper.image_idx_to_id[image_idx]])
+            extra_pt.append(row)
+            extra_cam.append(mapper._store_cam_ids[int(mapper.image_cameras[image_idx])])
+            extra_xy.append((x, y))
+    if extra_pts:
+        points = np.concatenate([points, np.asarray(extra_pts, np.float32)])
+        obs_image = np.concatenate([obs_image, np.asarray(extra_img, np.int32)])
+        obs_point = np.concatenate([obs_point, np.asarray(extra_pt, np.int32)])
+        obs_cam = np.concatenate([obs_cam, np.asarray(extra_cam, np.int32)])
+        obs_xy = np.concatenate([obs_xy, np.asarray(extra_xy, np.float32)])
+    point_fixed = np.zeros(len(points), bool)
+    point_fixed[n_pts:] = extra_fixed
+    if sum(extra_fixed) >= 3:
+        states = [0] * len(image_ids)
+    else:
+        states = [BA_POSE_FIXED if k < 1 else 0 for k in range(len(image_ids))]
+        if len(states) > 1:
+            states[1] = BA_POSE_FIXED_X
+    prob = build_problem(poses, points, mapper.store.camera_params.astype(np.float32),
+                         mapper.store.camera_models, obs_image, obs_point, obs_cam, obs_xy,
+                         pose_states=states, point_fixed=point_fixed, bucket=True)
+    new_poses, new_points, info = bundle_adjust(
+        prob, BAOptions(max_num_iterations=opts.ba_global_max_iters,
+                        update_point3D_errors=True, min_track_len=2), mapper.device)
+    errors = info["point_errors"]
+    mapper.apply_ba_result(image_ids, new_poses, point_ids, new_points[:n_pts], errors[:n_pts])
+    return [(cp, None, 0, -1.0) if row is None else
+            (cp, new_points[row], int((obs_point == row).sum()), float(errors[row]))
+            for cp, row in zip(control_points, gcp_rows)]
+
+
 def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: PipelineOptions = None,
                  voc_tree=None, rot_priors=None, control_points=None, resume_from=None,
                  device="cuda"):
@@ -271,13 +403,19 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     there is none; tests pass "cpu"). voc_tree: a loop.VocTree, enabling
     loop detection and the closure sweeps. Sub-map k's mapper draws its
     RANSAC samples from a generator seeded k, as the JAX package seeds its
-    keys. rot_priors and control_points are read only by options that are
-    not ported (see _refuse_unported). Returns a PipelineResult with
-    per-stage wall seconds in `timings`."""
+    keys. rot_priors: {image_idx: prior rvec}, used under
+    constrain_rotation; control_points: utils.io.ControlPoint list, used
+    under use_control_points.
+
+    resume_from: a map checkpoint (utils/checkpoint.save_map), restored
+    with its loop-retrieval database into the first mapper; the sequential
+    loop continues from the frame after the last processed one, then the
+    usual post-pass. Returns a PipelineResult with per-stage wall seconds in
+    `timings`."""
     from ..loop import LoopDetector
 
     opts = opts or PipelineOptions()
-    _refuse_unported(opts, resume_from)
+    _refuse_unported(opts)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: no CUDA device (pass device='cpu' to run on the CPU)")
@@ -285,11 +423,20 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     start = opts.start_image_idx
     end = opts.end_image_idx if opts.end_image_idx >= 0 else num_images - 1
     init_opts = _mapper_options(opts, initial=True)
+    debug = opts.debug
+
+    dumper = None
+    if opts.debug and opts.debug_path:
+        from .debug import DebugDumper
+
+        dumper = DebugDumper(opts.debug_path, image_reader=getattr(provider, "image", None))
 
     def new_mapper(k):
         det = LoopDetector(voc_tree) if (voc_tree is not None and opts.loop_detection) else None
-        return SequentialMapper(image_cameras, cam_models, cam_params, provider, device,
-                                seed=k, loop_detector=det)
+        m = SequentialMapper(image_cameras, cam_models, cam_params, provider, device,
+                             seed=k, loop_detector=det)
+        m.debug_dumper = dumper
+        return m
 
     mappers = [new_mapper(0)]
     mapper = mappers[0]
@@ -297,6 +444,31 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     prev_idx = None
     num_skipped = 0
     count_since_loop = 0
+
+    if resume_from:
+        from ..utils.checkpoint import load_map
+
+        load_map(mapper, resume_from)
+        processed = sorted(mapper.image_idx_to_id.keys())
+        if processed:
+            first_idx, prev_idx = processed[0], processed[-1]
+            idx = prev_idx + 1
+            if opts.verbose:
+                print(f"Resumed {len(processed)} registered images from {resume_from}; "
+                      f"continuing at #{idx}")
+
+    # Periodic checkpoints: after every `checkpoint_period` frames newly
+    # committed to the current mapper.
+    ckpt_last = [mapper.num_proc_images]
+
+    def maybe_checkpoint(m):
+        if opts.checkpoint_period <= 0 or not opts.checkpoint_path:
+            return
+        if m.num_proc_images - ckpt_last[0] >= opts.checkpoint_period:
+            from ..utils.checkpoint import save_map
+
+            save_map(m, opts.checkpoint_path)
+            ckpt_last[0] = m.num_proc_images
 
     # Per-stage wall clocks (the reference prints per-frame and total
     # timings, mapper.cc:1181,1252-1257).
@@ -334,7 +506,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                 opts.second_image_idx >= 0 and len(mappers) == 1) else -1
             success = False
             if second >= 0:
-                success = mapper.process_initial(first_idx, second, init_opts)
+                success = mapper.process_initial(first_idx, second, init_opts, debug=debug)
                 idx = max(first_idx, second)
             else:
                 # Batched sweeps of candidate seconds (the reference tries one
@@ -343,7 +515,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                 chunk = 2  # almost always succeeds at once; then widen
                 while j <= end:
                     cands = list(range(j, min(j + chunk, end + 1)))
-                    sec = mapper.process_initial_batch(first_idx, cands, init_opts)
+                    sec = mapper.process_initial_batch(first_idx, cands, init_opts, debug=debug)
                     if sec >= 0:
                         success = True
                         idx = sec
@@ -385,7 +557,8 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                 chain.append(j)
         if len(chain) >= 2:
             t0 = _time.perf_counter()
-            oks = mapper.process_chain_k(chain, prev_idx, seq_opts, pad_to=opts.chain_len)
+            oks = mapper.process_chain_k(chain, prev_idx, seq_opts, pad_to=opts.chain_len,
+                                         debug=debug)
             mapper._count_time("seq_chain_s", _time.perf_counter() - t0)
             committed = sum(oks)
             if committed:
@@ -399,13 +572,14 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                 # One window solve per chain, deferred onto the next register
                 # step: the window covers every frame the chain added.
                 t0 = _time.perf_counter()
-                _local_ba(mapper, opts)
+                _local_ba(mapper, opts, rot_priors)
                 mapper._count_time("seq_localba_s", _time.perf_counter() - t0)
                 periodic_detect(prev_idx)
+                maybe_checkpoint(mapper)
                 continue
             # The chain's first frame failed its gates: the per-frame path
             # below takes it (rescue, skip, sub-map restart).
-        success = mapper.process(idx, prev_idx, seq_opts)
+        success = mapper.process(idx, prev_idx, seq_opts, debug=debug)
         if not success and opts.loop_detection:
             # Rescue by loop detection: every candidate counts as
             # neighborhood and one closure is enough (mapper.cc:1107-1108:
@@ -421,9 +595,10 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                     # prev-prev pair (mapper.cc:1114-1117).
                     mapper.process(idx, prev_reg[-3],
                                    replace(seq_opts, max_homography_inliers=1.0))
-            _local_ba(mapper, opts)
+            _local_ba(mapper, opts, rot_priors)
             count_since_loop += 1
             periodic_detect(idx)
+            maybe_checkpoint(mapper)
             prev_idx = idx
             num_skipped = 0
             idx += 1
@@ -435,6 +610,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                     print(f"Starting new sub-map at image #{idx}")
                 mapper = new_mapper(len(mappers))
                 mappers.append(mapper)
+                ckpt_last[0] = 0
                 idx += max(opts.failure_skip_images - 1, 0)  # mapper.cc:1157
                 first_idx = idx
                 num_skipped = 0
@@ -450,7 +626,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     with _stage("global_ba"):
         for m in mappers:
             if m.num_proc_images:
-                _global_ba(m, opts)
+                _global_ba(m, opts, rot_priors)
     mappers = [m for m in mappers if m.num_proc_images > 0]
     if len(mappers) > 1 and opts.merge:
         raise NotImplementedError(
@@ -459,7 +635,20 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     if opts.loop_detection and opts.final_closure_sweeps > 0:
         with _stage("closure_sweeps"):
             for m in mappers:
-                _final_closure_sweeps(m, opts)
+                _final_closure_sweeps(m, opts, rot_priors)
+
+    cp_results = None
+    main = max(mappers, key=lambda m: m.num_proc_images) if mappers else None
+    if opts.use_control_points and control_points and main is not None:
+        with _stage("control_points"):
+            cp_results = apply_control_points(main, control_points, opts)
+    if opts.filter_max_error > 0 and main is not None:
+        with _stage("filter"):
+            _global_ba(main, opts, rot_priors, update_errors=True)
+            n = filter_point_cloud(main, opts.filter_max_error)
+            if opts.verbose:
+                print(f"Filtered {n} points with error > {opts.filter_max_error}")
+            _global_ba(main, opts, rot_priors)
     if opts.verbose:
         print("Pipeline stages: " + " | ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
-    return PipelineResult(mappers=mappers, timings=timings)
+    return PipelineResult(mappers=mappers, control_point_results=cp_results, timings=timings)

@@ -1,10 +1,11 @@
 """Synthetic UAV-style scenes for tests and benchmarks.
 
-Port of mavmap_tpu/utils/synthetic.py (`make_uav_scene`, `render_features`,
-`mapper_ate`, `mapper_ate_profile`, `ate_rmse`): a terrain point cloud with per-point
-descriptors, a serpentine aerial camera trajectory, and projected
+Port of mavmap_tpu/utils/synthetic.py (`make_uav_scene`,
+`make_multi_camera_scene`, `imu_priors`, `render_features`, `render_images`,
+`mapper_ate`, `mapper_ate_profile`, `ate_rmse`): a terrain point cloud with
+per-point descriptors, a serpentine aerial camera trajectory, projected
 per-image features with pixel noise, descriptor noise, clutter and
-dropout. Scenes are host data (numpy, made from a seed); the few rotation
+dropout, and rendered grayscale images of the ground for the detector. Scenes are host data (numpy, made from a seed); the few rotation
 and projection calls run in float32 PyTorch on the CPU, as the JAX version
 runs them in float32 JAX, so both packages build the same scene.
 """
@@ -101,6 +102,27 @@ def make_uav_scene(num_images=20, num_points=2000, descriptor_dim=128,
         image_cameras=np.zeros(num_images, np.int32), image_size=image_size)
 
 
+def make_multi_camera_scene(num_images=12, seed=0, **kwargs):
+    """Mixed CAM_IDX sequence (the multi-camera rig with an OPENCV model):
+    odd frames use a second, distorted camera with other intrinsics."""
+    scene = make_uav_scene(num_images=num_images, seed=seed, **kwargs)
+    w, h = scene.image_size
+    cam2 = np.zeros((1, 9), np.float32)
+    cam2[0, :8] = [620.0, 620.0, w / 2 + 6, h / 2 - 4, -0.15, 0.03, 0.0005, -0.0005]
+    scene.cam_params = np.concatenate([scene.cam_params, cam2], axis=0)
+    scene.cam_models = np.append(scene.cam_models, np.int32(cam.OPENCV))
+    scene.image_cameras = (np.arange(num_images) % 2).astype(np.int32)
+    return scene
+
+
+def imu_priors(scene: SyntheticScene, noise=0.01, seed=0):
+    """Per-image IMU rotation priors: ground-truth rvecs plus noise (the
+    roll/pitch/yaw of imagedata.txt)."""
+    rng = np.random.default_rng(seed + 7)
+    return {i: scene.rvecs[i] + rng.normal(size=3).astype(np.float32) * noise
+            for i in range(len(scene.rvecs))}
+
+
 def render_features(scene: SyntheticScene, pixel_noise=0.3, descriptor_noise=0.05,
                     clutter=50, dropout=0.05, max_features=None, seed=0):
     """Project the scene into every image -> (feats_list, gt_point_ids_list):
@@ -191,3 +213,87 @@ def ate_rmse(est_centers, gt_centers, mask=None):
     T = solve_umeyama(_f32(est_centers), _f32(gt_centers))
     aligned = transform_points(T, _f32(est_centers)).numpy()
     return float(np.sqrt(np.mean(np.sum((aligned - gt_centers) ** 2, axis=-1))))
+
+
+def render_images(scene: SyntheticScene, texture_size=2048, texture_contrast=1.0, seed=0):
+    """Grayscale images of a textured flat ground plane (z = 0) for every
+    camera: the detector's test source, numpy apart from the float32
+    rotations. The texture is smoothed random noise; each pixel is
+    inverse-warped to the plane and bilinearly sampled; the scene's 3-D
+    points are painted on top as Gaussian splats of consistent appearance
+    at their true projections, so the imaged structure is not planar (a
+    planar scene trips the homography gate, as in the reference). Returns a
+    list of (H, W) uint8 arrays."""
+    rng = np.random.default_rng(seed + 3)
+    w, h = scene.image_size
+
+    # Smooth random texture: separable box smoothing, nearest upsample, a
+    # second smoothing.
+    base = rng.normal(size=(texture_size // 8, texture_size // 8))
+    k = np.ones(5) / 5.0
+    for axis in (0, 1):
+        base = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), axis, base)
+    tex = np.kron(base, np.ones((8, 8)))
+    for axis in (0, 1):
+        tex = np.apply_along_axis(
+            lambda m: np.convolve(m, np.ones(9) / 9.0, mode="same"), axis, tex)
+    tex -= tex.min()
+    tex = (tex / max(tex.max(), 1e-9) * 255.0).astype(np.float32)
+    # Low contrast keeps the planar ground texture below the detector's
+    # threshold relative to the off-plane point splats.
+    tex = 127.5 + (tex - 127.5) * texture_contrast
+
+    # The texture covers the flight plan's ground footprint with a margin.
+    C = scene.camera_centers()
+    half = 1.2 * np.max(C[:, 2]) * max(w, h) / 2.0 / float(scene.cam_params[0][0])
+    x0, x1 = C[:, 0].min() - half, C[:, 0].max() + half
+    y0, y1 = C[:, 1].min() - half, C[:, 1].max() + half
+
+    def sample(gx, gy):
+        u = (gx - x0) / (x1 - x0) * (tex.shape[1] - 2)
+        v = (gy - y0) / (y1 - y0) * (tex.shape[0] - 2)
+        u = np.clip(u, 0, tex.shape[1] - 2)
+        v = np.clip(v, 0, tex.shape[0] - 2)
+        ui, vi = u.astype(int), v.astype(int)
+        fu, fv = u - ui, v - vi
+        return (tex[vi, ui] * (1 - fu) * (1 - fv) + tex[vi, ui + 1] * fu * (1 - fv)
+                + tex[vi + 1, ui] * (1 - fu) * fv + tex[vi + 1, ui + 1] * fu * fv)
+
+    fx, fy, cx, cy = (float(v) for v in scene.cam_params[0][:4])
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    rays = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], -1)
+
+    # Per-point splat appearance (the same in every view): 3 offset lobes
+    # per point make each splat locally distinctive for the ratio test.
+    n_pts = len(scene.points3D)
+    n_lobes = 3
+    splat_amp = rng.uniform(50, 110, (n_pts, n_lobes)) * rng.choice([-1, 1], (n_pts, n_lobes))
+    splat_sig = rng.uniform(1.2, 2.6, (n_pts, n_lobes))
+    splat_off = rng.uniform(-4.0, 4.0, (n_pts, n_lobes, 2))
+    splat_off[:, 0] = 0.0  # first lobe centered (the keypoint stays on the point)
+
+    images = []
+    yy, xx = np.mgrid[-7:8, -7:8]
+    for i in range(len(scene.rvecs)):
+        R = _rotmats(scene.rvecs[i])
+        Ci = -R.T @ scene.tvecs[i]
+        d = rays @ R  # world-frame ray directions (R^T applied row by row)
+        tplane = -Ci[2] / d[..., 2]
+        img = sample(Ci[0] + tplane * d[..., 0], Ci[1] + tplane * d[..., 1])
+
+        # Off-plane 3-D points as Gaussian splats.
+        Xc = scene.points3D @ R.T + scene.tvecs[i]
+        vis = Xc[:, 2] > 1.0
+        u = fx * Xc[:, 0] / np.maximum(Xc[:, 2], 1e-6) + cx
+        v = fy * Xc[:, 1] / np.maximum(Xc[:, 2], 1e-6) + cy
+        vis &= (u >= 8) & (u < w - 8) & (v >= 8) & (v < h - 8)
+        for pid in np.where(vis)[0]:
+            ui, vi = int(round(u[pid])), int(round(v[pid]))
+            for l in range(n_lobes):
+                du = u[pid] + splat_off[pid, l, 0]
+                dv = v[pid] + splat_off[pid, l, 1]
+                g = splat_amp[pid, l] * np.exp(
+                    -((xx + ui - du) ** 2 + (yy + vi - dv) ** 2) / (2 * splat_sig[pid, l] ** 2))
+                img[vi - 7: vi + 8, ui - 7: ui + 8] += g
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+    return images

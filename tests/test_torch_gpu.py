@@ -552,3 +552,41 @@ def test_bundle_adjust_cg_vs_dense_gpu(dev, rng, selfcal):
     assert np.abs(pc - pd).max() < (1e-3 if selfcal else 1e-4)
     assert abs(infoc["final_cost"] - infod["final_cost"]) < \
         1e-3 * max(1.0, infod["final_cost"])
+
+
+def test_point_mean_errors_is_bitwise_repeatable(dev, rng):
+    """point_mean_errors sums by its K2 plan (plan_pt, no atomics): a
+    second call on the card gives the same bits, and the values agree with
+    the CPU's to 1e-4 px; K2 launches once per call."""
+    from mavmap_tpu_torch.ba.core import point_mean_errors, problem_to_device, with_plans
+
+    host = with_plans(_ba_problem(rng), ("plan_pt",))
+    prob = problem_to_device(host, dev)
+    before = build.launches["seg_accum_full"]
+    a = point_mean_errors(prob, prob.poses, prob.points)
+    b = point_mean_errors(prob, prob.poses, prob.points)
+    assert build.launches["seg_accum_full"] - before == 2
+    assert torch.equal(a, b)
+    cpu = problem_to_device(host, torch.device("cpu"))
+    c = point_mean_errors(cpu, cpu.poses, cpu.points)
+    assert float((a.cpu() - c).abs().max()) < 1e-4
+
+
+def test_detector_on_the_card_matches_cpu(dev):
+    """detect_and_describe on the card against the CPU on one rendered
+    frame: the same kept keypoints in the same order within 0.05 px,
+    descriptor cosine above 0.999 on at least 98 % of them (cuDNN's
+    convolutions sum in another order than the CPU's)."""
+    from mavmap_tpu_torch.features.detector import detect_and_describe
+    from mavmap_tpu_torch.utils.synthetic import render_images
+
+    scene = make_uav_scene(num_images=2, num_points=1500, relief=10.0, rows=1, seed=21)
+    img = render_images(scene, texture_contrast=0.25, seed=21)[0].astype(np.float32)
+    kw = dict(hessian_threshold=1000.0, max_features=1024)
+    kc, _, dc, mc, cc = detect_and_describe(torch.as_tensor(img), **kw)
+    kg, _, dg, mg, cg = (x.cpu() for x in detect_and_describe(torch.as_tensor(img, device=dev),
+                                                                **kw))
+    assert torch.equal(mg, mc) and torch.equal(cg, cc) and int(mc.sum()) > 300
+    assert float((kg - kc).abs()[mc].max()) < 0.05
+    cos = (dg * dc).sum(dim=1)[mc]
+    assert float((cos > 0.999).float().mean()) >= 0.98

@@ -28,13 +28,17 @@ def test_port_imports_without_jax():
     mods = _modules()
     assert {"mavmap_tpu_torch.sfm.mapper", "mavmap_tpu_torch.ba.core",
             "mavmap_tpu_torch.sfm.pipeline", "mavmap_tpu_torch.loop.voctree",
-            "mavmap_tpu_torch.loop.detector"} <= set(mods)
+            "mavmap_tpu_torch.loop.detector", "mavmap_tpu_torch.cli",
+            "mavmap_tpu_torch.features.detector", "mavmap_tpu_torch.features.cache",
+            "mavmap_tpu_torch.sfm.outputs", "mavmap_tpu_torch.sfm.debug",
+            "mavmap_tpu_torch.utils.io", "mavmap_tpu_torch.utils.imageio",
+            "mavmap_tpu_torch.utils.timer", "mavmap_tpu_torch.utils.checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'mavmap_tpu' or k.startswith('mavmap_tpu.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'mavmap_tpu', 'PIL'))\n"
         "print(bad)\n"
         "assert not bad, bad\n"
     )
@@ -64,6 +68,26 @@ def test_source_has_no_jax_import(mod):
         for n in names:
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "mavmap_tpu"), f"{mod} imports {n}"
+
+
+@pytest.mark.parametrize("mod", _modules() + ["chip_smoke"])
+def test_source_has_no_top_level_pillow_import(mod):
+    """Pillow is not on the card's machine: no module of the port, and not
+    chip_smoke.py, imports PIL when it is imported (the debug drawings
+    import it inside the call that draws)."""
+    path = os.path.join(ROOT, *mod.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *mod.split("."), "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert all(n.split(".")[0] != "PIL" for n in names), f"{mod} imports {names}"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")

@@ -292,6 +292,27 @@ def test_essential_8pt_refit_solves_in_f64(rng):
     _up_to_sign(E[0].numpy(), E_ref / np.linalg.norm(E_ref), 1e-6)
 
 
+def test_essential_solvers_mask_non_finite_samples_like_jax(rng):
+    """A RANSAC sample with a non-finite coordinate (or one whose resultant
+    diverges) yields no candidate, as XLA's SVD yields NaNs there; torch's
+    would raise. The other samples of the batch are untouched, and a
+    non-finite E decomposes to NaNs instead of raising."""
+    x1, x2, _, _, _ = _two_view(rng, n=5 * 4)
+    p1, p2 = x1.reshape(4, 5, 2).copy(), x2.reshape(4, 5, 2).copy()
+    p1[1, 2, 0] = np.nan
+    p2[3, 0, 1] = np.nan
+    Ej, mj = jax.vmap(jess.solve_essential_5pt)(J(p1), J(p2))
+    p2[3, 0, 1] = np.inf  # XLA's SVD does not return on an infinite entry
+    Et, mt = tess.solve_essential_5pt(T(p1), T(p2))
+    assert not bool(mt[1].any()) and not bool(mt[3].any())
+    assert not np.asarray(mj[1]).any() and not np.asarray(mj[3]).any()
+    assert bool(mt[0].any()) and bool(mt[2].any())
+    clean, _ = tess.solve_essential_5pt(T(p1[[0, 2]]), T(p2[[0, 2]]))
+    assert torch.equal(Et[[0, 2]], clean)
+    R1, R2, t = tess.decompose_essential_matrix(torch.full((3, 3), float("nan")))
+    assert torch.isnan(R1).all() and torch.isnan(t).all()
+
+
 def test_triangulation_matches_jax(rng):
     x1, x2, X, R, t = _two_view(rng, n=100, noise=1e-3)
     P1 = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
@@ -301,6 +322,16 @@ def test_triangulation_matches_jax(rng):
     close(Xt, Xj, rtol=1e-4)
     close(ttri.calc_tri_angles(T(P1), T(P2), Xt), jtri.calc_tri_angles(J(P1), J(P2), Xj),
           rtol=1e-4)
+    # The N-view DLT of one track (the control points' triangulation), a
+    # view masked out.
+    P3 = np.concatenate([R.T, (-R.T @ t)[:, None]], 1).astype(np.float32)
+    x3 = X[:1] @ R + (-R.T @ t)
+    x3 = (x3[:, :2] / x3[:, 2:]).astype(np.float32)
+    projs, pts = np.stack([P1, P2, P3]), np.stack([x1[0], x2[0], x3[0] + 0.5])
+    mask = np.array([True, True, False])
+    Vt = ttri.triangulate_points_multiview(T(projs), T(pts), T(mask, torch.bool))
+    Vj = jtri.triangulate_points_multiview(J(projs), J(pts), J(mask, bool))
+    close(Vt, Vj, rtol=1e-4)
 
 
 def test_similarity_matches_jax(rng):

@@ -163,29 +163,21 @@ def test_process_remaining_images_fills_same_frames(survey):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("constrain_rotation", True, "item 3"),
-    ("use_control_points", True, "item 6"),
-    ("filter_max_error", 1.0, "item 6"),
     ("parallel_segments", 2, "item 7"),
-    ("checkpoint_period", 10, "item 6"),
-    ("checkpoint_path", "map.npz", "item 6"),
     ("mesh_devices", 0, "item 8"),
     ("mesh_devices", 2, "item 8"),
-    ("debug", True, "item 6"),
     ("pipeline_chains", True, "do-not-port"),
     ("matcher_backend", "pallas", "K1"),
     ("matcher_backend", "xla", "K1"),
-    ("resume_from", "map.npz", "item 6"),
 ])
 def test_unported_options_raise(option, value, item):
     """Every option of the JAX pipeline that the port does not carry raises
-    at entry, before any work, naming where it is queued; none falls back."""
-    kw = {} if option == "resume_from" else {option: value}
+    at entry, before any work, naming where it is queued; none falls back.
+    (The options ported with the CLI slice run in tests/test_torch_options.py.)"""
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_pipeline(np.zeros(4, np.int32), np.ones(1, np.int32),
-                           np.zeros((1, 9), np.float32), None, tpipe.PipelineOptions(**kw),
-                           device=CPU, **({"resume_from": value} if option == "resume_from"
-                                          else {}))
+                           np.zeros((1, 9), np.float32), None,
+                           tpipe.PipelineOptions(**{option: value}), device=CPU)
 
 
 def test_merge_of_submaps_raises(survey):
