@@ -7,7 +7,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 
  1. device: a CUDA device is required (no CPU fallback); prints the card's
     name and power limit as nvidia-smi reports them;
- 2. build: compiles the CUDA kernels of mavmap_tpu_torch/csrc with nvcc;
+ 2. build: compiles the CUDA kernels of mavmap_tpu_torch/csrc with nvcc
+    and, beside them, the native track store (mavmap_tpu_torch/native) with
+    g++;
  3. timer check: the device timer against a sleep kernel of known length,
     and the launch floor: a near-empty kernel (torch.cuda._sleep(1)) under
     the same timer;
@@ -47,7 +49,17 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     rescue, the back-fill, the global bundle adjustment and one closure
     sweep — checking the registered count and the ATE against the JAX
     package's on the CPU, that loops were closed and that batched K1 ran;
-11. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
+11. submaps: run_pipeline over two runs that end in sub-maps and merge
+    them into one map on the native track store: "restart", bench.py's
+    scene with frames 13-14 given unrelated descriptors, so that one failed
+    frame starts a new sub-map (no loop detection); "segments", a 60-image
+    survey in 2 rows mapped as two overlapping segments with a vocabulary
+    tree, whose merge closes cross-loops through batched K1. Held to the
+    JAX package on the same inputs (benchmarks/jax_submaps_yardstick.py):
+    one map, at least its registered count and under 2x its ATE; K1-K3
+    launched, batched K1 inside the segments run's merge, and more common
+    images after its cross-loop closures than before;
+12. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
     pixels: a 40-image survey written as PNG files with imagedata.txt (IMU
     roll/pitch/yaw), a control-point file and a vocabulary tree trained on
     the port's own detections; run 1 detects on the card and maps with
@@ -56,13 +68,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     the JAX package's CLI on the same files (benchmarks/jax_cli_yardstick.py)
     and to absolute limits; then the detector's device and host time per
     frame at 800x600 and at one 4000x3000 frame;
-12. prints the kernels' JSON line, the card line, and last the result line.
+13. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping phase (5-7, 9, 10) and read
-just after it (10, 11: the counts of 11 span both CLI runs). Imports
+counters are zeroed just before each mapping run (5-7, 9-11) and read
+just after it (11: the sum of its two runs; 12: the counts span both CLI
+runs). Imports
 nothing of JAX or of the JAX package.
 """
 
@@ -96,6 +109,9 @@ SURVEY_IMAGES = 200
 # many and stay under 2x the seed-0 ATE.
 JAX_CPU_PIPELINE_ATE_M = 0.008439
 JAX_CPU_PIPELINE_REGISTERED = 200
+PIPELINE_OPTS = dict(verbose=False, tri_min_angle=1.0, init_tri_min_angle=4.0, min_track_len=2,
+                     loop_detection_period=20, final_closure_sweeps=1, final_closure_step=2,
+                     chain_len=4, ba_local_max_iters=15)
 # The cli phase: its survey and the JAX package's own CLI on the CPU over
 # the same files (benchmarks/jax_cli_yardstick.py, recorded in PERF.md):
 # 21/40 registered (the first row and one rescued frame: no frame of the
@@ -106,6 +122,21 @@ CLI_FILTER_MAX_ERROR = 2.0
 JAX_CPU_CLI_REGISTERED = 21
 JAX_CPU_CLI_ABS_RMSE_M = 0.20769685080775652
 JAX_CPU_CLI_GCP_ERR_M = {"cp4": 0.00948342847402626, "cp5": 0.0025753420202657084}
+# The submaps phase: two run_pipeline runs that end in sub-maps and merge
+# them (the scenes, options and the JAX package's numbers on the CPU:
+# benchmarks/jax_submaps_yardstick.py, recorded in PERF.md). Each run must
+# end in one map, register at least as many frames as the JAX package and
+# stay under 2x its ATE. Both take the pipeline phase's options.
+# restart: bench.py's scene, frames 13 and 14 given unrelated descriptors;
+# one failed frame starts a new sub-map.
+RESTART_FRAMES = (13, 14)
+RESTART_OPTS = dict(PIPELINE_OPTS, max_subsequent_trials=1, loop_detection=False,
+                    final_closure_sweeps=0)
+# segments: a 60-image survey in 2 rows mapped as two segments.
+SEGMENT_IMAGES = 60
+SEGMENT_OPTS = dict(PIPELINE_OPTS, parallel_segments=2, segment_overlap=4)
+JAX_CPU_SUBMAPS = {"restart": {"registered": 28, "ate_m": 0.008275382220745087},
+                   "segments": {"registered": 60, "ate_m": 0.004537736531347036}}
 
 
 def _phase(name):
@@ -277,12 +308,20 @@ def device_phase():
 def build_phase():
     from mavmap_tpu_torch.ops.cuda import build
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mavmap_tpu_torch import native
+
     _phase("build")
     t0 = time.perf_counter()
-    path = build.build()
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ run side by side
+        cuda, store = pool.submit(build.build), pool.submit(native.build)
+        path, store_path = cuda.result(), store.result()
     build.library()
+    native.load_mapstore_lib()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_seconds}) -> {os.path.relpath(path)}", flush=True)
+          f"(nvcc {build.build_seconds}) -> {os.path.relpath(path)}; native track store "
+          f"(g++ {native.build_seconds}) -> {os.path.relpath(store_path)}", flush=True)
 
 
 def _match_inputs(torch, rng, dev, N1, N2, D=128, prefilter=300.0):
@@ -996,27 +1035,34 @@ def cg_vs_dense_phase(torch, dev):
     return dict(build.launches)
 
 
-def pipeline_phase(torch, dev, scene, feats):
-    """run_pipeline in sequential mode over the survey's scene and features,
-    with benchmarks/pipeline_scale.py's vocabulary tree and options; held
-    to the JAX package's registered count and 2x its ATE on the CPU, and
-    required to close loops and to launch batched K1."""
+def pipeline_tree(feats, dev):
+    """benchmarks/pipeline_scale.py's vocabulary tree of the survey: 8000
+    rows of every 10th image's descriptors (default_rng(0) permutation),
+    branching 8, depth 2, 3 iterations, trained on `dev`."""
     import numpy as np
     from mavmap_tpu_torch.loop import train_voc_tree
-    from mavmap_tpu_torch.ops.cuda import build
-    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
-    from mavmap_tpu_torch.utils.synthetic import mapper_ate, mapper_ate_profile
 
-    _phase("pipeline")
     t0 = time.perf_counter()
     desc = np.concatenate([d for _, d in feats[::10]])
     tree = train_voc_tree(desc[np.random.default_rng(0).permutation(len(desc))[:8000]],
                           branching=8, depth=2, iters=3, device=dev)
     print(f"pipeline: vocabulary tree of {tree.num_words} words trained in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    opts = PipelineOptions(verbose=False, tri_min_angle=1.0, init_tri_min_angle=4.0,
-                           min_track_len=2, loop_detection_period=20, final_closure_sweeps=1,
-                           final_closure_step=2, chain_len=4, ba_local_max_iters=15)
+    return tree
+
+
+def pipeline_phase(torch, dev, scene, feats):
+    """run_pipeline in sequential mode over the survey's scene and features,
+    with benchmarks/pipeline_scale.py's vocabulary tree and options; held
+    to the JAX package's registered count and 2x its ATE on the CPU, and
+    required to close loops and to launch batched K1."""
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate, mapper_ate_profile
+
+    _phase("pipeline")
+    tree = pipeline_tree(feats, dev)
+    opts = PipelineOptions(**PIPELINE_OPTS)
     torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     _sync(torch, dev)
@@ -1059,6 +1105,149 @@ def pipeline_phase(torch, dev, scene, feats):
     lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
     _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
     return dict(launches, match_batched_slots=slots["match_batched"])
+
+
+# ------------------------------------------------------------------ submaps
+
+
+def blackout(feats, frames):
+    """`feats` with the descriptors of `frames` (in that order) replaced by
+    unit rows of rng.normal, rng = default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    feats = list(feats)
+    for i in frames:
+        d = rng.normal(size=feats[i][1].shape).astype(np.float32)
+        feats[i] = (feats[i][0], d / np.linalg.norm(d, axis=1, keepdims=True))
+    return feats
+
+
+def submap_scenes(synthetic):
+    """The submaps phase's two inputs, from `synthetic` (this package's
+    utils.synthetic, or the JAX package's in the yardstick): {run: (scene,
+    features (capacity 1024), descriptor rows for the vocabulary tree or
+    None)}."""
+    import numpy as np
+
+    scene = synthetic.make_uav_scene(num_images=NUM_IMAGES, num_points=4000, relief=10.0,
+                                     rows=2, seed=11)
+    feats, _ = synthetic.render_features(scene, pixel_noise=0.3, clutter=64, seed=11)
+    out = {"restart": (scene, blackout([(k[:1024], d[:1024]) for k, d in feats],
+                                       RESTART_FRAMES), None)}
+    scene = synthetic.make_uav_scene(num_images=SEGMENT_IMAGES, num_points=120 * SEGMENT_IMAGES,
+                                     relief=10.0, rows=2, extent=None, seed=13)
+    feats, _ = synthetic.render_features(scene, pixel_noise=0.3, clutter=64, seed=13)
+    feats = [(k[:1024], d[:1024]) for k, d in feats]
+    desc = np.concatenate([d for _, d in feats[::5]])
+    out["segments"] = (scene, feats, desc[np.random.default_rng(0).permutation(len(desc))[:8000]])
+    return out
+
+
+def submaps_phase(torch, dev):
+    """run_pipeline over two runs that end in sub-maps (see the module
+    docstring, 11): each must end in one merged map with at least the JAX
+    package's registered count and under 2x its ATE, a "merge" stage, K2
+    and K3 launched, on the native track store; the segments run must also
+    launch batched K1 inside SequentialMapper.merge (its cross-loop
+    closures) and end the closures with more common images than before."""
+    from mavmap_tpu_torch.loop import train_voc_tree
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm import SequentialMapper
+    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
+    from mavmap_tpu_torch.utils import synthetic
+
+    _phase("submaps")
+    in_merge = {}
+    merge = SequentialMapper.merge
+
+    def counted_merge(self, other, **kw):
+        before = build.launches["match_batched"], build.slots["match_batched"]
+        try:
+            return merge(self, other, **kw)
+        finally:
+            in_merge["match_batched"] = (in_merge.get("match_batched", 0)
+                                         + build.launches["match_batched"] - before[0])
+            in_merge["slots"] = in_merge.get("slots", 0) + build.slots["match_batched"] - before[1]
+
+    total = {}
+    SequentialMapper.merge = counted_merge
+    try:
+        for name, (scene, feats, tree_rows) in submap_scenes(synthetic).items():
+            tree = None
+            if tree_rows is not None:
+                t0 = time.perf_counter()
+                tree = train_voc_tree(tree_rows, branching=8, depth=2, iters=3, device=dev)
+                print(f"submaps {name}: vocabulary tree of {tree.num_words} words trained in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+            in_merge.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            build.reset_launches()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            opts = RESTART_OPTS if name == "restart" else SEGMENT_OPTS
+            res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
+                               _provider(feats), PipelineOptions(**opts), voc_tree=tree,
+                               device=dev)
+            _sync(torch, dev)
+            wall = time.perf_counter() - t0
+            launches, slots = dict(build.launches), dict(build.slots)
+            for k, v in dict(launches, match_batched_slots=slots["match_batched"]).items():
+                total[k] = total.get(k, 0) + v
+            _check_submaps(torch, dev, name, res, scene, wall, launches, slots, dict(in_merge))
+    finally:
+        SequentialMapper.merge = merge
+    return total
+
+
+def _check_submaps(torch, dev, name, res, scene, wall, launches, slots, in_merge):
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate
+
+    m = res.main_mapper
+    n = len(scene.image_cameras)
+    ref = JAX_CPU_SUBMAPS[name]
+    ate = float(mapper_ate(m, scene))
+    rep = m.report()
+    peak = torch.cuda.max_memory_allocated(dev)
+    single = launches["match"] - launches["match_batched"]
+    slot_ms = 1000 * rep.get("batch_register_s", 0.0) / max(rep.get("batch_register_slots", 0), 1)
+    print(f"submaps {name}: registered {m.num_proc_images}/{n} in {len(res.mappers)} map(s) in "
+          f"{wall:.3f} s = {n / wall:.3f} frames/s; ATE {ate!r} m (limit {2 * ref['ate_m']} m, "
+          f"the JAX package's {ref['ate_m']} m); {m.store.num_points3D} 3-D points; "
+          f"store {rep['store_backend']}", flush=True)
+    print(f"submaps {name} timings_s " + json.dumps({k: round(v, 4)
+                                                     for k, v in res.timings.items()}), flush=True)
+    print(f"submaps {name} counters " + json.dumps(rep), flush=True)
+    print(f"submaps {name}: {rep.get('merges', 0)} merge(s), common images "
+          f"{rep.get('merge_common_before', 0)} before the cross-loop closures, "
+          f"{rep.get('merge_common_after', 0)} after ({rep.get('merge_closures', 0)} closures); "
+          f"K1 {single} single, {launches['match_batched']} batched with "
+          f"{slots['match_batched']} slots ({in_merge.get('match_batched', 0)} batched launches "
+          f"with {in_merge.get('slots', 0)} slots inside merge); K2 "
+          f"{launches['seg_accum_full']}, K3 {launches['seg_accum_sorted']} launches; batched "
+          f"registration {slot_ms:.2f} ms of host time per slot over "
+          f"{rep.get('batch_register_slots', 0)} slots; peak device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    _check_map(m, n, ref["registered"], ate, 2 * ref["ate_m"], f"submaps {name}")
+    if len(res.mappers) != 1 or rep.get("merges", 0) < 1:
+        raise AssertionError(f"submaps {name}: {len(res.mappers)} maps, "
+                             f"{rep.get('merges', 0)} merges")
+    if "merge" not in res.timings:
+        raise AssertionError(f"submaps {name}: no merge stage in {sorted(res.timings)}")
+    if rep["store_backend"] != "native":
+        raise AssertionError(f"submaps {name}: store {rep['store_backend']}, not native")
+    for k in ("seg_accum_full", "seg_accum_sorted"):
+        if launches[k] <= 0:
+            raise AssertionError(f"submaps {name}: {k} never launched")
+    if launches["match"] < n // 2:
+        raise AssertionError(f"submaps {name}: match kernel launched {launches['match']} times")
+    if name == "segments":
+        if in_merge.get("match_batched", 0) <= 0:
+            raise AssertionError("submaps segments: no batched K1 launch inside the merge")
+        if not rep.get("merge_common_after", 0) > rep.get("merge_common_before", 0):
+            raise AssertionError(f"submaps segments: common images "
+                                 f"{rep.get('merge_common_before', 0)} -> "
+                                 f"{rep.get('merge_common_after', 0)} over the closures")
 
 
 # ------------------------------------------------------------------ cli
@@ -1470,6 +1659,7 @@ def main():
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
     phases["pipeline"] = pipeline_phase(torch, dev, scene, feats)
     del scene, feats
+    phases["submaps"] = submaps_phase(torch, dev)
     phases["cli"], _ = cli_phase(torch, dev)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
     print(smi)

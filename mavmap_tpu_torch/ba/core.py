@@ -39,6 +39,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..models import camera as cam
+from ..ops.essential import solve_or_nan
 from ..ops.cuda.ba_accum import (
     SegPlan, make_plan, offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
 from ..ops.rotation import rotmat_from_rvec
@@ -950,7 +951,9 @@ def _pose_refine_loop(pose, points, uv, mask, kparams, model_code, scale, max_it
         wJ = w[:, None, None] * J
         H = torch.einsum("oki,okj->ij", wJ, J) + lam * eye
         g = torch.einsum("oki,ok->i", wJ, r)
-        new_p = p - torch.linalg.solve(H, g)
+        # NaN where H is singular, as XLA's solve gives: the step is then
+        # rejected (torch.linalg.solve raises there on the card).
+        new_p = p - solve_or_nan(H, g[:, None])[:, 0]
         new_cost = cost_of(residual(new_p))
         accept = new_cost < cost
         p = torch.where(accept, new_p, p)

@@ -6,9 +6,11 @@ codes, plus --device (default: the CUDA card; --device cpu runs on the
 CPU). Input: a path holding `imagedata.txt` plus images (8-bit PNG or
 binary PGM, read without Pillow by utils/imageio.py) for the detector, or
 cached feature .npz files; output: estimated poses, point clouds and
-VRML/PLY models. Options the port does not carry (--parallel-segments > 1,
---mesh != 1, --pipeline-chains, --matcher-backend other than auto) are
-refused by run_pipeline's NotImplementedError, and the CLI exits with 1.
+VRML/PLY models; sub-maps are merged into one unless --no-merge, and
+--parallel-segments N maps N overlapping segments before that merge.
+Options the port does not carry (--mesh != 1, --pipeline-chains,
+--matcher-backend other than auto) are refused by run_pipeline's
+NotImplementedError, and the CLI exits with 1.
 
 Usage:
     python -m mavmap_tpu_torch.cli --input-path DATA/ --output-path OUT/ \
@@ -145,11 +147,10 @@ def build_parser():
                         "(headline-bench win; off by default in the full "
                         "pipeline, see PipelineOptions.pipeline_chains)")
     p.add_argument("--parallel-segments", type=int, default=1,
-                   help="map N overlapping sequence segments with "
-                        "interleaved device dispatch (their pull "
-                        "round-trips and host commits overlap each "
-                        "other's device work), then merge the sub-maps; "
-                        "1 = strictly sequential like the reference")
+                   help="map N overlapping sequence segments, one mapper "
+                        "each, their chains dispatched in turn, then merge "
+                        "the sub-maps; 1 = strictly sequential like the "
+                        "reference")
     p.add_argument("--segment-overlap", type=int, default=4,
                    help="frames shared between adjacent parallel segments "
                         "(anchors the merge alignment)")

@@ -32,6 +32,8 @@ def _grow(arr, new_rows):
 
 
 class MapStore:
+    backend = "python"
+
     def __init__(self, max_cam_params=9):
         self.max_cam_params = max_cam_params
 
@@ -126,9 +128,6 @@ class MapStore:
             self._b_p3d = grow(self._b_p3d, np.int64, fill=-1)
             self._p2d_cap = new_cap
 
-    def sync(self):
-        """No-op on the Python backend (native backend refreshes mirrors)."""
-
     # ------------------------------------------------------------------ ids
 
     @property
@@ -216,7 +215,10 @@ class MapStore:
         for k in ("point3D_xyz", "point3D_valid", "point3D_tri", "point3D_error",
                   "point3D_fixed", "point3D_track_len"):
             getattr(self, k)[:] = arrays[k]
-        self.tracks = {int(pid): [int(x) for x in tr] for pid, tr in tracks.items()}
+        self._load_tracks({int(pid): [int(x) for x in tr] for pid, tr in tracks.items()})
+
+    def _load_tracks(self, tracks):
+        self.tracks = tracks
 
     def point2D_ids_of_image(self, image_id):
         start, n = self.image_point2D_start[image_id]

@@ -167,12 +167,12 @@ def _polish_xyz(eq, x, y, z, num_iters=3, damping=1e-10):
         J = eqb @ _monomials3_jac(x, y, z)                 # (T, R, 10, 3)
         JtJ = J.transpose(-1, -2) @ J + damping * eye
         JtF = J.transpose(-1, -2) @ F
-        delta = _solve_or_nan(JtJ, JtF)[..., 0]
+        delta = solve_or_nan(JtJ, JtF)[..., 0]
         x, y, z = x - delta[..., 0], y - delta[..., 1], z - delta[..., 2]
     return x, y, z
 
 
-def _solve_or_nan(A, B):
+def solve_or_nan(A, B):
     """Batched solve; NaN where A is singular (XLA's behavior — linalg.solve
     would raise)."""
     X, info = torch.linalg.solve_ex(A, B)
@@ -222,7 +222,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60):
     eq = _build_constraints(C)              # (T, 10, 20)
     A1 = eq[:, :, _HIGH_IDX]
     A2 = eq[:, :, _LOW_IDX]
-    X = _solve_or_nan(A1, A2)               # high_i + X[i] . low = 0
+    X = solve_or_nan(A1, A2)               # high_i + X[i] . low = 0
 
     def row_polys(i):
         r = X[:, i]

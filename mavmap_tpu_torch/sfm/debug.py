@@ -94,7 +94,6 @@ class DebugDumper:
     def dump_track_lengths(self, nproc, image_idx, prev_image_idx, store, image_id):
         """`-track-length.log`: one line per observed 3-D point of the
         current image (reference sequential_mapper.cc:817-844)."""
-        store.sync()
         p3d = store.point2D_point3D[store.point2D_ids_of_image(image_id)]
         with open(self._file(nproc, image_idx, prev_image_idx, "track-length.log"), "w") as f:
             for pid in p3d:
@@ -109,7 +108,6 @@ class DebugDumper:
         """`-scene.wrl`: the current image's triangulated points, red for
         track length 2 (new), green above min_track_len (used for pose),
         blue otherwise (reference sequential_mapper.cc:846-911)."""
-        store.sync()
         p3d = store.point2D_point3D[store.point2D_ids_of_image(image_id)]
         pts, cols = [], []
         for pid in p3d:

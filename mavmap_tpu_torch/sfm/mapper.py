@@ -19,7 +19,10 @@ scalars:
   batch_register_pairs and batch_detect_closures: many pairs registered in
   one batched step (one batched K1 launch), committed in order with the
   same gates; the loop-closure pre-gates count matches of many pairs in
-  batched K1 launches.
+  batched K1 launches;
+  merge: another mapper's map joined into this one through cross-loop
+  closures (batched, as in detect_loop) and a similarity alignment
+  (sequential_mapper.cc:1218-1481).
 
 Bundle adjustment runs on the same device, synchronously or on the JAX
 package's deferred/asynchronous schedule (adjust_bundle(async_=,
@@ -33,7 +36,7 @@ reference (camera_models.cc:47-52). IMU rotation priors enter adjust_bundle
 and adjust_global_bundle (rot_priors, with the model first rotated into the
 priors' frame); with `debug` and a DebugDumper in `debug_dumper`, the steps
 write the reference's debug dumps (sfm/debug.py). Not in this package yet:
-merge and the multi-device global BA.
+the multi-device global BA.
 """
 
 import time as _time
@@ -45,7 +48,7 @@ import torch
 
 from ..ba import (BA_POSE_FIXED, BA_POSE_FIXED_X, BAOptions, build_problem, bundle_adjust,
                   bundle_adjust_async)
-from ..fm import MapStore
+from ..fm.native_map_store import create_map_store
 from ..interop import features_to_device
 from ..models import camera as cam
 from ..ops.matching import match_features_batched
@@ -77,14 +80,16 @@ class _LRUCache(OrderedDict):
 
 class SequentialMapper:
     def __init__(self, image_cameras, cam_models, cam_params, feature_provider,
-                 device, seed=0, cache_capacity=128, loop_detector=None):
+                 device, seed=0, cache_capacity=128, loop_detector=None, store_backend="auto"):
         """image_cameras: (num_images,) camera index per dataset image;
         cam_models/cam_params: per-camera model codes and padded params;
         feature_provider: FeatureProvider with fixed capacity; device: the
         torch device every step runs on; seed: RANSAC generator seed;
         cache_capacity: max images kept in the feature caches;
         loop_detector: a loop.LoopDetector every committed image is added
-        to (None: no loop closure)."""
+        to (None: no loop closure); store_backend: 'native' or 'auto' (the
+        C++ track store, fm/native_map_store.py; its build raises where it
+        fails) or 'python' (fm/map_store.py)."""
         self.device = torch.device(device)
         self.loop_detector = loop_detector
         self.image_cameras = np.asarray(image_cameras, np.int32)
@@ -92,7 +97,7 @@ class SequentialMapper:
         # Own copy: self-calibration adopts refined intrinsics in place.
         self.cam_params = np.array(cam_params, np.float32)
         self.provider = feature_provider
-        self.store = MapStore()
+        self.store = create_map_store(store_backend)
         self._store_cam_ids = {}
         self.image_idx_to_id = {}
         self.image_id_to_idx = {}
@@ -130,9 +135,11 @@ class SequentialMapper:
         self.counters[name] = self.counters.get(name, 0.0) + float(seconds)
 
     def report(self):
-        """The counters, with accumulated seconds rounded to 10 ms."""
-        return {k: round(v, 2) if isinstance(v, float) else v
-                for k, v in self.counters.items()}
+        """The counters, with accumulated seconds rounded to 10 ms, and the
+        map store's backend ('native' or 'python')."""
+        rep = {k: round(v, 2) if isinstance(v, float) else v for k, v in self.counters.items()}
+        rep["store_backend"] = self.store.backend
+        return rep
 
     # ------------------------------------------------------------- helpers
 
@@ -226,7 +233,6 @@ class SequentialMapper:
         prev_id = self.image_idx_to_id[prev_image_idx]
         prev_p2d = self.store.point2D_ids_of_image(prev_id)
         F = self.provider.capacity
-        self.store.sync()
         p3d = self.store.point2D_point3D[prev_p2d]
         pids = np.maximum(p3d, 0)
         linked = (p3d >= 0) & self.store.point3D_valid[pids]
@@ -485,7 +491,6 @@ class SequentialMapper:
             new_rows = rows[new]
             pids = self.store.add_correspondences_bulk(prev_p2d[new_rows],
                                                        curr_p2d[jrows[new]])
-            self.store.sync()
             fresh = self.store.point3D_valid[pids] & ~self.store.point3D_tri[pids]
             for k in np.where(fresh)[0]:
                 self.store.set_point3D(pids[k], r.new_points3D[new_rows[k]])
@@ -884,6 +889,139 @@ class SequentialMapper:
                     print(f"Closed loop #{q} -> #{c}")
         self._count("sweep_closures", n)
         return n
+
+    # ----------------------------------------------------------------- merge
+
+    def merge(self, other, num_similar_images=15, num_skip_images=5, options=None,
+              verbose=False):
+        """Merge `other` into this mapper through cross-sequence loop
+        closures and a similarity alignment (reference
+        sequential_mapper.cc:1218-1481). Both mappers share the feature
+        provider. Returns True on success; on failure this mapper keeps the
+        closures it committed but nothing of `other`.
+
+        Counters: merge_common_before / merge_common_after (images
+        registered in both maps before the closures, and when the alignment
+        is solved), merge_closures, merges."""
+        from ..ops.similarity import solve_umeyama, transform_points, transform_pose
+
+        options = options or SequentialMapperOptions()
+        self.flush_ba()
+        other.flush_ba()
+        before_common = [idx for idx in other.image_idx_to_id if self.is_image_processed(idx)]
+
+        # Close cross-loops on every num_skip_images-th image of `other`: all
+        # candidates of one query in one batched registration step (the
+        # reference runs a full process() per candidate).
+        other_idxs = sorted(other.image_idx_to_id.keys())
+        closures = 0
+        for k, idx in enumerate(other_idxs):
+            if num_skip_images and k % num_skip_images != 0:
+                continue
+            sim_idxs, _ = self.find_similar_images(idx, num_similar_images)
+            cands = [int(c) for c in sim_idxs
+                     if int(c) != idx and not self.is_pair_processed(idx, int(c))
+                     and self.is_image_processed(int(c))]
+            if not cands:
+                continue
+            results = self._batch_register_candidates(idx, cands, options)
+            for cand, (r, prev_p2d, has_tri, tri_nt) in zip(cands, results):
+                if self._register_gates(idx, r, options, cand):
+                    closures += bool(self._register_commit(idx, cand, r, options, prev_p2d,
+                                                           has_tri, tri_nt))
+
+        # Images processed in both mappers anchor the alignment.
+        common = [idx for idx in other.image_idx_to_id if self.is_image_processed(idx)]
+        if len(common) < 3:
+            # Fallback (beyond reference sequential_mapper.cc:1311-1315, which
+            # fails here): register frames that `other` processed next to
+            # this map's frames directly into this map, as the back-fill
+            # does, so that they become common anchors. It covers runs
+            # without loop detection and segments whose overlap a sub-map
+            # restart ate.
+            mine = sorted(self.image_idx_to_id.keys())
+            cand_pairs = []
+            for idx in other_idxs:
+                if self.is_image_processed(idx):
+                    continue
+                below = [p for p in mine if p < idx]
+                above = [p for p in mine if p > idx]
+                if below:
+                    cand_pairs.append((abs(idx - below[-1]), idx, below[-1]))
+                if above:
+                    cand_pairs.append((abs(idx - above[0]), idx, above[0]))
+            cand_pairs.sort()
+            pairs = [(c, p) for _, c, p in cand_pairs[:16]]
+            if pairs:
+                self.batch_register_pairs(pairs, options)
+                common = [idx for idx in other.image_idx_to_id if self.is_image_processed(idx)]
+                if verbose and len(common) >= 3:
+                    print(f"Merge overlap widened to {len(common)} common images via "
+                          f"adjacency registration")
+        self._count("merge_closures", closures)
+        if len(common) < 3:
+            return False
+
+        # The similarity other -> this from the common camera centres, in
+        # float32 on the host as the JAX version solves it.
+        def centers(mapper, idxs):
+            ids = [mapper.image_idx_to_id[i] for i in idxs]
+            R = rotmat_from_rvec(torch.as_tensor(mapper.store.image_rvecs[ids],
+                                                 dtype=torch.float32)).numpy()
+            return -np.einsum("nij,nj->ni", R.transpose(0, 2, 1), mapper.store.image_tvecs[ids])
+
+        T = solve_umeyama(torch.as_tensor(centers(other, common), dtype=torch.float32),
+                          torch.as_tensor(centers(self, common), dtype=torch.float32))
+
+        # Clone other's images with transformed poses.
+        for idx in other_idxs:
+            if self.is_image_processed(idx):
+                continue
+            rv, tv = other.store.get_pose(other.image_idx_to_id[idx])
+            nrv, ntv = transform_pose(T, torch.as_tensor(rv, dtype=torch.float32),
+                                      torch.as_tensor(tv, dtype=torch.float32))
+            self.store.set_pose(self._add_image_to_store(idx), nrv.numpy(), ntv.numpy())
+
+        # Clone other's tracks, with transformed points, in one bulk call: a
+        # point2D id translation table (other's store rows -> this store's;
+        # the shared provider makes row r of an image the same keypoint in
+        # both), then every track's chain of consecutive pairs. Tracks go in
+        # other.store.tracks order (pid order on both backends).
+        xyz_all = transform_points(T, torch.as_tensor(other.store.point3D_xyz,
+                                                      dtype=torch.float32)).numpy()
+        trans = np.full(other.store.num_points2D, -1, np.int64)
+        for idx in other_idxs:
+            trans[other.store.point2D_ids_of_image(other.image_idx_to_id[idx])] = \
+                self.store.point2D_ids_of_image(self.image_idx_to_id[idx])
+        pairs_a, pairs_b, track_pids = [], [], []
+        for pid, track in other.store.tracks.items():
+            if not other.store.point3D_valid[pid] or len(track) < 2:
+                continue
+            arr = trans[np.asarray(track, np.int64)]
+            pairs_a.append(arr[:-1])
+            pairs_b.append(arr[1:])
+            track_pids.append(pid)
+        if pairs_a:
+            new_pids = self.store.add_correspondences_bulk(np.concatenate(pairs_a),
+                                                           np.concatenate(pairs_b))
+            # The surviving pid of each cloned track is its last pair's.
+            last = np.cumsum([len(x) for x in pairs_a]) - 1
+            for pid, k in zip(track_pids, last):
+                if not other.store.point3D_tri[pid]:
+                    continue
+                new_pid = int(new_pids[k])
+                valid, tri = self.store.point3D_status(new_pid)
+                if valid and not tri:
+                    self.store.set_point3D(new_pid, xyz_all[pid])
+
+        self.pair_graph |= other.pair_graph
+        self._count("merges")
+        self._count("merge_common_before", len(before_common))
+        self._count("merge_common_after", len(common))
+        if verbose:
+            print(f"Merged mappers with {len(common)} common images "
+                  f"({len(before_common)} before closure)")
+        return True
 
     # ------------------------------------------------------ bundle adjustment
 

@@ -214,7 +214,6 @@ def write_tracks(mapper, path, image_idx, image_reader, max_num_points=50, radiu
     Image, ImageDraw = _pillow("write_tracks")
     os.makedirs(path, exist_ok=True)
     store = mapper.store
-    store.sync()
     p2d_ids = store.point2D_ids_of_image(mapper.image_idx_to_id[image_idx])
     # (pid, track_len, obs) grouped by source image, so each frame is
     # decoded once.

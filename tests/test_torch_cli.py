@@ -13,6 +13,7 @@ JAX package's.
   - the CLI from rendered PNG images (detector, cache, mapper, writers);
   - the debug dumps' names and formats, as tests/test_pipeline.py checks
     the JAX package's;
+  - --parallel-segments 2 writes its outputs from one merged map;
   - the CLI refuses to run on the CPU unless --device cpu is given, and
     refuses the options the port does not carry.
 """
@@ -258,8 +259,22 @@ def test_cli_refuses_the_cpu_unless_asked(cli_runs, monkeypatch, capsys):
     assert not (tmp / "refused").exists()
 
 
-@pytest.mark.parametrize("flags,item", [(["--parallel-segments", "2"], "item 7"),
-                                        (["--mesh", "2"], "item 8"),
+def test_cli_parallel_segments_writes_one_map(cli_runs):
+    """--parallel-segments 2 maps two overlapping segments and merges them:
+    the outputs come from one map of every image."""
+    tmp = cli_runs[0]
+    out = tmp / "segments"
+    run = tcli.run(["--input-path", str(tmp / "data"), "--output-path", str(out),
+                    "--cache-path", str(tmp / "tcache"), "--device", "cpu",
+                    "--parallel-segments", "2", "--segment-overlap", "3"] + FLAGS)
+    assert run.rc == 0
+    assert len(run.result.mappers) == 1
+    assert "merge" in run.result.timings
+    assert [r[0] for r in _rows(out / "imagedataout.txt")] == [f"img{i}" for i in range(N)]
+    assert len(_rows(out / "points3D.txt")) > 100
+
+
+@pytest.mark.parametrize("flags,item", [(["--mesh", "2"], "item 8"),
                                         (["--pipeline-chains"], "do-not-port"),
                                         (["--matcher-backend", "xla"], "K1")])
 def test_cli_refuses_unported_options(cli_runs, capsys, flags, item):

@@ -18,7 +18,11 @@ K1 with a slot axis gives every slot the bits of the single-pair launch on
 that slot's pair; register_view_batch gives every slot the bits of
 register_view on the same pair with the same RANSAC draws; the vocabulary
 tree quantizes as on the CPU except at near-ties (two centers within 1e-5
-relative).
+relative). The pose LM rejects a non-finite step on the card as on the
+CPU. tests/test_torch_merge.py's restart-and-merge run repeats bit
+for bit on the card, runs with index_add_ and accumulating index_put_
+refused on CUDA tensors, and registers the same frames on the Python track
+store as on the native one.
 """
 
 import numpy as np
@@ -590,3 +594,116 @@ def test_detector_on_the_card_matches_cpu(dev):
     assert float((kg - kc).abs()[mc].max()) < 0.05
     cos = (dg * dc).sum(dim=1)[mc]
     assert float((cos > 0.999).float().mean()) >= 0.98
+
+
+def _restart_and_merge(dev, **mapper_kw):
+    """tests/test_torch_merge.py's restart-and-merge run on `dev`: 8 frames
+    of the 16-image survey (capacity 512, 128 RANSAC trials), frames 4-5
+    with unrelated descriptors, one failed frame restarts a sub-map and the
+    post-pass merges the two. mapper_kw goes to every SequentialMapper
+    (store_backend). Returns (result, scene)."""
+    from mavmap_tpu_torch.features import ArrayFeatureProvider
+    from mavmap_tpu_torch.sfm import pipeline
+
+    scene = make_uav_scene(num_images=16, num_points=2400, relief=10.0, rows=2, extent=None,
+                           seed=13)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=20, seed=13)
+    feats = [(k[:512], d[:512]) for k, d in feats[:8]]
+    rng = np.random.default_rng(0)
+    for i in (4, 5):
+        d = rng.normal(size=feats[i][1].shape).astype(np.float32)
+        feats[i] = (feats[i][0], d / np.linalg.norm(d, axis=1, keepdims=True))
+    opts = pipeline.PipelineOptions(
+        verbose=False, tri_min_angle=1.0, init_tri_min_angle=4.0, min_track_len=2,
+        chain_len=4, ba_local_max_iters=8, essential_ransac_trials=128, p3p_ransac_trials=128,
+        loop_detection=False, max_subsequent_trials=1, final_closure_sweeps=0)
+    mapper_cls = pipeline.SequentialMapper
+
+    class Mapper(mapper_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, **mapper_kw))
+
+    pipeline.SequentialMapper = Mapper
+    try:
+        res = pipeline.run_pipeline(scene.image_cameras[:8], scene.cam_models, scene.cam_params,
+                                    ArrayFeatureProvider(feats, capacity=512), opts, device=dev)
+    finally:
+        pipeline.SequentialMapper = mapper_cls
+    return res, scene
+
+
+def _merged_state(res, scene):
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate
+
+    m = res.main_mapper
+    s = m.store
+    return {"frames": sorted(m.image_idx_to_id), "rvecs": s.image_rvecs.copy(),
+            "tvecs": s.image_tvecs.copy(), "points": s.point3D_xyz[s.point3D_valid].copy(),
+            "ate": float(mapper_ate(m, scene))}
+
+
+def test_restart_and_merge_is_bitwise_repeatable(dev):
+    """The restart-and-merge run twice in one process on the card: one map
+    each time, with equal poses, points and ATE, bit for bit."""
+    runs = []
+    for _ in range(2):
+        res, scene = _restart_and_merge(dev)
+        assert len(res.mappers) == 1 and "merge" in res.timings
+        assert res.main_mapper.report()["store_backend"] == "native"
+        runs.append(_merged_state(res, scene))
+    a, b = runs
+    assert a["frames"] == b["frames"] and len(a["frames"]) >= 6
+    for k in ("rvecs", "tvecs", "points"):
+        assert np.array_equal(a[k], b[k]), k
+    assert a["ate"] == b["ate"] < 0.05
+
+
+def test_restart_and_merge_sums_in_fixed_order(dev, monkeypatch):
+    """The same run with Tensor.index_add_ raising on a CUDA tensor, and
+    Tensor.index_put_ raising there with accumulate=True: no sum on the
+    merge path leaves its fixed order (the K2/K3 plain versions use
+    index_add_ only on CPU tensors)."""
+    index_add, index_put = torch.Tensor.index_add_, torch.Tensor.index_put_
+
+    def no_index_add(self, *a, **kw):
+        if self.is_cuda:
+            raise AssertionError("index_add_ on a CUDA tensor")
+        return index_add(self, *a, **kw)
+
+    def no_accumulate(self, indices, values, accumulate=False):
+        if self.is_cuda and accumulate:
+            raise AssertionError("index_put_(accumulate=True) on a CUDA tensor")
+        return index_put(self, indices, values, accumulate)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", no_index_add)
+    monkeypatch.setattr(torch.Tensor, "index_put_", no_accumulate)
+    res, _ = _restart_and_merge(dev)
+    assert len(res.mappers) == 1 and res.main_mapper.report()["merges"] == 1
+
+
+def test_restart_and_merge_on_the_python_store(dev):
+    """The same run on the Python track store registers the same frames
+    as on the native one and ends in one map."""
+    native, scene = _restart_and_merge(dev)
+    python, _ = _restart_and_merge(dev, store_backend="python")
+    assert python.main_mapper.report()["store_backend"] == "python"
+    assert len(python.mappers) == len(native.mappers) == 1
+    assert _merged_state(python, scene)["frames"] == _merged_state(native, scene)["frames"]
+
+
+def test_pose_refinement_rejects_non_finite_steps(dev, rng):
+    """A 3-D point at NaN makes the pose LM's normal equations non-finite.
+    Their solve gives NaN (as XLA's does; torch.linalg.solve may raise
+    there on the card), every step is rejected, and the pose comes back as
+    it went in, on the card as on the CPU."""
+    from mavmap_tpu_torch.ba.core import pose_refinement
+
+    X = (rng.normal(size=(64, 3)) * [3, 3, 1] + [0, 0, 10]).astype(np.float32)
+    X[7] = np.nan
+    uv = (X[:, :2] / X[:, 2:] * 700.0 + [400.0, 300.0]).astype(np.float32)
+    K = np.array([700.0, 700.0, 400.0, 300.0, 0, 0, 0, 0, 0], np.float32)
+    r0, t0 = np.array([0.01, 0.0, 0.02], np.float32), np.array([0.1, 0.0, 0.0], np.float32)
+    for d in (torch.device("cpu"), dev):
+        r, t, cost = pose_refinement(r0, t0, X, uv, np.ones(64, bool), K, 1, d)
+        assert np.array_equal(r.cpu().numpy(), r0) and np.array_equal(t.cpu().numpy(), t0)
+        assert not bool(torch.isfinite(cost))

@@ -15,6 +15,8 @@ leaves no doubt:
   - process_remaining_images over a map of every other frame: the same
     frames filled;
   - every option the port does not carry raises NotImplementedError.
+Sub-map merging and segment-parallel mapping are held in
+tests/test_torch_merge.py and tests/test_torch_segments.py.
 """
 
 import numpy as np
@@ -163,7 +165,6 @@ def test_process_remaining_images_fills_same_frames(survey):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("parallel_segments", 2, "item 7"),
     ("mesh_devices", 0, "item 8"),
     ("mesh_devices", 2, "item 8"),
     ("pipeline_chains", True, "do-not-port"),
@@ -178,27 +179,6 @@ def test_unported_options_raise(option, value, item):
         tpipe.run_pipeline(np.zeros(4, np.int32), np.ones(1, np.int32),
                            np.zeros((1, 9), np.float32), None,
                            tpipe.PipelineOptions(**{option: value}), device=CPU)
-
-
-def test_merge_of_submaps_raises(survey):
-    """A run that ends in two sub-maps raises where the JAX pipeline would
-    merge them (merge=True); with merge=False both sub-maps come back. Frames
-    4-5 carry unrelated descriptors and the loop detection is off, so the
-    map restarts after one failed frame (max_subsequent_trials=1)."""
-    (ts, _, _), _ = survey
-    feats = _feats(render_features, ts)[:8]
-    rng = np.random.default_rng(0)
-    for i in (4, 5):
-        d = rng.normal(size=feats[i][1].shape).astype(np.float32)
-        feats[i] = (feats[i][0], d / np.linalg.norm(d, axis=1, keepdims=True))
-    prov = ArrayFeatureProvider(feats, capacity=CAP)
-    kw = dict(OPTS, loop_detection=False, max_subsequent_trials=1, final_closure_sweeps=0)
-    args = (ts.image_cameras[:8], ts.cam_models, ts.cam_params, prov)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpipe.run_pipeline(*args, tpipe.PipelineOptions(**kw), device=CPU)
-    res = tpipe.run_pipeline(*args, tpipe.PipelineOptions(**dict(kw, merge=False)), device=CPU)
-    assert len(res.mappers) == 2
-    assert sum(m.num_proc_images for m in res.mappers) >= 5
 
 
 def test_run_pipeline_needs_a_card_by_default():
