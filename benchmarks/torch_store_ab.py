@@ -112,7 +112,7 @@ def main(backends):
         raise RuntimeError("torch_store_ab.py runs on a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    scene, feats = chip_smoke._survey_scene()
+    scene, feats, _ = chip_smoke._survey_scene()
     tree = chip_smoke.pipeline_tree(feats, dev)
     outs, states = [], []
     for backend in backends:

@@ -42,14 +42,22 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     against their plain versions and timed as in phase 4;
  9. CG against dense: one ~40-camera problem solved by both solvers, with
     and without self-calibration, on the card;
-10. pipeline: run_pipeline in sequential mode over the survey's scene and
+10. batched geometry: one register_view_pairs step (the back-fill's and
+    the closure sweeps' batched step) on consecutive pairs of the survey
+    at B = 1, 8 and 32, with vmap's per-sample fallback disabled: host ms
+    per slot, the device's busy share over the step, peak device memory,
+    host syncs per step (CUDA's sync debug mode; they must not grow with B)
+    and K1 launches per step; then the 32-slot step slot by slot against
+    register_view with the same RANSAC draws (counts and masks equal, how
+    many slots give the same bits, the largest float differences);
+11. pipeline: run_pipeline in sequential mode over the survey's scene and
     features with a vocabulary tree, as benchmarks/pipeline_scale.py runs
     it: the batched initial-pair search, chains of 4 with a deferred window
     bundle adjustment each, loop detection every 20 frames and as the
     rescue, the back-fill, the global bundle adjustment and one closure
     sweep — checking the registered count and the ATE against the JAX
     package's on the CPU, that loops were closed and that batched K1 ran;
-11. submaps: run_pipeline over two runs that end in sub-maps and merge
+12. submaps: run_pipeline over two runs that end in sub-maps and merge
     them into one map on the native track store: "restart", bench.py's
     scene with frames 13-14 given unrelated descriptors, so that one failed
     frame starts a new sub-map (no loop detection); "segments", a 60-image
@@ -59,7 +67,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     one map, at least its registered count and under 2x its ATE; K1-K3
     launched, batched K1 inside the segments run's merge, and more common
     images after its cross-loop closures than before;
-12. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
+13. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
     pixels: a 40-image survey written as PNG files with imagedata.txt (IMU
     roll/pitch/yaw), a control-point file and a vocabulary tree trained on
     the port's own detections; run 1 detects on the card and maps with
@@ -68,14 +76,15 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     the JAX package's CLI on the same files (benchmarks/jax_cli_yardstick.py)
     and to absolute limits; then the detector's device and host time per
     frame at 800x600 and at one 4000x3000 frame;
-13. prints the kernels' JSON line, the card line, and last the result line.
+14. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping run (5-7, 9-11) and read
-just after it (11: the sum of its two runs; 12: the counts span both CLI
-runs). Imports
+counters are zeroed just before each mapping run (5-7, 9, 11-12) and read
+just after it (12: the sum of its two runs; 13: the counts span both CLI
+runs). The smoke's total seconds are printed last but two, against its
+1200 s limit. Imports
 nothing of JAX or of the JAX package.
 """
 
@@ -873,19 +882,21 @@ def check_ptblk_shapes(torch, dev, m, window_prob):
 
 def _survey_scene():
     """benchmarks/pipeline_scale.py's scene cut to SURVEY_IMAGES images in 4
-    rows, with its rendered features (capacity 1024)."""
+    rows, with its rendered features (capacity 1024) and each feature's
+    true point id (-1: clutter)."""
     import numpy as np
     from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
 
     t0 = time.perf_counter()
     scene = make_uav_scene(num_images=SURVEY_IMAGES, num_points=120 * SURVEY_IMAGES,
                            relief=10.0, rows=4, extent=None, seed=13)
-    feats, _ = render_features(scene, pixel_noise=0.3, clutter=32, seed=13)
+    feats, gt = render_features(scene, pixel_noise=0.3, clutter=32, seed=13)
     feats = [(k[:1024], d[:1024]) for k, d in feats]
+    gt = [g[:1024] for g in gt]
     print(f"survey scene: {SURVEY_IMAGES} images, {len(scene.points3D)} points, "
           f"{np.mean([len(k) for k, _ in feats]):.1f} features per image, rendered in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return scene, feats
+    return scene, feats, gt
 
 
 def survey_phase(torch, dev, scene, feats):
@@ -1033,6 +1044,155 @@ def cg_vs_dense_phase(torch, dev):
             raise AssertionError(f"cg vs dense (selfcal {selfcal}): poses differ by {dpose}, "
                                  f"costs by {dcost}")
     return dict(build.launches)
+
+
+# ------------------------------------------------------- batched geometry
+
+GEOMETRY_SLOTS = (1, 8, 32)
+
+
+def geometry_inputs(torch, dev, scene, feats, gt, B, first=0):
+    """register_view_pairs' inputs for B consecutive pairs (i + 1, i) of the
+    survey from image `first` on, at the mapper's options: features at
+    capacity 1024, each previous image's track state from the ground truth
+    (80 % of its true points triangulated, 90 % of those stable, 1 cm of
+    noise)."""
+    import numpy as np
+    from mavmap_tpu_torch.models import camera as cam
+
+    F = 1024
+    K = np.asarray(scene.cam_params[0], np.float32)
+    rng = np.random.default_rng(first)
+
+    def image(i):
+        kp, de = feats[i]
+        k, d, m = np.zeros((F, 2), np.float32), np.zeros((F, 128), np.float32), np.zeros(F, bool)
+        k[:len(kp)], d[:len(kp)], m[:len(kp)] = kp, de, True
+        return k, d, m, cam.image2normalized_np(k, 1, K).astype(np.float32)
+
+    def state(i):
+        ids = np.full(F, -1)
+        ids[:len(gt[i])] = gt[i]
+        has_tri = (ids >= 0) & (rng.random(F) < 0.8)
+        xyz = np.zeros((F, 3), np.float32)
+        xyz[has_tri] = scene.points3D[ids[has_tri]] + rng.normal(size=(has_tri.sum(), 3)) * 0.01
+        return (xyz, has_tri, has_tri & (rng.random(F) < 0.9),
+                np.asarray(scene.rvecs[i], np.float32), np.asarray(scene.tvecs[i], np.float32))
+
+    idx = [first + b for b in range(B)]
+    prevs = [image(i) for i in idx]
+    currs = [image(i + 1) for i in idx]
+    states = [state(i) for i in idx]
+
+    def stack(items, k):
+        return torch.as_tensor(np.stack([it[k] for it in items]), device=dev)
+
+    nt = 4.0 / float((K[0] + K[1]) / 2.0)
+    return ([stack(prevs, k) for k in range(4)] + [stack(currs, k) for k in range(4)]
+            + [stack(states, k) for k in range(5)]
+            + [torch.as_tensor(np.stack([K] * B), device=dev), [1] * B, 0.9, 1e9, [nt] * B])
+
+
+def device_busy(torch, fn):
+    """(device ms, window ms) of one call of fn under torch.profiler: the
+    CUDA activity summed over the window, and the window's host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) or
+                 getattr(e, "self_cuda_time_total", 0.0) for e in prof.key_averages())
+    return dev_us / 1000.0, 1000.0 * wall
+
+
+def batched_geometry_phase(torch, dev, scene, feats, gt):
+    """One register_view_pairs step (the back-fill's and the closure
+    sweeps' batched step) on the survey's features at B = 1, 8 and 32: host
+    ms per slot from the call to its outputs on the host (as the mapper's
+    batch_register_s counts it; median of 3 after a warm-up), the device's
+    busy share (torch.profiler's CUDA time over one call's window), peak
+    device memory, host syncs per step (CUDA's sync debug mode) and K1
+    launches per step, all with vmap's per-sample fallback disabled (an op
+    without a batching rule raises). Then slot by slot, the 32-slot step
+    against register_view on the same pairs with generators seeded alike:
+    how many slots give the same bits, and the largest float differences.
+    Fails unless every slot registers (P3P success, > 20 inliers) at every
+    B and the counts and masks agree slot by slot."""
+    import numpy as np
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm.kernels import register_view, register_view_pairs
+    from mavmap_tpu_torch.utils.timer import count_syncs
+
+    _phase("batched geometry")
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    records = []
+    try:
+        for B in GEOMETRY_SLOTS:
+            args = geometry_inputs(torch, dev, scene, feats, gt, B)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(B)
+
+            def step():
+                rows, scalars = register_view_pairs(gen, *args, p3p_trials=512)
+                return rows.cpu().numpy(), scalars.cpu().numpy()
+
+            step()  # warm-up
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows, scalars = step()
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            build.reset_launches()
+            syncs, _ = count_syncs(lambda: register_view_pairs(gen, *args, p3p_trials=512))
+            k1 = build.launches["match"]
+            peak = torch.cuda.max_memory_allocated(dev)
+            dev_ms, window_ms = device_busy(torch, step)
+            wall = statistics.median(walls)
+            rec = dict(B=B, host_ms_per_step=1000 * wall, host_ms_per_slot=1000 * wall / B,
+                       device_ms=dev_ms, window_ms=window_ms, busy=dev_ms / window_ms,
+                       peak_mib=peak / 2**20, syncs=syncs, k1_launches=k1,
+                       p3p_success=int(scalars[:, 5].sum()), min_inliers=int(scalars[:, 4].min()))
+            records.append(rec)
+            print("batched geometry " + json.dumps(rec), flush=True)
+            if rec["p3p_success"] != B or rec["min_inliers"] <= 20:
+                raise AssertionError(f"batched geometry: B={B} registered "
+                                     f"{rec['p3p_success']}/{B} slots, min inliers "
+                                     f"{rec['min_inliers']}")
+            if k1 != 1:
+                raise AssertionError(f"batched geometry: {k1} K1 launches in one step")
+
+        B = GEOMETRY_SLOTS[-1]
+        args = geometry_inputs(torch, dev, scene, feats, gt, B)
+        g1, g2 = torch.Generator(device=dev), torch.Generator(device=dev)
+        g1.manual_seed(7)
+        g2.manual_seed(7)
+        rows, scalars = register_view_pairs(g1, *args, p3p_trials=512)
+        same, pose_d, cost_r = 0, 0.0, 0.0
+        for b in range(B):
+            one = [a[b] for a in args[:14]] + [args[14][b], args[15], args[16], args[17][b]]
+            r, s = register_view(g2, *one, p3p_trials=512)
+            same += int(torch.equal(rows[b], r) and torch.equal(scalars[b], s))
+            if not (torch.equal(rows[b, :, :3], r[:, :3])
+                    and torch.equal(scalars[b, [0, 2, 3, 4, 5]], s[[0, 2, 3, 4, 5]])):
+                raise AssertionError(f"batched geometry: slot {b} of {B} counts or masks "
+                                     "differ from register_view's")
+            pose_d = max(pose_d, float((scalars[b, 7:13] - s[7:13]).abs().max()))
+            cost_r = max(cost_r, float((scalars[b, 6] - s[6]).abs() / s[6].abs()))
+        print(f"batched geometry: {same}/{B} slots of the {B}-slot step equal register_view "
+              f"bit for bit; counts and masks equal in all; largest pose difference "
+              f"{pose_d!r}, largest relative cost difference {cost_r!r}", flush=True)
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+    if records[-1]["syncs"] > records[0]["syncs"]:
+        raise AssertionError(f"batched geometry: {records[-1]['syncs']} host syncs per step "
+                             f"at B={records[-1]['B']} against {records[0]['syncs']} at B=1")
+    return records
 
 
 def pipeline_tree(feats, dev):
@@ -1632,9 +1792,14 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     return json.dumps({"kernels": rows})
 
 
+# The smoke's time limit on the card, the kernels' builds included.
+SMOKE_LIMIT_S = 1200
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     dev, name, smi = device_phase()
     import mavmap_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -1651,16 +1816,19 @@ def main():
     check_repeat(first, second)
     kp = check_ptblk_shapes(torch, dev, m, window_prob)
     del m, window_prob
-    scene, feats = _survey_scene()
+    scene, feats, gt = _survey_scene()
     phases["survey"], survey_prob = survey_phase(torch, dev, scene, feats)
     _phase("kernels at the survey's shapes")
     ks = check_survey_shapes(torch, dev, survey_prob)
     del survey_prob
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
+    batched_geometry_phase(torch, dev, scene, feats, gt)
     phases["pipeline"] = pipeline_phase(torch, dev, scene, feats)
-    del scene, feats
+    del scene, feats, gt
     phases["submaps"] = submaps_phase(torch, dev)
     phases["cli"], _ = cli_phase(torch, dev)
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s of its {SMOKE_LIMIT_S} s limit",
+          flush=True)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

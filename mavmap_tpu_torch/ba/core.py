@@ -36,10 +36,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from ..models import camera as cam
 from ..ops.essential import solve_or_nan
+from ..ops.projection import compose_proj_matrix, transform_points
+from ..ops.reduce import sum_pairwise
 from ..ops.cuda.ba_accum import (
     SegPlan, make_plan, offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
 from ..ops.rotation import rotmat_from_rvec
@@ -919,49 +921,113 @@ def bundle_adjust(prob: BAProblem, options: BAOptions, device, num_obs=None):
 # --------------------------------------------------------- pose refinement
 
 
-def _obs_residuals(pose, points, uv, kparams, model_code):
-    """(N, 2) pixel residuals of world points under one pose."""
-    xc = points @ rotmat_from_rvec(pose[:3]).T + pose[3:]
-    return cam.world2image(xc, model_code, kparams) - uv
+def _slot_residuals(pose, points, uv, kparams, model_codes, code_ids):
+    """(B, N, 2) pixel residuals of each slot's world points under its pose
+    (B, 6) and camera (B, 9): once per camera model present, each slot
+    keeping its own model's values, as the JAX package's vmapped
+    lax.switch over per-slot codes does. model_codes: the slots' codes on
+    the host; code_ids: the same on the device, needed only where the
+    slots mix models."""
+    xc = transform_points(compose_proj_matrix(pose[:, :3], pose[:, 3:]), points)
+    out = None
+    for code in sorted(set(model_codes)):
+        r = cam.world2image(xc, code, kparams[:, None, :]) - uv
+        out = r if out is None else torch.where((code_ids == code)[:, None, None], r, out)
+    return out
 
 
-def _pose_refine_loop(pose, points, uv, mask, kparams, model_code, scale, max_iters):
-    """Robust single-pose LM (DENSE_QR + Cauchy in the reference). Returns
-    (pose, final cost)."""
+def _slot_jacobian(f, pose):
+    """(B, N, 2, 6): each slot's Jacobian of f (B, 6) -> (B, N, 2) with
+    respect to its own pose, by forward mode as jacfwd does, one pose axis
+    at a time for every slot at once (slot b's residuals depend on its own
+    pose alone)."""
+    B = pose.shape[0]
+    axes = torch.eye(6, dtype=pose.dtype, device=pose.device)[:, None, :].expand(6, B, 6)
+    return vmap(lambda t: jvp(f, (pose,), (t,))[1])(axes).permute(1, 2, 3, 0)
+
+
+def _lm_stop_rule(device):
+    """check(active) -> True once no slot of the pose LM is active. On a
+    CUDA device "any slot still active" is copied to pinned host memory
+    without waiting, and the LM ends once a copy that has landed reads
+    False: no host sync, and the iterations run past that change no bit,
+    since a stopped slot stays frozen. On the CPU the flag is read every
+    iteration: there is no device to wait for."""
+    if device.type != "cuda":
+        return lambda active: not bool(active.any())
+    flag = torch.ones((), dtype=torch.bool, pin_memory=True)
+    landed = torch.cuda.Event()
+    stream = torch.cuda.current_stream(device)
+    pending = False
+
+    def check(active):
+        nonlocal pending
+        if pending and landed.query():
+            if not bool(flag):
+                return True
+            pending = False
+        if not pending:
+            with torch.cuda.stream(stream):
+                flag.copy_(active.any(), non_blocking=True)
+                landed.record(stream)
+            pending = True
+        return False
+
+    return check
+
+
+def _pose_refine_loop(pose, points, uv, mask, kparams, model_codes, scale, max_iters,
+                      code_ids=None):
+    """Robust pose LM (DENSE_QR + Cauchy in the reference) over a leading
+    slot axis: pose (B, 6), points (B, N, 3), uv (B, N, 2), mask (B, N),
+    kparams (B, 9); model_codes: B host ints (code_ids: the same as a
+    device tensor where they mix models). A slot stops when an accepted
+    step gains under 1e-6 of its cost, and from then on its pose, damping
+    and cost stay frozen while the others iterate: what the JAX package's
+    lax.while_loop does under vmap. Returns (poses (B, 6), final costs
+    (B,))."""
+    c2 = scale * scale
 
     def residual(p):
-        return _obs_residuals(p, points, uv, kparams, model_code)
-
-    c2 = scale * scale
+        return _slot_residuals(p, points, uv, kparams, model_codes, code_ids)
 
     def cost_of(r):
         s = torch.sum(r * r, dim=-1)
-        return 0.5 * torch.sum(torch.where(mask, c2 * torch.log1p(s / c2),
-                                           torch.zeros_like(s)))
+        return 0.5 * sum_pairwise(torch.where(mask, c2 * torch.log1p(s / c2),
+                                              torch.zeros_like(s)))
 
+    B = pose.shape[0]
     eye = torch.eye(6, dtype=pose.dtype, device=pose.device)
     p = pose
-    cost = cost_of(residual(p))
-    lam = torch.tensor(1e-3, dtype=pose.dtype, device=pose.device)
+    r = residual(p)
+    cost = cost_of(r)
+    lam = torch.full((B,), 1e-3, dtype=pose.dtype, device=pose.device)
+    active = torch.ones(B, dtype=torch.bool, device=pose.device)
+    stop = _lm_stop_rule(pose.device)
     for _ in range(max_iters):
-        r = residual(p)
-        J = jacfwd(residual)(p)  # (N, 2, 6)
+        J = _slot_jacobian(residual, p)  # (B, N, 2, 6)
         w = _cauchy_weight(torch.sum(r * r, dim=-1), scale)
         w = torch.where(mask, w, torch.zeros_like(w))
-        wJ = w[:, None, None] * J
-        H = torch.einsum("oki,okj->ij", wJ, J) + lam * eye
-        g = torch.einsum("oki,ok->i", wJ, r)
+        wJ = w[..., None, None] * J
+        # The normal equations summed over each slot's residuals in a fixed
+        # order (ops/reduce.py), so a slot's bits do not depend on B.
+        H = sum_pairwise((wJ[..., :, None] * J[..., None, :]).flatten(1, 2), dim=1) \
+            + lam[:, None, None] * eye
+        g = sum_pairwise((wJ * r[..., None]).flatten(1, 2), dim=1)
         # NaN where H is singular, as XLA's solve gives: the step is then
         # rejected (torch.linalg.solve raises there on the card).
-        new_p = p - solve_or_nan(H, g[:, None])[:, 0]
-        new_cost = cost_of(residual(new_p))
-        accept = new_cost < cost
-        p = torch.where(accept, new_p, p)
-        lam = torch.clamp(torch.where(accept, lam * 0.3, lam * 10.0), 1e-10, 1e8)
+        new_p = p - solve_or_nan(H, g[..., None])[..., 0]
+        new_r = residual(new_p)
+        new_cost = cost_of(new_r)
+        accept = active & (new_cost < cost)
+        p = torch.where(accept[:, None], new_p, p)
+        r = torch.where(accept[:, None, None], new_r, r)
+        lam = torch.where(active, torch.clamp(torch.where(accept, lam * 0.3, lam * 10.0),
+                                              1e-10, 1e8), lam)
         rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-        done = accept & (rel < 1e-6)
         cost = torch.where(accept, new_cost, cost)
-        if bool(done):
+        active = active & ~(accept & (rel < 1e-6))
+        if stop(active):
             break
     return p, cost
 
@@ -976,7 +1042,7 @@ def pose_refinement(rvec, tvec, points3D, points2D_px, mask, cam_params, cam_mod
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     pose = torch.cat([t(rvec), t(tvec)])
-    p, cost = _pose_refine_loop(pose, t(points3D), t(points2D_px), t(mask, torch.bool),
-                                t(cam_params), int(cam_model), float(loss_scale),
-                                max_iters)
-    return p[:3], p[3:], cost
+    p, cost = _pose_refine_loop(pose[None], t(points3D)[None], t(points2D_px)[None],
+                                t(mask, torch.bool)[None], t(cam_params)[None],
+                                [int(cam_model)], float(loss_scale), max_iters)
+    return p[0, :3], p[0, 3:], cost[0]

@@ -59,7 +59,7 @@ def _distortion(uv, params):
     Shared by OPENCV and CATA (reference camera_models.h:222-243, 341-358).
     uv: (..., 2) -> (..., 2).
     """
-    k1, k2, p1, p2 = params[4], params[5], params[6], params[7]
+    k1, k2, p1, p2 = params[..., 4], params[..., 5], params[..., 6], params[..., 7]
     u, v = uv[..., 0], uv[..., 1]
     u2 = u * u
     v2 = v * v
@@ -80,11 +80,11 @@ def _undistort(uv, params, num_iterations=10):
 
 
 def _to_pixels(uv, params):
-    return uv * params[:2] + params[2:4]
+    return uv * params[..., :2] + params[..., 2:4]
 
 
 def _from_pixels(uv_px, params):
-    return (uv_px - params[2:4]) / params[:2]
+    return (uv_px - params[..., 2:4]) / params[..., :2]
 
 
 def _safe(d, eps):
@@ -106,7 +106,7 @@ def _opencv_world2image(points, params, eps):
 
 
 def _cata_world2image(points, params, eps):
-    xi = params[8]
+    xi = params[..., 8:9]
     norm = torch.linalg.norm(points, dim=-1, keepdim=True)
     zz = points[..., 2:3] + xi * norm
     uv = points[..., :2] / _safe(zz, eps)
@@ -128,7 +128,7 @@ def _opencv_image2world(uv_px, params):
 
 
 def _cata_image2world(uv_px, params):
-    xi = params[8]
+    xi = params[..., 8:9]
     uv = _undistort(_from_pixels(uv_px, params), params)
     r2 = torch.sum(uv * uv, dim=-1, keepdim=True)
     # Sphere lift (reference camera_models.h:330-338), branch-free with the
@@ -158,8 +158,9 @@ _IMAGE2WORLD = {
 def world2image(points, model_code, params, eps=1e-12):
     """Camera-frame points -> pixel coords under the given model.
 
-    points: (..., 3); model_code: int; params: (MAX_CAM_PARAMS,).
-    Returns (..., 2).
+    points: (..., N, 3); model_code: int; params: (MAX_CAM_PARAMS,), or
+    with leading dims that broadcast against the points' ((B, 1, 9) for
+    (B, N, 3): one camera per slot). Returns (..., N, 2).
     """
     return _WORLD2IMAGE[int(model_code)](points, params, eps)
 

@@ -19,6 +19,8 @@ Residual: first-order Sampson distance, signed like the reference
 import numpy as np
 import torch
 
+from .reduce import matmul_ordered, sum_pairwise
+
 # ----------------------------------------------------------------------------
 # Static monomial tables (numpy, built at import time).
 # Monomials are exponent triples (ex, ey, ez) over (x, y, z), w = 1.
@@ -291,7 +293,9 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60):
 
 def solve_essential_8pt(points1, points2, weights=None):
     """Linear 8-point solver with rank-2 projection, for non-minimal inlier
-    refits (`weights` masks constraint rows). Returns ((1, 3, 3), (1,)).
+    refits (`weights` masks constraint rows), over leading slot dims:
+    points (..., N, 2), weights (..., N). Returns ((..., 1, 3, 3),
+    (..., 1)).
 
     The normal matrix D^T D squares the condition number of D, and its
     smallest eigenvector in f32 is off by eps * cond(D)^2: on an H100
@@ -301,19 +305,24 @@ def solve_essential_8pt(points1, points2, weights=None):
     solves in f32 (mavmap_tpu/ops/essential.py solve_essential_8pt)."""
     D = _epipolar_design(points1.double(), points2.double())
     if weights is not None:
-        D = D * weights.double()[:, None]
-    _, V = torch.linalg.eigh(D.T @ D)
-    E = V[:, 0].reshape(3, 3)
+        D = D * weights.double()[..., None]
+    # D^T D summed over the rows in a fixed order: a batched matmul's bits
+    # depend on the batch on the card (ops/reduce.py).
+    _, V = torch.linalg.eigh(sum_pairwise(D[..., :, :, None] * D[..., :, None, :], dim=-3))
+    E = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
     U, s, Vt = _svd_or_nan(E)
-    sbar = (s[0] + s[1]) / 2.0
-    E = U @ torch.diag(torch.stack([sbar, sbar, torch.zeros_like(sbar)])) @ Vt
-    E = (E / torch.clamp(torch.linalg.norm(E), min=1e-20)).to(points1.dtype)
-    return E[None], torch.isfinite(E).all()[None]
+    sbar = (s[..., 0] + s[..., 1]) / 2.0
+    S = torch.stack([sbar, sbar, torch.zeros_like(sbar)], dim=-1)
+    E = matmul_ordered(U * S[..., None, :], Vt)
+    norm = torch.linalg.norm(E.flatten(-2), dim=-1)
+    E = (E / torch.clamp(norm, min=1e-20)[..., None, None]).to(points1.dtype)
+    return E[..., None, :, :], torch.isfinite(E).all(dim=-1).all(dim=-1)[..., None]
 
 
 def sampson_residuals(points1, points2, E):
-    """Signed first-order Sampson distance per correspondence: points (N, 2),
-    E (..., 3, 3) -> (..., N) (reference essential_matrix.cc:131-162)."""
+    """Signed first-order Sampson distance per correspondence: points
+    (..., N, 2), E (..., 3, 3) -> (..., N), leading dims broadcast
+    (reference essential_matrix.cc:131-162)."""
     x1 = torch.cat([points1, torch.ones_like(points1[..., :1])], dim=-1)
     x2 = torch.cat([points2, torch.ones_like(points2[..., :1])], dim=-1)
     Ex1 = x1 @ E.transpose(-1, -2)  # (..., N, 3)
@@ -328,33 +337,43 @@ def abs_sampson_residuals(points1, points2, E):
     return torch.abs(sampson_residuals(points1, points2, E))
 
 
+_W = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+
+
 def decompose_essential_matrix(E):
-    """E -> (R1, R2, t) candidate decomposition (reference :165-191)."""
+    """E (..., 3, 3) -> (R1, R2, t) candidate decomposition (reference
+    :165-191)."""
     U, _, Vt = _svd_or_nan(E)
-    U = U * torch.sign(torch.linalg.det(U))
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
-    return U @ W @ Vt, U @ W.T @ Vt, U[:, 2]
+    U = U * torch.sign(torch.linalg.det(U))[..., None, None]
+    Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
+    W = _table("_W", E)
+    return (matmul_ordered(matmul_ordered(U, W), Vt), matmul_ordered(matmul_ordered(U, W.T), Vt),
+            U[..., :, 2])
 
 
 def pose_from_essential_matrix(E, points1, points2, inlier_mask, max_depth=100.0):
     """Cheirality test: the (R, t) of the 4 candidates with the most points
-    at positive bounded depth in both views (reference :194-269).
-    Returns (R (3,3), t (3,), num_good); the first camera is [I | 0]."""
+    at positive bounded depth in both views (reference :194-269), over
+    leading slot dims: E (..., 3, 3), points (..., N, 2), inlier_mask
+    (..., N). Returns (R (..., 3, 3), t (..., 3), num_good (...)); the
+    first camera is [I | 0]."""
     from .projection import calc_depth
     from .triangulation import triangulate_points
 
     R1, R2, t = decompose_essential_matrix(E)
-    Rs = torch.stack([R1, R2, R1, R2])
-    ts = torch.stack([t, t, -t, -t])
+    Rs = torch.stack([R1, R2, R1, R2], dim=-3)
+    ts = torch.stack([t, t, -t, -t], dim=-2)
     eye = torch.eye(3, dtype=E.dtype, device=E.device)
     proj1 = torch.cat([eye, torch.zeros((3, 1), dtype=E.dtype, device=E.device)], dim=1)
-    proj2 = torch.cat([Rs, ts[..., None]], dim=-1)  # (4, 3, 4)
-    X = triangulate_points(proj1, proj2, points1, points2)  # (4, N, 3)
+    proj2 = torch.cat([Rs, ts[..., None]], dim=-1)  # (..., 4, 3, 4)
+    X = triangulate_points(proj1, proj2, points1[..., None, :, :],
+                           points2[..., None, :, :])  # (..., 4, N, 3)
     d1 = calc_depth(proj1, X)
     d2 = calc_depth(proj2, X)
-    good = (d1 > 0) & (d1 < max_depth) & (d2 > 0) & (d2 < max_depth) & inlier_mask
+    good = ((d1 > 0) & (d1 < max_depth) & (d2 > 0) & (d2 < max_depth)
+            & inlier_mask[..., None, :])
     counts = torch.sum(good, dim=-1)
-    best = torch.argmax(counts)
-    return Rs[best], ts[best], counts[best]
+    best = torch.argmax(counts, dim=-1, keepdim=True)  # (..., 1)
+    R = torch.gather(Rs, -3, best[..., None, None].expand(best.shape + (3, 3)))[..., 0, :, :]
+    t = torch.gather(ts, -2, best[..., None].expand(best.shape + (3,)))[..., 0, :]
+    return R, t, torch.gather(counts, -1, best)[..., 0]

@@ -32,9 +32,9 @@ def solve_homography(src, dst):
 
 
 def homography_residuals(src, dst, H):
-    """Transfer error ||proj(H src) - dst|| per point: src/dst (N, 2),
-    H (..., 3, 3) -> (..., N)."""
-    ones = torch.ones_like(src[:, :1])
+    """Transfer error ||proj(H src) - dst|| per point: src/dst (..., N, 2),
+    H (..., 3, 3) -> (..., N), leading dims broadcast."""
+    ones = torch.ones_like(src[..., :1])
     ph = torch.cat([src, ones], dim=-1) @ H.transpose(-1, -2)  # (..., N, 3)
     w = ph[..., 2:3]
     safe_w = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)

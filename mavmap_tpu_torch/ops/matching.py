@@ -88,14 +88,16 @@ def match_features_batched(d1s, d2s, masks1=None, masks2=None, kps1=None, kps2=N
 
 
 def median_feature_disparity(kp1, kp2, matches, valid):
-    """Median keypoint displacement over matches (reference feature.cc:136-151).
+    """Median keypoint displacement over matches (reference feature.cc:136-151),
+    over leading slot dims: kp (..., N, 2), matches/valid (..., N) -> (...).
     Invalid entries sort last as +inf; the median is over the first n."""
-    kp2_matched = kp2[torch.clamp(matches.long(), min=0)]
+    j = torch.clamp(matches.long(), min=0)
+    kp2_matched = torch.gather(kp2, -2, j[..., None].expand(j.shape + (2,)))
     disp = torch.linalg.norm(kp2_matched - kp1, dim=-1)
     disp = torch.where(valid, disp, torch.full_like(disp, float("inf")))
-    n = torch.sum(valid)
-    sorted_disp = torch.sort(disp).values
-    lo = sorted_disp[torch.clamp((n - 1) // 2, min=0)]
-    hi = sorted_disp[torch.clamp(n // 2, min=0)]
-    med = 0.5 * (lo + hi)
-    return torch.where(n > 0, med, torch.zeros_like(med))
+    n = torch.sum(valid, dim=-1, keepdim=True)
+    sorted_disp = torch.sort(disp, dim=-1).values
+    lo = torch.gather(sorted_disp, -1, torch.clamp((n - 1) // 2, min=0))
+    hi = torch.gather(sorted_disp, -1, torch.clamp(n // 2, min=0))
+    med = (0.5 * (lo + hi))[..., 0]
+    return torch.where(n[..., 0] > 0, med, torch.zeros_like(med))

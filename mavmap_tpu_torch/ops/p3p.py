@@ -12,6 +12,7 @@ import torch
 
 from .polynomial import solve_quartic_real
 from .projection import calc_reproj_errors
+from .reduce import matmul_ordered
 
 
 def _triad(Q):
@@ -107,8 +108,11 @@ def solve_p3p(points2D, points3D):
     # exactly 3 points: map the world triad onto the camera triad.
     Xc = torch.stack([s1, s2, s3], dim=-1)[..., None] * f[:, None, :, :]
     Bw = _triad(P)[:, None]                          # (T, 1, 3, 3)
-    R = _triad(Xc) @ Bw.transpose(-1, -2)            # (T, 4, 3, 3)
-    t = Xc.mean(dim=-2) - (R @ P.mean(dim=-2)[:, None, :, None])[..., 0]
+    # 3x3 products added in a fixed order (ops/reduce.py): on the card a
+    # batched matmul's bits depend on the number of trials, and a slot of
+    # the batched registration steps must not.
+    R = matmul_ordered(_triad(Xc), Bw.transpose(-1, -2))            # (T, 4, 3, 3)
+    t = Xc.mean(dim=-2) - matmul_ordered(R, P.mean(dim=-2)[:, None, :, None])[..., 0]
     models = torch.cat([R, t[..., None]], dim=-1)    # (T, 4, 3, 4)
     valid = valid & torch.isfinite(models).all(dim=-1).all(dim=-1)
     return models, valid

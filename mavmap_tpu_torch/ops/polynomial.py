@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .reduce import elementwise_fixed
+
 
 def poly_eval(coeffs, x):
     """Evaluate p(x) by Horner. coeffs: (..., D+1) ascending; x: (...)."""
@@ -37,7 +39,8 @@ def _fujiwara_scale(monic):
     D = monic.shape[-1] - 1
     kk = torch.arange(1, D + 1, dtype=monic.dtype, device=monic.device)
     mags = torch.abs(monic[..., :-1].flip(-1))  # |c_{D-1}|, ..., |c_0|
-    radius = 2.0 * torch.amax(torch.clamp(mags, min=1e-30) ** (1.0 / kk), dim=-1)
+    radius = 2.0 * torch.amax(elementwise_fixed(torch.pow, torch.clamp(mags, min=1e-30), 1.0 / kk),
+                              dim=-1)
     return torch.clamp(radius, min=1e-6)
 
 
@@ -55,8 +58,8 @@ def roots_durand_kerner(coeffs, num_iters=60):
     lead = torch.where(lead.abs() < 1e-30, torch.full_like(lead, 1e-30), lead)
     monic = coeffs / lead
     radius = _fujiwara_scale(monic)
-    powers = radius[..., None] ** torch.arange(-D, 1, dtype=dtype,
-                                               device=coeffs.device)
+    powers = elementwise_fixed(torch.pow, radius[..., None],
+                               torch.arange(-D, 1, dtype=dtype, device=coeffs.device))
     monic = monic * powers
 
     k = torch.arange(D, dtype=dtype, device=coeffs.device)
@@ -101,8 +104,8 @@ def solve_quartic_real(coeffs):
     lead = torch.where(lead.abs() < 1e-30, torch.full_like(lead, 1e-30), lead)
     monic = coeffs / lead
     R = _fujiwara_scale(monic)
-    powers = R[..., None] ** torch.arange(-4, 1, dtype=coeffs.dtype,
-                                          device=coeffs.device)
+    powers = elementwise_fixed(torch.pow, R[..., None],
+                               torch.arange(-4, 1, dtype=coeffs.dtype, device=coeffs.device))
     u = monic * powers
 
     a, b, c, d = u[..., 3], u[..., 2], u[..., 1], u[..., 0]
@@ -124,7 +127,7 @@ def solve_quartic_real(coeffs):
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
 
     def cbrt(x):
-        return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+        return torch.sign(x) * elementwise_fixed(torch.pow, torch.abs(x), 1.0 / 3.0)
 
     t_single = cbrt(-half_q + sq) + cbrt(-half_q - sq)
     mp3 = torch.clamp(-P / 3.0, min=1e-30)

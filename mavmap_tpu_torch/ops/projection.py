@@ -8,18 +8,22 @@ leading batch dims on the pose and a points axis N.
 
 import torch
 
+from .reduce import matmul_ordered
 from .rotation import rotmat_from_rvec, rvec_from_rotmat
 
 
 def compose_proj_matrix(rvec, tvec):
-    """(..., 3), (..., 3) -> (..., 3, 4) = [R(rvec) | tvec] (projection.cc:58-76)."""
-    return torch.cat([rotmat_from_rvec(rvec), tvec[..., :, None]], dim=-1)
+    """(..., 3), (..., 3) -> (..., 3, 4) = [R(rvec) | tvec] (projection.cc:58-76),
+    with R's K @ K added in a fixed order (ops/reduce.py): on the card a
+    batched 3x3 matmul's bits depend on the batch, and a slot of the
+    batched registration steps must not."""
+    return torch.cat([rotmat_from_rvec(rvec, matmul_ordered), tvec[..., :, None]], dim=-1)
 
 
 def invert_proj_matrix(proj):
     """Invert [R|t] -> [R^T | -R^T t] (projection.cc:79-87)."""
     Rt = proj[..., :3, :3].transpose(-1, -2)
-    t_inv = -(Rt @ proj[..., :3, 3:4])
+    t_inv = -matmul_ordered(Rt, proj[..., :3, 3:4])
     return torch.cat([Rt, t_inv], dim=-1)
 
 
@@ -39,7 +43,7 @@ def transform_points(proj, points3D):
     """Apply [R|t] to (..., N, 3) world points -> camera-frame points."""
     R = proj[..., :3, :3]
     t = proj[..., :3, 3]
-    return points3D @ R.transpose(-1, -2) + t[..., None, :]
+    return matmul_ordered(points3D, R.transpose(-1, -2)) + t[..., None, :]
 
 
 def project_normalized(proj, points3D, eps=1e-12):

@@ -9,12 +9,17 @@ best-model selection are one batched computation:
     score   -> residual matrix (T*M, N) in one shot, threshold, count
     select  -> argmax over (num_inliers, -inlier_residual_sum) lexicographic
 
+`ransac` also takes leading slot dims on its points, masks, thresholds and
+samples (the JAX package vmaps it): the slots' trials go through the
+minimal solver as one batch and are scored per slot.
+
 Randomness comes from an explicit torch.Generator. Its numbers differ from
 jax.random's, so `ransac` also accepts the (T, S) sample indices directly.
 
-An estimator is a pair of functions, both batched over a leading trial axis:
+An estimator is a pair of functions, both batched over leading axes:
   solve_fn(sx (T, S, dx), sy (T, S, dy)) -> (models (T, M, ...), mask (T, M))
-  residual_fn(x (N, dx), y (N, dy), models (B, ...)) -> (B, N) residuals
+  residual_fn(x (..., 1, N, dx), y (..., 1, N, dy), models (..., K, ...))
+      -> (..., K, N) residuals
 """
 
 from typing import Callable, NamedTuple
@@ -41,50 +46,83 @@ def sample_indices(generator, num_trials, sample_size, num_points,
     return torch.topk(u, sample_size, dim=1).indices
 
 
+def draw_samples(generator, draws):
+    """Sample indices of a batch of slots' RANSAC runs. draws: one
+    (num_trials, sample_size, valid_mask (B, N)) per run of a slot; returns
+    one (B, T, S) tensor per run. The draws go slot by slot and, within a
+    slot, in the order of `draws`: the order in which the single-slot step
+    draws, so slot b draws what that step draws from a generator seeded
+    alike."""
+    B = draws[0][2].shape[0]
+    out = [[] for _ in draws]
+    for b in range(B):
+        for k, (trials, size, valid) in enumerate(draws):
+            out[k].append(sample_indices(generator, trials, size, valid.shape[-1], valid[b],
+                                         device=valid.device))
+    return [torch.stack(o) for o in out]
+
+
 def ransac(generator, x, y, solve_fn: Callable, residual_fn: Callable,
            sample_size: int, num_trials: int, threshold, min_inliers: int = 0,
            valid_mask=None, samples=None):
     """Run batched RANSAC.
 
-    x: (N, dx); y: (N, dy); threshold: scalar in residual_fn's units;
-    valid_mask: optional (N,) bool of real rows; samples: optional (T, S)
-    int sample indices used instead of drawing from `generator`.
+    x: (..., N, dx); y: (..., N, dy); threshold: float or tensor of the
+    leading shape, in residual_fn's units; valid_mask: optional (..., N)
+    bool of real rows; samples: optional (..., T, S) int sample indices used
+    instead of drawing from `generator` (required with leading dims: see
+    `draw_samples`). The results carry the leading dims.
     """
-    N = x.shape[0]
+    lead, N = x.shape[:-2], x.shape[-2]
     if samples is None:
+        if lead:
+            raise ValueError("ransac: slots need their samples drawn (draw_samples)")
         idx = sample_indices(generator, num_trials, sample_size, N, valid_mask,
                              device=x.device)
     else:
         idx = torch.as_tensor(samples, device=x.device).long()
-        num_trials = idx.shape[0]
-    models, model_mask = solve_fn(x[idx], y[idx])  # (T, M, ...), (T, M)
+    xb = x.reshape((-1,) + tuple(x.shape[-2:]))
+    yb = y.reshape((-1,) + tuple(y.shape[-2:]))
+    idx = idx.reshape((xb.shape[0],) + tuple(idx.shape[-2:]))
+    B, T = idx.shape[:2]
+    slot = torch.arange(B, device=x.device)[:, None, None]
+    sx, sy = xb[slot, idx], yb[slot, idx]  # (B, T, S, d)
+    models, model_mask = solve_fn(sx.reshape((B * T,) + tuple(sx.shape[2:])),
+                                  sy.reshape((B * T,) + tuple(sy.shape[2:])))
     M = model_mask.shape[1]
-    flat_models = models.reshape((num_trials * M,) + tuple(models.shape[2:]))
-    flat_mask = model_mask.reshape(num_trials * M)
+    flat_models = models.reshape((B, T * M) + tuple(models.shape[2:]))
+    flat_mask = model_mask.reshape(B, T * M)
 
-    res = residual_fn(x, y, flat_models)  # (T*M, N)
+    res = residual_fn(xb[:, None], yb[:, None], flat_models)  # (B, T*M, N)
     res = torch.nan_to_num(res, nan=float("inf"), posinf=float("inf"),
                            neginf=float("inf"))
 
-    point_valid = torch.ones(N, dtype=torch.bool, device=x.device) \
-        if valid_mask is None else valid_mask
-    inlier = (res <= threshold) & point_valid[None, :] & flat_mask[:, None]
-    num_in = torch.sum(inlier, dim=1)
+    thr = torch.as_tensor(threshold, dtype=res.dtype, device=x.device).reshape(-1, 1)
+    thr = thr.expand(B, 1)
+    point_valid = torch.ones((B, N), dtype=torch.bool, device=x.device) \
+        if valid_mask is None else valid_mask.reshape(B, N)
+    inlier = (res <= thr[..., None]) & point_valid[:, None, :] & flat_mask[..., None]
+    num_in = torch.sum(inlier, dim=-1)
     # Lexicographic (num_inliers desc, inlier residual sum asc) — the
     # reference's best-model rule (estimation.cc:120-128).
-    res_sum = torch.sum(torch.where(inlier, res, torch.zeros_like(res)), dim=1)
-    norm_sum = res_sum / torch.clamp(num_in, min=1) / max(float(threshold), 1e-20)
+    res_sum = torch.sum(torch.where(inlier, res, torch.zeros_like(res)), dim=-1)
+    norm_sum = res_sum / torch.clamp(num_in, min=1) / torch.clamp(thr, min=1e-20)
     score = num_in.float() - torch.clamp(norm_sum, 0.0, 0.999)
     score = torch.where(flat_mask, score, torch.full_like(score, -float("inf")))
 
-    best = torch.argmax(score)
-    best_num = num_in[best]
-    ok = flat_mask[best] & (best_num >= max(min_inliers, sample_size))
+    best = torch.argmax(score, dim=-1)  # (B,)
+    rows = torch.arange(B, device=x.device)
+    best_num = num_in[rows, best]
+    ok = flat_mask[rows, best] & (best_num >= max(min_inliers, sample_size))
+
+    def out(t):
+        return t.reshape(tuple(lead) + tuple(t.shape[1:]))
+
     return RansacResult(
-        model=flat_models[best],
-        inlier_mask=inlier[best],
-        num_inliers=best_num.to(torch.int32),
-        success=ok,
-        best_trial=best,
-        residuals=res[best],
+        model=out(flat_models[rows, best]),
+        inlier_mask=out(inlier[rows, best]),
+        num_inliers=out(best_num.to(torch.int32)),
+        success=out(ok),
+        best_trial=out(best),
+        residuals=out(res[rows, best]),
     )

@@ -11,6 +11,8 @@ All functions broadcast over leading batch dims, are branch-free
 
 import torch
 
+from .reduce import elementwise_fixed
+
 
 def skew(v):
     """(..., 3) -> (..., 3, 3) cross-product matrix."""
@@ -24,10 +26,12 @@ def skew(v):
     return torch.stack(rows, dim=-2)
 
 
-def rotmat_from_rvec(rvec):
+def rotmat_from_rvec(rvec, square=torch.matmul):
     """Angle-axis -> rotation matrix (Rodrigues). rvec: (..., 3) -> (..., 3, 3).
 
     Small angles use the Taylor limits of sin(t)/t and (1-cos t)/t^2.
+    `square` forms K @ K: compose_proj_matrix passes ops/reduce.py's
+    matmul_ordered, whose bits do not depend on the batch.
     """
     theta2 = torch.sum(rvec * rvec, dim=-1)[..., None, None]
     theta = torch.sqrt(theta2)
@@ -39,7 +43,7 @@ def rotmat_from_rvec(rvec):
                     (1.0 - torch.cos(safe_theta)) / torch.where(small, one, theta2))
     K = skew(rvec)
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
-    return eye + a * K + b * (K @ K)
+    return eye + a * K + b * square(K, K)
 
 
 def quat_from_rotmat(R):
@@ -82,7 +86,7 @@ def rvec_from_quat(q):
     w = torch.clamp(q[..., 0], -1.0, 1.0)
     v = q[..., 1:]
     sin_half = torch.linalg.norm(v, dim=-1)
-    angle = 2.0 * torch.atan2(sin_half, w)
+    angle = 2.0 * elementwise_fixed(torch.atan2, sin_half, w)
     small = sin_half < 1e-12
     scale = torch.where(small, torch.full_like(angle, 2.0),
                         angle / torch.where(small, torch.ones_like(sin_half), sin_half))

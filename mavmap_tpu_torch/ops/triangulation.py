@@ -7,6 +7,8 @@ coordinates.
 
 import torch
 
+from .reduce import matmul_ordered
+
 
 def _det3(M):
     """Batched 3x3 determinant, M: (..., 3, 3)."""
@@ -19,13 +21,13 @@ def _det3(M):
 def _cross4(M):
     """4-D generalized cross product of 3 row vectors, M: (..., 3, 4) ->
     (..., 4) n with M @ n = 0 exactly (cofactor expansion)."""
-    cols = []
+    cols = [M[..., :, k] for k in range(4)]
+    out = []
     sign = 1.0
     for j in range(4):
-        keep = [k for k in range(4) if k != j]
-        cols.append(sign * _det3(M[..., :, keep]))
+        out.append(sign * _det3(torch.stack([cols[k] for k in range(4) if k != j], dim=-1)))
         sign = -sign
-    return torch.stack(cols, dim=-1)
+    return torch.stack(out, dim=-1)
 
 
 def nullvec4(A):
@@ -33,7 +35,8 @@ def nullvec4(A):
     (..., 4): the cofactor cross product of each row triple, keeping the
     max-norm (best conditioned) candidate."""
     triples = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
-    cands = torch.stack([_cross4(A[..., list(t), :]) for t in triples], dim=-2)
+    cands = torch.stack([_cross4(torch.stack([A[..., k, :] for k in t], dim=-2))
+                         for t in triples], dim=-2)
     norms = torch.sum(cands * cands, dim=-1)
     best = torch.argmax(norms, dim=-1)
     idx = best[..., None, None].expand(best.shape + (1, 4))
@@ -84,8 +87,8 @@ def calc_tri_angles(proj1, proj2, points3D):
     t1 = proj1[..., :3, 3]
     R2 = proj2[..., :3, :3]
     t2 = proj2[..., :3, 3]
-    c1 = -(R1.transpose(-1, -2) @ t1[..., :, None])[..., 0]
-    c2 = -(R2.transpose(-1, -2) @ t2[..., :, None])[..., 0]
+    c1 = -matmul_ordered(R1.transpose(-1, -2), t1[..., :, None])[..., 0]
+    c2 = -matmul_ordered(R2.transpose(-1, -2), t2[..., :, None])[..., 0]
     baseline2 = torch.sum((c1 - c2) ** 2, dim=-1)[..., None]
     ray1 = points3D - c1[..., None, :]
     ray2 = points3D - c2[..., None, :]

@@ -11,11 +11,17 @@ the JAX version's, so the two packages can be held against each other
 field by field. All gates return scalars; the host applies the
 accept/reject logic.
 
-The batched steps match every slot in one batched K1 launch (the JAX
-package vmaps the whole step); the geometry after the match runs slot by
-slot, in slot order. RANSAC draws its samples from an explicit
-torch.Generator; `samples` injects (T, S) sample indices instead (tests
-feed the JAX package's), with a leading slot axis for the batched steps.
+The batched steps run as one batched computation from the match to the
+packed outputs, as the JAX package's jax.vmap of the whole step does: one
+batched K1 launch matches every slot, and the geometry after it (RANSAC
+with its minimal solvers, the 8-point refit, pose recovery, the pose LM,
+the track checks and triangulation) carries the slot axis, with no host
+sync per slot. `two_view_init` and `register_view` are its one-slot case.
+RANSAC draws its samples from an explicit torch.Generator, slot by slot
+in slot order before the batched body (`ops.ransac.draw_samples`), so a
+slot draws what the single step draws from a generator seeded alike;
+`samples` injects (T, S) sample indices instead (tests feed the JAX
+package's), with a leading slot axis for the batched steps.
 """
 
 import math
@@ -26,7 +32,8 @@ import torch
 
 from ..ba.core import _pose_refine_loop
 from ..ops import essential, homography, matching, p3p, projection, triangulation
-from ..ops.ransac import ransac
+from ..ops.ransac import draw_samples, ransac
+from ..ops.reduce import sum_pairwise
 from ..ops.rotation import rvec_from_rotmat
 
 
@@ -61,8 +68,11 @@ def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
     """
     matches, valid = matching.match_features(
         desc1, desc2, mask1, mask2, kp1, kp2, ratio=ratio, max_distance=max_distance)
-    return _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_threshold,
-                              essential_trials, hom_trials, max_depth, samples)
+    rows, scalars = _two_view_geometry(
+        generator, matches[None], valid[None], kp1[None], n1[None], kp2[None], n2[None],
+        _slot_thresholds(norm_threshold, 1, kp1.device), essential_trials, hom_trials,
+        max_depth, _one_slot(samples))
+    return rows[0], scalars[0]
 
 
 def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, n2s,
@@ -72,65 +82,88 @@ def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, 
     (the JAX package's jax.vmap over the candidates, mapper.cc:1027-1036):
     the first image is shared, the candidates' inputs carry a leading B,
     norm_thresholds is one float per slot. One batched K1 launch matches
-    every slot; the geometry runs slot by slot. samples: optional
-    (homography (B, T_h, 4), essential (B, T_e, 5)). Returns (rows
-    (B, F, 9), scalars (B, 21))."""
+    every slot and the geometry runs batched over the slots. samples:
+    optional (homography (B, T_h, 4), essential (B, T_e, 5)). Returns
+    (rows (B, F, 9), scalars (B, 21))."""
     matches, valid = matching.match_features_batched(
         desc1, desc2s, mask1, mask2s, kp1, kp2s, ratio=ratio, max_distance=max_distance)
-    outs = [_two_view_geometry(generator, matches[b], valid[b], kp1, n1, kp2s[b], n2s[b],
-                               float(norm_thresholds[b]), essential_trials, hom_trials,
-                               max_depth, _slot(samples, b))
-            for b in range(matches.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    B = matches.shape[0]
+    return _two_view_geometry(generator, matches, valid, kp1.expand(B, -1, -1),
+                              n1.expand(B, -1, -1), kp2s, n2s,
+                              _slot_thresholds(norm_thresholds, B, kp1.device),
+                              essential_trials, hom_trials, max_depth, samples)
 
 
-def _slot(samples, b):
-    """Slot b's sample tuple of batched samples (None: draw)."""
-    return None if samples is None else tuple(s[b] for s in samples)
+def _one_slot(samples):
+    """Injected samples of one step with a slot axis of 1 (None: draw)."""
+    if samples is None:
+        return None
+    return tuple((s if torch.is_tensor(s) else torch.from_numpy(np.array(s)))[None]
+                 for s in samples)
 
 
-def _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_threshold,
+def _slot_thresholds(thresholds, B, device):
+    """The slots' norm thresholds as a (B,) float32 tensor on `device`,
+    from one host float (no copy) or one per slot."""
+    if np.ndim(thresholds) == 0:
+        return torch.full((B,), float(np.float32(thresholds)), device=device)
+    return torch.as_tensor(np.asarray(thresholds, np.float32), device=device)
+
+
+def _rows(a, matches):
+    """Per slot, the rows of a (B, F, d) at the matched indices (B, F)."""
+    j = torch.clamp(matches.long(), min=0)
+    return torch.gather(a, 1, j[..., None].expand(j.shape + (a.shape[-1],)))
+
+
+def _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_thresholds,
                        essential_trials, hom_trials, max_depth, samples):
-    """two_view_init after the match: disparity, homography and 5-point
-    RANSAC, the 8-point refit, pose and triangulation."""
-    num_matches = torch.sum(valid)
+    """two_view_init after the match, over a leading slot axis (matches,
+    valid (B, F); kp, n (B, F, 2); norm_thresholds (B,)): disparity,
+    homography and 5-point RANSAC, the 8-point refit, pose and
+    triangulation."""
+    num_matches = torch.sum(valid, dim=-1)
     med_disp = matching.median_feature_disparity(kp1, kp2, matches, valid)
 
     x1 = n1
-    x2 = n2[torch.clamp(matches.long(), min=0)]
+    x2 = _rows(n2, matches)
 
-    s_h, s_e = samples if samples is not None else (None, None)
-    hom = ransac(generator, x1, x2, homography.solve_homography,
+    if samples is None:
+        samples = draw_samples(generator, [(hom_trials, 4, valid),
+                                           (essential_trials, 5, valid)])
+    s_h, s_e = samples
+    nt = norm_thresholds
+    hom = ransac(None, x1, x2, homography.solve_homography,
                  homography.homography_residuals, sample_size=4,
-                 num_trials=hom_trials, threshold=norm_threshold,
-                 valid_mask=valid, samples=s_h)
-    eres = ransac(generator, x1, x2, essential.solve_essential_5pt,
+                 num_trials=hom_trials, threshold=nt, valid_mask=valid, samples=s_h)
+    eres = ransac(None, x1, x2, essential.solve_essential_5pt,
                   essential.abs_sampson_residuals, sample_size=5,
-                  num_trials=essential_trials, threshold=norm_threshold,
-                  valid_mask=valid, samples=s_e)
+                  num_trials=essential_trials, threshold=nt, valid_mask=valid,
+                  samples=s_e)
     # Non-minimal refit on all inliers (masked 8-point); keep whichever of
     # {RANSAC model, refit} has more inliers.
     E_refit = essential.solve_essential_8pt(
-        x1, x2, weights=eres.inlier_mask.to(x1.dtype))[0][0]
+        x1, x2, weights=eres.inlier_mask.to(x1.dtype))[0][:, 0]
     refit_inl = (essential.abs_sampson_residuals(x1, x2, E_refit)
-                 <= norm_threshold) & valid
-    use_refit = torch.sum(refit_inl) >= eres.num_inliers
-    E_best = torch.where(use_refit, E_refit, eres.model)
-    inlier_best = torch.where(use_refit, refit_inl, eres.inlier_mask)
-    num_inl_best = torch.maximum(torch.sum(refit_inl), eres.num_inliers.long())
+                 <= nt[:, None]) & valid
+    num_refit = torch.sum(refit_inl, dim=-1)
+    use_refit = num_refit >= eres.num_inliers
+    E_best = torch.where(use_refit[:, None, None], E_refit, eres.model)
+    inlier_best = torch.where(use_refit[:, None], refit_inl, eres.inlier_mask)
+    num_inl_best = torch.maximum(num_refit, eres.num_inliers.long())
 
     R, t, _ = essential.pose_from_essential_matrix(E_best, x1, x2, inlier_best,
                                                    max_depth=max_depth)
     rvec2 = rvec_from_rotmat(R)
     eye = torch.eye(3, dtype=x1.dtype, device=x1.device)
     proj1 = torch.cat([eye, torch.zeros((3, 1), dtype=x1.dtype, device=x1.device)], dim=1)
-    proj2 = torch.cat([R, t[:, None]], dim=1)
-    z_comp = torch.abs(projection.invert_proj_matrix(proj2)[2, 3])
+    proj2 = torch.cat([R, t[..., None]], dim=-1)
+    z_comp = torch.abs(projection.invert_proj_matrix(proj2)[:, 2, 3])
 
     X = triangulation.triangulate_points(proj1, proj2, x1, x2)
     ang = triangulation.calc_tri_angles(proj1, proj2, X)
     ang_folded = torch.minimum(ang, math.pi - ang)
-    mean_angle = torch.sum(torch.where(inlier_best, ang_folded, torch.zeros_like(ang))) \
+    mean_angle = sum_pairwise(torch.where(inlier_best, ang_folded, torch.zeros_like(ang))) \
         / torch.clamp(num_inl_best, min=1)
     d1 = projection.calc_depth(proj1, X)
     d2 = projection.calc_depth(proj2, X)
@@ -138,11 +171,11 @@ def _two_view_geometry(generator, matches, valid, kp1, n1, kp2, n2, norm_thresho
     f32 = torch.float32
     rows = torch.stack([matches.to(f32), valid.to(f32), inlier_best.to(f32),
                         ang, d1, d2], dim=-1)
-    rows = torch.cat([rows, X], dim=-1)  # (F, 9)
+    rows = torch.cat([rows, X], dim=-1)  # (B, F, 9)
     head = torch.stack([num_matches.to(f32), med_disp, hom.num_inliers.to(f32),
-                        num_inl_best.to(f32), z_comp, mean_angle * (180.0 / math.pi)])
-    scalars = torch.cat([head, rvec2, t, E_best.reshape(9)])  # (21,)
-    return rows, scalars
+                        num_inl_best.to(f32), z_comp, mean_angle * (180.0 / math.pi)],
+                       dim=-1)
+    return rows, torch.cat([head, rvec2, t, E_best.flatten(-2)], dim=-1)  # (B, 21)
 
 
 def unpack_two_view(rows, scalars) -> TwoViewResult:
@@ -206,48 +239,54 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
     matches, valid = matching.match_features(
         desc_prev, desc_curr, mask_prev, mask_curr, kp_prev, kp_curr,
         ratio=ratio, max_distance=max_distance)
-    return _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_curr,
-                              prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
-                              cam_params, cam_model, norm_threshold, p3p_trials, hom_trials,
-                              refine_iters, samples)
+    one = [a[None] for a in (matches, valid, kp_prev, n_prev, kp_curr, n_curr, prev_p3d_xyz,
+                             prev_has_tri, prev_stable, prev_rvec, prev_tvec, cam_params)]
+    rows, scalars = _register_geometry(
+        generator, *one, [int(cam_model)], None,
+        _slot_thresholds(norm_threshold, 1, kp_prev.device), p3p_trials, hom_trials,
+        refine_iters, _one_slot(samples))
+    return rows[0], scalars[0]
 
 
 def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_curr,
                        prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
-                       cam_params, cam_model, norm_threshold, p3p_trials, hom_trials,
-                       refine_iters, samples):
-    """register_view after the match: disparity, homography and P3P
+                       cam_params, model_codes, code_ids, norm_thresholds, p3p_trials,
+                       hom_trials, refine_iters, samples):
+    """register_view after the match, over a leading slot axis (every
+    input with a leading B; model_codes the B host codes, code_ids the same
+    on the device where they mix models): disparity, homography and P3P
     RANSAC, the pose refinement, track checks and new triangulations."""
-    num_matches = torch.sum(valid)
+    num_matches = torch.sum(valid, dim=-1)
     med_disp = matching.median_feature_disparity(kp_prev, kp_curr, matches, valid)
 
-    j = torch.clamp(matches.long(), min=0)
     x_prev = n_prev
-    x_curr = n_curr[j]
-    kp_curr_m = kp_curr[j]
-
-    s_h, s_p = samples if samples is not None else (None, None)
-    hom = ransac(generator, x_prev, x_curr, homography.solve_homography,
-                 homography.homography_residuals, sample_size=4,
-                 num_trials=hom_trials, threshold=norm_threshold,
-                 valid_mask=valid, samples=s_h)
-
+    x_curr = _rows(n_curr, matches)
+    kp_curr_m = _rows(kp_curr, matches)
     stable = valid & prev_stable & prev_has_tri
-    num_stable = torch.sum(stable)
-    pres = ransac(generator, x_curr, prev_p3d_xyz, p3p.solve_p3p_best,
-                  p3p.p3p_residuals, sample_size=4, num_trials=p3p_trials,
-                  threshold=norm_threshold, valid_mask=stable, samples=s_p)
-    rvec0 = rvec_from_rotmat(pres.model[:3, :3])
-    tvec0 = pres.model[:3, 3]
 
-    pose, cost = _pose_refine_loop(torch.cat([rvec0, tvec0]), prev_p3d_xyz,
-                                   kp_curr_m, pres.inlier_mask, cam_params,
-                                   int(cam_model), 1.0, refine_iters)
+    if samples is None:
+        samples = draw_samples(generator, [(hom_trials, 4, valid), (p3p_trials, 4, stable)])
+    s_h, s_p = samples
+    nt = norm_thresholds
+    hom = ransac(None, x_prev, x_curr, homography.solve_homography,
+                 homography.homography_residuals, sample_size=4,
+                 num_trials=hom_trials, threshold=nt, valid_mask=valid, samples=s_h)
+
+    num_stable = torch.sum(stable, dim=-1)
+    pres = ransac(None, x_curr, prev_p3d_xyz, p3p.solve_p3p_best,
+                  p3p.p3p_residuals, sample_size=4, num_trials=p3p_trials,
+                  threshold=nt, valid_mask=stable, samples=s_p)
+    rvec0 = rvec_from_rotmat(pres.model[:, :3, :3])
+    tvec0 = pres.model[:, :3, 3]
+
+    pose, cost = _pose_refine_loop(torch.cat([rvec0, tvec0], dim=-1), prev_p3d_xyz,
+                                   kp_curr_m, pres.inlier_mask, cam_params, model_codes,
+                                   1.0, refine_iters, code_ids)
     # RMS px over refined residuals, like the reference
     # sqrt(summary.final_cost / num_residuals) (bundle_adjustment.cc:222).
     final_cost = torch.sqrt(cost / torch.clamp(pres.num_inliers * 2, min=1))
 
-    rvec, tvec = pose[:3], pose[3:]
+    rvec, tvec = pose[:, :3], pose[:, 3:]
     proj_curr = projection.compose_proj_matrix(rvec, tvec)
     proj_prev = projection.compose_proj_matrix(prev_rvec, prev_tvec)
     track_err = projection.calc_reproj_errors(x_curr, prev_p3d_xyz, proj_curr)
@@ -262,12 +301,11 @@ def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_cu
     f32 = torch.float32
     rows = torch.stack([matches.to(f32), valid.to(f32), pres.inlier_mask.to(f32),
                         track_err, err_prev, err_curr, ang, dp, dc], dim=-1)
-    rows = torch.cat([rows, Xnew], dim=-1)  # (F, 12)
+    rows = torch.cat([rows, Xnew], dim=-1)  # (B, F, 12)
     head = torch.stack([num_matches.to(f32), med_disp, hom.num_inliers.to(f32),
                         num_stable.to(f32), pres.num_inliers.to(f32),
-                        pres.success.to(f32), final_cost])
-    scalars = torch.cat([head, rvec, tvec])  # (13,)
-    return rows, scalars
+                        pres.success.to(f32), final_cost], dim=-1)
+    return rows, torch.cat([head, rvec, tvec], dim=-1)  # (B, 13)
 
 
 def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
@@ -406,17 +444,18 @@ def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, ma
     (the JAX package's jax.vmap over loop-closure candidates,
     sequential_mapper.cc:1182-1211): the candidates' features, track state
     and poses carry a leading B; the current image's features and camera
-    are shared. One batched K1 launch matches every slot; the geometry runs
-    slot by slot. samples: optional (homography (B, T_h, 4), p3p
-    (B, T_p, 4)). Returns (rows (B, F, 12), scalars (B, 13))."""
+    are shared. One batched K1 launch matches every slot and the geometry
+    runs batched over the slots. samples: optional (homography
+    (B, T_h, 4), p3p (B, T_p, 4)). Returns (rows (B, F, 12), scalars
+    (B, 13))."""
     matches, valid = matching.match_features_batched(
         desc_p, desc_c, mask_p, mask_c, kpp, kp_curr, ratio=ratio, max_distance=max_distance)
-    outs = [_register_geometry(generator, matches[b], valid[b], kpp[b], np_[b], kp_curr, nc_,
-                               xyz[b], has_tri[b], stable[b], prev_rvec[b], prev_tvec[b],
-                               kparams, int(model_code), norm_threshold, p3p_trials,
-                               hom_trials, refine_iters, _slot(samples, b))
-            for b in range(matches.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    B = matches.shape[0]
+    return _register_geometry(generator, matches, valid, kpp, np_, kp_curr.expand(B, -1, -1),
+                              nc_.expand(B, -1, -1), xyz, has_tri, stable, prev_rvec,
+                              prev_tvec, kparams.expand(B, -1), [int(model_code)] * B, None,
+                              _slot_thresholds(norm_threshold, B, kpp.device), p3p_trials,
+                              hom_trials, refine_iters, samples)
 
 
 def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c, nc_,
@@ -426,17 +465,22 @@ def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c
     """register_view over B full (current, previous) pairs: both sides carry
     a leading B, as do kparams (B, 9); model_code and norm_threshold are
     one value per slot (the back-fill and closure-sweep pairs,
-    mapper.cc:221-299). One batched K1 launch matches every slot; the
-    geometry runs slot by slot. Returns (rows (B, F, 12), scalars
-    (B, 13))."""
+    mapper.cc:221-299). One batched K1 launch matches every slot and the
+    geometry runs batched over the slots; slots of different camera models
+    refine their poses under their own model. Returns (rows (B, F, 12),
+    scalars (B, 13))."""
     matches, valid = matching.match_features_batched(
         desc_p, desc_c, mask_p, mask_c, kpp, kpc, ratio=ratio, max_distance=max_distance)
-    outs = [_register_geometry(generator, matches[b], valid[b], kpp[b], np_[b], kpc[b], nc_[b],
-                               xyz[b], has_tri[b], stable[b], prev_rvec[b], prev_tvec[b],
-                               kparams[b], int(model_code[b]), float(norm_threshold[b]),
-                               p3p_trials, hom_trials, refine_iters, _slot(samples, b))
-            for b in range(matches.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    B = matches.shape[0]
+    codes = [int(c) for c in model_code]
+    # One host->device copy carries the thresholds and, where the slots mix
+    # camera models, their codes (small integers, exact in float32).
+    per_slot = torch.as_tensor(np.asarray([norm_threshold, codes], np.float32),
+                               device=kpp.device)
+    code_ids = per_slot[1] if len(set(codes)) > 1 else None
+    return _register_geometry(generator, matches, valid, kpp, np_, kpc, nc_, xyz, has_tri,
+                              stable, prev_rvec, prev_tvec, kparams, codes, code_ids,
+                              per_slot[0], p3p_trials, hom_trials, refine_iters, samples)
 
 
 def unpack_register(rows, scalars) -> RegisterResult:

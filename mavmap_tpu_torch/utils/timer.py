@@ -3,11 +3,14 @@
 Port of mavmap_tpu/utils/timer.py: the reference's Timer, accumulating
 stage timers, and a device trace context, here a torch.profiler trace
 (CPU, and CUDA where a card is present) written for TensorBoard in place
-of the JAX package's jax.profiler trace.
+of the JAX package's jax.profiler trace; and a count of a call's host
+syncs with a CUDA device.
 """
 
 import contextlib
+import os
 import time
+import warnings
 from collections import defaultdict
 
 
@@ -77,3 +80,23 @@ def device_trace(log_dir):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as p:
         yield p
+
+
+def count_syncs(fn, sites=None):
+    """(host syncs, fn()) with CUDA's sync debug mode warning on every
+    synchronizing call inside fn (device->host reads, blocking copies,
+    stream waits); `sites`, a list, gets the file:line of each."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        sites.extend(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
+    return len(syncs), out

@@ -15,8 +15,15 @@ bitwise equal. K3 adds each segment's rows in row order, as index_add_
 does on the CPU: it equals its plain version run on a CPU copy bit for
 bit, and so does a dense self-calibrating bundle adjustment run twice.
 K1 with a slot axis gives every slot the bits of the single-pair launch on
-that slot's pair; register_view_batch gives every slot the bits of
-register_view on the same pair with the same RANSAC draws; the vocabulary
+that slot's pair. The batched registration steps at 32 slots give every
+slot the bits of register_view on the same pair with the same RANSAC
+draws (their sums over a slot's rows and their per-slot 3x3 products add
+in an order fixed by one slot's shapes: ops/reduce.py); the two-view step
+gives its matches, inliers and counts, and its floats within
+test_two_view_init_matches_jax's tolerances (the 5-point solver's GEMMs
+over the trials pick their kernel by the batch). A 32-slot step repeats
+bit for bit, gives the same bits whether the pose LM stops late (its
+lagged flag), every iteration or never early, and syncs the host no more often than a 1-slot step; the vocabulary
 tree quantizes as on the CPU except at near-ties (two centers within 1e-5
 relative). The pose LM rejects a non-finite step on the card as on the
 CPU. tests/test_torch_merge.py's restart-and-merge run repeats bit
@@ -25,11 +32,13 @@ refused on CUDA tensors, and registers the same frames on the Python track
 store as on the native one.
 """
 
+
 import numpy as np
 import pytest
 import torch
 
 from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
+from mavmap_tpu_torch.ba import core as ba_core
 from mavmap_tpu_torch.loop import train_voc_tree
 from mavmap_tpu_torch.models import camera as cam
 from mavmap_tpu_torch.ops.cuda import ba_accum as ka
@@ -37,8 +46,10 @@ from mavmap_tpu_torch.ops.cuda import build
 from mavmap_tpu_torch.ops.cuda import match as km
 from mavmap_tpu_torch.ops.matching import match_features, match_features_batched
 from mavmap_tpu_torch.ops.rotation import rotmat_from_rvec
-from mavmap_tpu_torch.sfm.kernels import register_view, register_view_batch
+from mavmap_tpu_torch.sfm.kernels import (
+    register_view, register_view_batch, register_view_pairs, two_view_init, two_view_init_batch)
 from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
+from mavmap_tpu_torch.utils.timer import count_syncs
 
 pytestmark = pytest.mark.gpu
 
@@ -248,26 +259,133 @@ def _register_inputs(dev, F=512, B=3):
     return scene, imgs[:B], states[:B], imgs[B]
 
 
-def test_register_view_batch_slots_equal_register_view(dev):
-    """register_view_batch on the card against register_view per slot on the
-    same pairs: with generators seeded alike, the slots draw the same RANSAC
-    samples in slot order, and every output is equal bit for bit."""
+def _register_slots(dev, B=32):
+    """register_view_batch's and register_view_pairs' inputs at B slots over
+    _register_inputs' three previous images in turn, and the single-step
+    inputs of each slot. The pairs' slots alternate PINHOLE and OPENCV
+    (small nonzero distortion) cameras."""
     scene, prevs, states, curr = _register_inputs(dev)
     K = torch.as_tensor(scene.cam_params[0], device=dev)
-    common = (0.9, 1e9, 4.0 / 700.0)
-    g1 = torch.Generator(device=dev)
-    g1.manual_seed(11)
-    before = build.launches["match_batched"]
-    rows, scalars = register_view_batch(
-        g1, *[torch.stack([p[i] for p in prevs]) for i in range(4)], *curr,
-        *[torch.stack([s[i] for s in states]) for i in range(5)], K, 1, *common, p3p_trials=256)
-    assert build.launches["match_batched"] == before + 1
+    Ko = K.clone()
+    Ko[4:8] = torch.tensor([2e-3, -1e-3, 5e-4, -5e-4], device=dev)
+    slot_prev = [prevs[b % 3] for b in range(B)]
+    slot_state = [states[b % 3] for b in range(B)]
+    codes = [1 + b % 2 for b in range(B)]
+    Ks = torch.stack([K if c == 1 else Ko for c in codes])
+    nts = [(3.5 + 0.5 * (b % 3)) / 700.0 for b in range(B)]
+    stack = [torch.stack([p[i] for p in slot_prev]) for i in range(4)]
+    sstack = [torch.stack([st[i] for st in slot_state]) for i in range(5)]
+    cstack = [c.expand((B,) + c.shape) for c in curr]
+    batch = (stack + curr + sstack + [K, 1, 0.9, 1e9, 4.0 / 700.0],
+             [list(slot_prev[b]) + curr + list(slot_state[b]) + [K, 1, 0.9, 1e9, 4.0 / 700.0]
+              for b in range(B)])
+    pairs = (stack + cstack + sstack + [Ks, codes, 0.9, 1e9, nts],
+             [list(slot_prev[b]) + curr + list(slot_state[b]) + [Ks[b], codes[b], 0.9, 1e9,
+                                                                  nts[b]] for b in range(B)])
+    return batch, pairs
+
+
+def test_register_view_batch_slots_equal_register_view(dev):
+    """register_view_batch and register_view_pairs (PINHOLE and OPENCV slots)
+    on the card at B = 32 against register_view per slot on the same pairs:
+    with generators seeded alike, the slots draw the same RANSAC samples in
+    slot order, and every output is equal bit for bit; one batched K1
+    launch serves each step."""
+    for step, (args, singles) in zip((register_view_batch, register_view_pairs),
+                                     _register_slots(dev)):
+        g1 = torch.Generator(device=dev)
+        g1.manual_seed(11)
+        before = build.launches["match_batched"]
+        rows, scalars = step(g1, *args, p3p_trials=256)
+        assert build.launches["match_batched"] == before + 1
+        g2 = torch.Generator(device=dev)
+        g2.manual_seed(11)
+        for b, one in enumerate(singles):
+            r1, s1 = register_view(g2, *one, p3p_trials=256)
+            assert torch.equal(rows[b], r1) and torch.equal(scalars[b], s1), (step.__name__, b)
+        assert float(scalars[:, 5].sum()) >= 16  # P3P succeeded in most slots
+
+
+def test_two_view_init_batch_slots_equal_two_view_init(dev):
+    """two_view_init_batch on the card at B = 32 (one first image against
+    _register_inputs' three images in turn, a threshold per slot) against
+    two_view_init per slot with generators seeded alike. The 5-point
+    solver's matrix products over the slots' trials (its constraint
+    einsums, the root polish's batched matmuls) run as cuBLAS GEMMs whose
+    kernel depends on the number of trials, so a slot's floats may differ
+    from the single step's in their last bits
+    (benchmarks/torch_batched_geometry.py): matches, validity, inliers and
+    counts exact, the floats at test_two_view_init_matches_jax's
+    tolerances; and the 32-slot step repeats bit for bit."""
+    scene, prevs, _, first = _register_inputs(dev)
+    B = 32
+    cands = [prevs[b % 3] for b in range(B)]
+    stack = [torch.stack([c[i] for c in cands]) for i in range(4)]
+    nts = [(3.5 + 0.5 * (b % 3)) / 700.0 for b in range(B)]
+    outs = []
+    for _ in range(2):
+        g1 = torch.Generator(device=dev)
+        g1.manual_seed(13)
+        outs.append(two_view_init_batch(g1, *first, *stack, 0.9, 1e9, nts,
+                                        essential_trials=256))
+    rows, scalars = outs[0]
+    assert torch.equal(rows, outs[1][0]) and torch.equal(scalars, outs[1][1])
     g2 = torch.Generator(device=dev)
-    g2.manual_seed(11)
-    for b, (p, st) in enumerate(zip(prevs, states)):
-        r1, s1 = register_view(g2, *p, *curr, *st, K, 1, *common, p3p_trials=256)
-        assert torch.equal(rows[b], r1) and torch.equal(scalars[b], s1)
-    assert float(scalars[:, 5].sum()) >= 1  # P3P succeeded in some slot
+    g2.manual_seed(13)
+    for b, c in enumerate(cands):
+        r1, s1 = two_view_init(g2, *first, *c, 0.9, 1e9, nts[b], essential_trials=256)
+        assert torch.equal(rows[b, :, :3], r1[:, :3]), b
+        assert torch.equal(scalars[b, [0, 2, 3]], s1[[0, 2, 3]]), b
+        torch.testing.assert_close(scalars[b, 1], s1[1], rtol=1e-5, atol=0)
+        torch.testing.assert_close(scalars[b, 6:12], s1[6:12], rtol=0, atol=1e-4)
+        torch.testing.assert_close(scalars[b, 12:21], s1[12:21], rtol=0, atol=1e-5)
+        torch.testing.assert_close(scalars[b, 4:6], s1[4:6], rtol=1e-3, atol=0)
+        inl = r1[:, 2] > 0.5
+        torch.testing.assert_close(rows[b, inl, 6:9], r1[inl, 6:9], rtol=1e-3, atol=1e-3)
+    assert float(scalars[:, 3].min()) > 40  # essential-matrix inliers in every slot
+
+
+def test_register_view_pairs_is_bitwise_repeatable(dev):
+    """A 32-slot register_view_pairs step, run twice from generators seeded
+    alike, gives the same bits."""
+    (_, _), (args, _) = _register_slots(dev)
+    outs = []
+    for _ in range(2):
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        outs.append(register_view_pairs(g, *args, p3p_trials=256))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_pose_lm_stop_rules_give_the_same_bits(dev, monkeypatch):
+    """The batched pose LM's lagged stop on the card against a stop read
+    every iteration and against no early stop at all: a slot that has
+    stopped stays frozen, so where the loop ends changes no bit."""
+    (_, _), (args, _) = _register_slots(dev)
+    rules = (ba_core._lm_stop_rule, lambda device: lambda active: not bool(active.any()),
+             lambda device: lambda active: False)
+    outs = []
+    for rule in rules:
+        monkeypatch.setattr(ba_core, "_lm_stop_rule", rule)
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        outs.append(register_view_pairs(g, *args, p3p_trials=256))
+    for rows, scalars in outs[1:]:
+        assert torch.equal(rows, outs[0][0]) and torch.equal(scalars, outs[0][1])
+
+
+def test_batched_step_syncs_do_not_grow_with_slots(dev):
+    """Host syncs of a register_view_pairs step, from the draws to the
+    packed outputs, at B = 1 and at B = 32."""
+    (_, _), (args, _) = _register_slots(dev)
+    counts = []
+    for B in (1, 32):
+        sub = [a[:B] for a in args[:14]] + [args[14][:B], args[15], args[16], args[17][:B]]
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        register_view_pairs(g, *sub, p3p_trials=256)  # warm-up
+        counts.append(count_syncs(lambda: register_view_pairs(g, *sub, p3p_trials=256))[0])
+    assert counts[1] <= counts[0], counts
 
 
 def test_voc_tree_quantize_on_the_card_equals_cpu(dev):

@@ -22,7 +22,8 @@ JAX package.
     package's keys (jax.random.split(key, B), then the step's own split):
     per slot, match rows and counts exactly equal to JAX and the refined
     pose at 1e-4 (register_view's tolerances), and every slot equal bit
-    for bit to the port's single-pair step on the same samples.
+    for bit to the port's single-pair step on the same samples; with a
+    threshold per slot, and with PINHOLE and OPENCV slots in one call.
 """
 
 import numpy as np
@@ -333,6 +334,84 @@ def test_register_view_pairs_matches_jax(scene_feats, rng):
                              1, 0.9, 1e9, float(nts[b]), p3p_trials=TRIALS,
                              samples=samples[b]) for b in range(3)]
     _check_register_slots(rows_t, sc_t, rows_j, sc_j, singles)
+
+
+def test_two_view_init_batch_per_slot_thresholds_matches_jax(scene_feats):
+    """Image 0 against candidates 1, 2 and 1 again, each slot with its own
+    norm threshold, in one batched step."""
+    scene, feats, _ = scene_feats
+    first = _image(scene, feats, 0)
+    cands = [_image(scene, feats, i) for i in (1, 2, 1)]
+    nts = np.array([4.0, 3.5, 1.0], np.float32) / 700.0
+    keys = jax.random.split(jax.random.PRNGKey(31), 3)
+    stack = [np.stack([c[k] for c in cands]) for k in range(4)]
+    rows_j, sc_j = j_two_view_batch(keys, *map(jnp.asarray, first), *map(jnp.asarray, stack),
+                                    jnp.float32(0.9), jnp.float32(1e9), jnp.asarray(nts),
+                                    essential_trials=TRIALS)
+    rows_j, sc_j = np.asarray(rows_j), np.asarray(sc_j)
+    samples = []
+    for b in range(3):
+        valid = jnp.asarray(rows_j[b, :, 1] > 0.5)
+        k_h, k_e = jax.random.split(keys[b])
+        samples.append((np.asarray(sample_indices(k_h, 128, 4, F, valid)),
+                        np.asarray(sample_indices(k_e, TRIALS, 5, F, valid))))
+    batched = tuple(np.stack([sm[k] for sm in samples]) for k in range(2))
+    rows_t, sc_t = two_view_init_batch(None, *_t(*first), *_t(*stack), 0.9, 1e9, nts,
+                                       essential_trials=TRIALS, samples=batched)
+    assert rows_t.shape == rows_j.shape and sc_t.shape == sc_j.shape
+    for b in range(3):
+        np.testing.assert_array_equal(rows_t[b, :, :3].numpy(), rows_j[b, :, :3])
+        np.testing.assert_array_equal(sc_t[b, [0, 2, 3]].numpy(), sc_j[b, [0, 2, 3]])
+        np.testing.assert_allclose(sc_t[b, 1].numpy(), sc_j[b, 1], rtol=1e-5)
+        assert sc_t[b, 3] > 40
+        one = two_view_init(None, *_t(*first), *_t(*cands[b]), 0.9, 1e9, float(nts[b]),
+                            essential_trials=TRIALS, samples=samples[b])
+        assert torch.equal(rows_t[b], one[0]) and torch.equal(sc_t[b], one[1])
+    # Slots 0 and 2 hold the same pair: the tighter threshold keeps fewer
+    # homography inliers.
+    assert sc_t[2, 2] < sc_t[0, 2]
+
+
+def test_register_view_pairs_mixed_models_matches_jax(scene_feats, rng):
+    """register_view_pairs with PINHOLE and OPENCV slots in one call (codes
+    [1, 2, 1]; the OPENCV camera with small nonzero distortion): the port
+    refines each slot's pose under its own model, the JAX package under
+    its vmapped lax.switch."""
+    scene, feats, gt = scene_feats
+    pairs = [(2, 1), (1, 0), (2, 0)]
+    codes = np.array([1, 2, 1], np.int32)
+    Ks = np.stack([scene.cam_params[0]] * 3).astype(np.float32)
+    Ks[1, 4:8] = [2e-3, -1e-3, 5e-4, -5e-4]  # k1, k2, p1, p2
+
+    def image(i, b):
+        k, d, m, _ = _image(scene, feats, i)
+        return k, d, m, jcam.image2normalized_np(k, int(codes[b]), Ks[b]).astype(np.float32)
+
+    currs = [image(c, b) for b, (c, _) in enumerate(pairs)]
+    prevs = [image(p, b) for b, (_, p) in enumerate(pairs)]
+    states = [_prev_state(scene, gt, p, rng) for _, p in pairs]
+    nts = np.array([4.0, 4.0, 4.5], np.float32) / 700.0
+    pst = [np.stack([p[k] for p in prevs]) for k in range(4)]
+    cst = [np.stack([c[k] for c in currs]) for k in range(4)]
+    sst = [np.stack([st[k] for st in states]) for k in range(5)]
+    keys = jax.random.split(jax.random.PRNGKey(37), 3)
+    rows_j, sc_j = j_register_pairs(
+        keys, *map(jnp.asarray, pst), *map(jnp.asarray, cst), *map(jnp.asarray, sst),
+        jnp.asarray(Ks), jnp.asarray(codes), jnp.float32(0.9), jnp.float32(1e9),
+        jnp.asarray(nts), p3p_trials=TRIALS)
+    rows_j, sc_j = np.asarray(rows_j), np.asarray(sc_j)
+    samples, batched = _register_samples(keys, rows_j, [st[1] & st[2] for st in states])
+    rows_t, sc_t = register_view_pairs(None, *_t(*pst), *_t(*cst), *_t(*sst), _t(Ks)[0],
+                                       list(codes), 0.9, 1e9, list(nts), p3p_trials=TRIALS,
+                                       samples=batched)
+    singles = [register_view(None, *_t(*prevs[b]), *_t(*currs[b]), *_t(*states[b], Ks[b]),
+                             int(codes[b]), 0.9, 1e9, float(nts[b]), p3p_trials=TRIALS,
+                             samples=samples[b]) for b in range(3)]
+    _check_register_slots(rows_t, sc_t, rows_j, sc_j, singles)
+    # The OPENCV slot's refinement differs from a PINHOLE refinement of it.
+    pin = register_view(None, *_t(*prevs[1]), *_t(*currs[1]), *_t(*states[1], Ks[1]), 1,
+                        0.9, 1e9, float(nts[1]), p3p_trials=TRIALS, samples=samples[1])
+    assert not torch.equal(pin[1][7:13], sc_t[1, 7:13])
 
 
 def test_mapper_two_stage_selfcal_gcps_and_problem_arrays(scene_feats):
