@@ -57,7 +57,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     rescue, the back-fill, the global bundle adjustment and one closure
     sweep — checking the registered count and the ATE against the JAX
     package's on the CPU, that loops were closed and that batched K1 ran;
-12. submaps: run_pipeline over two runs that end in sub-maps and merge
+12. mesh: the distributed path on 2 ranks that share the card
+    (parallel.launch; gloo, host-staged collectives in rank order), each
+    rank a spawned process that must succeed: (a) the survey's global
+    problem solved sharded by 3-D point (CG), twice, against bundle_adjust
+    on one process (final cost within 1 %, the second solve the first's
+    bits on both ranks; ms per LM iteration at 1 and 2 ranks, host ms in
+    the collectives); (b) run_pipeline with mesh_devices=2 over the
+    survey as in 11, held to the same limits and compared with 11's run;
+    (c) the batched geometry phase's 32-slot register_view_pairs step split
+    over the ranks, every slot equal to the unsharded step bit for bit.
+    K1, K2 and K3 must launch on every rank. Then K2 and K3 at rank 0's
+    shard of the survey's problem and K1 at a rank's 16-slot block, held
+    and timed as in phase 4;
+13. submaps: run_pipeline over two runs that end in sub-maps and merge
     them into one map on the native track store: "restart", bench.py's
     scene with frames 13-14 given unrelated descriptors, so that one failed
     frame starts a new sub-map (no loop detection); "segments", a 60-image
@@ -67,7 +80,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     one map, at least its registered count and under 2x its ATE; K1-K3
     launched, batched K1 inside the segments run's merge, and more common
     images after its cross-loop closures than before;
-13. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
+14. cli: the command-line mapper (mavmap_tpu_torch.cli, in process) from
     pixels: a 40-image survey written as PNG files with imagedata.txt (IMU
     roll/pitch/yaw), a control-point file and a vocabulary tree trained on
     the port's own detections; run 1 detects on the card and maps with
@@ -76,14 +89,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     the JAX package's CLI on the same files (benchmarks/jax_cli_yardstick.py)
     and to absolute limits; then the detector's device and host time per
     frame at 800x600 and at one 4000x3000 frame;
-14. prints the kernels' JSON line, the card line, and last the result line.
+15. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping run (5-7, 9, 11-12) and read
-just after it (12: the sum of its two runs; 13: the counts span both CLI
-runs). The smoke's total seconds are printed last but two, against its
+counters are zeroed just before each mapping run (5-7, 9, 11-13) and read
+just after it (12: each rank's counts of its pipeline run, summed over the
+ranks; 13: the sum of its two runs; 14: the counts span both CLI runs). The smoke's total seconds are printed last but two, against its
 1200 s limit. Imports
 nothing of JAX or of the JAX package.
 """
@@ -427,7 +440,12 @@ def check_match(torch, dev):
     return out
 
 
-def check_match_batched(torch, dev):
+# K1's batched layouts (slots, shared side: 0 none / 1 first / 2 second,
+# prefilter) timed in the kernels phase.
+K1_LAYOUTS = ((32, 1, True), (32, 2, True), (32, 0, True), (30, 1, False), (64, 0, False))
+
+
+def check_match_batched(torch, dev, layouts=K1_LAYOUTS):
     """K1 with a slot axis at the mapper's batched shapes, each 1024x1024x128:
     32 slots with the first side shared and the prefilter on (the batched
     two-view search), 32 slots with the second side shared and the prefilter
@@ -442,8 +460,7 @@ def check_match_batched(torch, dev):
 
     rng = __import__("numpy").random.default_rng(6)
     out = []
-    for B, shared, prefilter in ((32, 1, True), (32, 2, True), (32, 0, True), (30, 1, False),
-                                 (64, 0, False)):
+    for B, shared, prefilter in layouts:
         pairs, maxd = zip(*[_match_inputs(torch, rng, dev, 1024, 1024) for _ in range(B)])
         # Per-slot stacks of (d1, d2, m1, m2, kp1, kp2); the shared side is slot 0's.
         t = [pairs[0][i] if shared and i % 2 == shared - 1 else torch.stack([p[i] for p in pairs])
@@ -714,12 +731,14 @@ def main_path_phase(torch, dev):
     return launches
 
 
-def bench_loop(torch, dev, scene, prov, n_images, seed=0):
+def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False):
     """bench.py's run() without its pipelining option, through the port:
     chains of CHAIN frames (process_chain_k, pad_to=CHAIN) with one
     deferred asynchronous 10-image self-calibrating window bundle
     adjustment per chain, process() where a chain cannot run, flush_ba and
-    the 30-iteration global bundle adjustment. Returns (mapper, stats)."""
+    the 30-iteration global bundle adjustment. Returns (mapper, stats);
+    with keep_global, stats["global_arrays"] holds the global problem's
+    host arrays as they stand before its solve (outside the timings)."""
     from mavmap_tpu_torch.ba import BAOptions
     from mavmap_tpu_torch.sfm import SequentialMapper
 
@@ -780,6 +799,15 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0):
     m.flush_ba()
     _sync(torch, dev)
     st["flush_s"] = time.perf_counter() - t0
+    global_arrays = None
+    if keep_global:
+        t0 = time.perf_counter()
+        _, poses, _, points, oi, op, oc, xy = m.ba_problem_arrays()
+        global_arrays = dict(
+            poses=poses, points=points, cam_params=m.store.camera_params.astype("float32"),
+            cam_models=m.store.camera_models.copy(), obs_image=oi, obs_point=op, obs_cam=oc,
+            obs_uv=xy)
+        t_start += time.perf_counter() - t0
     window_iters = m.counters.get("ba_iters", 0)
     t0 = time.perf_counter()
     ginfo = m.adjust_global_bundle(BAOptions(max_num_iterations=30,
@@ -792,7 +820,8 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0):
                "global": ginfo, "chains": c.get("chains", 0), "pulls": c.get("pulls", 0),
                "ba_applied": c.get("ba_applied", 0),
                "two_stage_selfcal": "ba_selfcal_iters" in c,
-               "window_prob": window_prob[0] if window_prob else None}
+               "window_prob": window_prob[0] if window_prob else None,
+               "global_arrays": global_arrays}
 
 
 def _report_loop(name, m, n_images, ate, ate_limit, s, launches):
@@ -902,7 +931,8 @@ def _survey_scene():
 def survey_phase(torch, dev, scene, feats):
     """bench.py's chained loop over benchmarks/pipeline_scale.py's scene at
     SURVEY_IMAGES images; the global BA resolves to CG. Returns (launches,
-    the global problem as built for the kernel checks)."""
+    the global problem as built for the kernel checks, its host arrays
+    before the global solve for the mesh phase's distributed solve)."""
     from mavmap_tpu_torch.ba import build_problem
     from mavmap_tpu_torch.ba.core import solver_plans, with_plans
     from mavmap_tpu_torch.ops.cuda import build
@@ -913,7 +943,7 @@ def survey_phase(torch, dev, scene, feats):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
-    m, s = bench_loop(torch, dev, scene, prov, SURVEY_IMAGES)
+    m, s = bench_loop(torch, dev, scene, prov, SURVEY_IMAGES, keep_global=True)
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     ate = float(mapper_ate(m, scene))
@@ -952,7 +982,7 @@ def survey_phase(torch, dev, scene, feats):
     lm_iters = s["window_iters"] + g["iterations"]
     _check_launches("survey", launches, SURVEY_IMAGES - 1, lm_iters + sum(cg),
                     f"{lm_iters} LM and {sum(cg)} CG iterations")
-    return launches, prob
+    return launches, prob, s["global_arrays"]
 
 
 def check_survey_shapes(torch, dev, prob):
@@ -1264,7 +1294,290 @@ def pipeline_phase(torch, dev, scene, feats):
         raise AssertionError("pipeline: batched K1 never launched")
     lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
     _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
-    return dict(launches, match_batched_slots=slots["match_batched"])
+    return dict(launches, match_batched_slots=slots["match_batched"]), _map_summary(res, scene,
+                                                                                   wall)
+
+
+def _map_summary(res, scene, wall):
+    """What the mesh phase compares between one and two ranks: registered
+    images, their poses, the ATE, the closures, the host ms per batched
+    slot and the wall seconds."""
+    import numpy as np
+    from mavmap_tpu_torch.utils.synthetic import mapper_ate
+
+    m = res.main_mapper
+    reg = sorted(m.image_idx_to_id)
+    rep = m.report()
+    return dict(registered=reg, poses=np.stack([np.concatenate(m.get_pose(i)) for i in reg]),
+                ate=float(mapper_ate(m, scene)), maps=len(res.mappers),
+                closures=rep.get("loop_closures", 0) + rep.get("sweep_closures", 0),
+                slot_ms=1000 * rep.get("batch_register_s", 0.0)
+                / max(rep.get("batch_register_slots", 0), 1),
+                slots=rep.get("batch_register_slots", 0), wall=wall,
+                global_ba_s=res.timings.get("global_ba", 0.0),
+                collective_s=rep.get("ba_collective_s", 0.0))
+
+
+# --------------------------------------------------------------------- mesh
+
+MESH_RANKS = 2
+# The global solves of the mesh phase: the pipeline's global BA options
+# with the intrinsics held fixed (the distributed solve's stage 2).
+MESH_BA = dict(max_num_iterations=50, function_tolerance=1e-4, min_track_len=2)
+# Bounds on the largest pose difference to one process, set from the first
+# card runs (NVIDIA H100 80GB HBM3: 2.73e-5 for the global BA, 2.20e-4 for
+# the pipeline's map): a dropped or doubled sum in the distributed solve
+# still descends, and may still end near the one-process cost.
+MESH_BA_POSE_TOL = 5e-4
+MESH_PIPELINE_POSE_TOL = 2e-3
+
+
+def _global_states(n):
+    return [1, 2] + [0] * (n - 2)  # BA_POSE_FIXED, BA_POSE_FIXED_X, free
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def mesh_rank(mesh, raw, geometry_first):
+    """One rank of the mesh phase (a spawned process; returns its results
+    to the launcher): (c) its block of the 32-slot register_view_pairs
+    step, (a) the distributed global BA of the survey's problem, twice, and
+    (b) run_pipeline with mesh_devices=MESH_RANKS over the survey. The
+    launch counters are zeroed before each and read after it."""
+    import torch
+    import torch.distributed as dist
+    from mavmap_tpu_torch.ba import BAOptions
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.parallel import (dist_bundle_adjust, dist_register_view_pairs,
+                                           partition_problem)
+    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
+
+    dev = mesh.device
+    if dev.type == "cuda":
+        build.library()  # the launcher built it: a failed load raises here
+    scene, feats, gt = _survey_scene()
+    out = dict(rank=mesh.rank, backend=dist.get_backend(), device=str(dev),
+               name=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+
+    # (c) the 32-slot step, this rank's block.
+    args = geometry_inputs(torch, dev, scene, feats, gt, GEOMETRY_SLOTS[-1], geometry_first)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    build.reset_launches()
+    rows, scalars = dist_register_view_pairs(mesh, gen, *args, p3p_trials=512)
+    out["step"] = dict(rows=rows.cpu().numpy(), scalars=scalars.cpu().numpy(),
+                       block=mesh.block(GEOMETRY_SLOTS[-1]), launches=dict(build.launches))
+
+    # (a) the distributed global BA, twice.
+    prob, new_index, per = partition_problem(
+        raw["poses"], raw["points"], raw["cam_params"], raw["cam_models"], raw["obs_image"],
+        raw["obs_point"], raw["obs_cam"], raw["obs_uv"], mesh.size,
+        pose_states=_global_states(len(raw["poses"])), bucket=True, shard=mesh.rank)
+    solves = []
+    for _ in range(2):
+        build.reset_launches()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        poses, points, info = dist_bundle_adjust(mesh, prob, BAOptions(**MESH_BA), per)
+        wall = time.perf_counter() - t0
+        solves.append(dict(poses=poses, points=points[new_index], info=info, wall=wall,
+                           launches=dict(build.launches), obs=int(prob.obs_mask.sum()),
+                           shard_rows=int(prob.obs_mask.shape[0]),
+                           dense_points=int(prob.point_rows.shape[0])))
+    out["ba"] = solves
+
+    # (b) the pipeline on every rank.
+    tree = pipeline_tree(feats, dev)
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
+                       _provider(feats), PipelineOptions(**PIPELINE_OPTS,
+                                                         mesh_devices=mesh.size),
+                       voc_tree=tree, device=dev)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    out["pipeline"] = dict(_map_summary(res, scene, wall), launches=dict(build.launches),
+                           counters=res.main_mapper.report(), timings=res.timings)
+    return out
+
+
+def mesh_phase(torch, dev, scene, feats, gt, raw, pipe_ref):
+    """The distributed path on MESH_RANKS ranks that share the card (gloo,
+    host-staged collectives), started with parallel.launch (a rank that
+    fails fails the launch, and the smoke). Against one process: (a) the
+    distributed global BA of the survey's problem against bundle_adjust
+    (final cost within 1 %, poses within MESH_BA_POSE_TOL, the second solve
+    the first's bits), (b) run_pipeline with mesh_devices=MESH_RANKS
+    against the pipeline phase's run (PERF.md section 2's limits: every
+    image, ATE, closures; the same registered images and closures, poses
+    within MESH_PIPELINE_POSE_TOL), (c) the 32-slot register_view_pairs
+    step split over the ranks against the unsharded step, slot by slot, bit
+    for bit. K1-K3 must launch on every rank. Returns (the ranks' summed
+    launches of (b), the kernels timed at a rank's shapes)."""
+    import numpy as np
+    from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
+    from mavmap_tpu_torch.parallel import launch
+    from mavmap_tpu_torch.sfm.kernels import register_view_pairs
+
+    _phase("mesh")
+    B = GEOMETRY_SLOTS[-1]
+    first = 0  # the batched geometry phase's pairs 0->1 .. 31->32
+    args = geometry_inputs(torch, dev, scene, feats, gt, B, first)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows, scalars = register_view_pairs(gen, *args, p3p_trials=512)
+    rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
+
+    prob = build_problem(raw["poses"], raw["points"], raw["cam_params"], raw["cam_models"],
+                         raw["obs_image"], raw["obs_point"], raw["obs_cam"], raw["obs_uv"],
+                         pose_states=_global_states(len(raw["poses"])), bucket=True)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    p1, x1, info1 = bundle_adjust(prob, BAOptions(**MESH_BA), dev)
+    wall1 = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, dev.type, args=(raw, first))
+    launch_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"mesh: {MESH_RANKS} ranks, backend {r0['backend']}, devices "
+          f"{[r['device'] for r in ranks]} ({r0['name']}); the launch took {launch_s:.1f} s",
+          flush=True)
+
+    # (c)
+    for r in ranks:
+        diff = [b for b in range(B) if not (_same_bits(r["step"]["rows"][b], rows[b])
+                                            and _same_bits(r["step"]["scalars"][b], scalars[b]))]
+        if diff:
+            raise AssertionError(f"mesh (c): rank {r['rank']}'s gathered {B}-slot step differs "
+                                 f"from the unsharded step in slots {diff}")
+    print(f"mesh (c): the {B}-slot register_view_pairs step split over the ranks "
+          f"(blocks {[r['step']['block'] for r in ranks]}, K1 launches per rank "
+          f"{[r['step']['launches']['match'] for r in ranks]}): {B}/{B} slots equal the "
+          f"unsharded step bit for bit on every rank", flush=True)
+
+    # (a)
+    it1 = max(info1["iterations"], 1)
+    first_solve, second_solve = r0["ba"]
+    for r in ranks:
+        for k in range(2):
+            for key in ("poses", "points"):
+                if not _same_bits(r["ba"][k][key], first_solve[key]):
+                    raise AssertionError(f"mesh (a): rank {r['rank']} solve {k + 1} {key} "
+                                         "differ from rank 0's first solve")
+    info = first_solve["info"]
+    it2 = max(info["iterations"], 1)
+    n = len(raw["poses"])
+    pose_d = float(np.abs(first_solve["poses"][:n] - p1[:n]).max())
+    rel = abs(info["final_cost"] - info1["final_cost"]) / info1["final_cost"]
+    rec = dict(observations=int(len(raw["obs_uv"])), points=int(len(raw["points"])),
+               cameras=int(len(raw["poses"])), solver=info["solver"],
+               shard_observations=[r["ba"][0]["obs"] for r in ranks],
+               shard_dense_points=[r["ba"][0]["dense_points"] for r in ranks],
+               initial_cost=info["initial_cost"], final_cost=info["final_cost"],
+               single_final_cost=info1["final_cost"], rel_cost_diff=rel,
+               lm_iters=info["iterations"], single_lm_iters=info1["iterations"],
+               cg_iters=info["cg_iters"], single_cg_iters=info1["cg_iters"],
+               max_pose_diff=pose_d, ms_per_lm_iter_1rank=1000 * wall1 / it1,
+               ms_per_lm_iter_2ranks=[1000 * r["ba"][0]["wall"] / it2 for r in ranks],
+               ms_per_lm_iter_2ranks_repeat=[1000 * r["ba"][1]["wall"] / it2 for r in ranks],
+               collective_ms_per_lm_iter=[1000 * r["ba"][0]["info"]["collective_s"] / it2
+                                          for r in ranks],
+               collectives_per_lm_iter=r0["ba"][0]["info"]["collectives"] / it2,
+               launches=[r["ba"][0]["launches"] for r in ranks])
+    print("mesh (a) global BA " + json.dumps(rec), flush=True)
+    if info["solver"] != "cg":
+        raise AssertionError(f"mesh (a): the distributed solve ran {info['solver']}, not CG")
+    if not rel < 0.01:
+        raise AssertionError(f"mesh (a): final cost {info['final_cost']} against "
+                             f"{info1['final_cost']} on one device")
+    if not pose_d <= MESH_BA_POSE_TOL:
+        raise AssertionError(f"mesh (a): poses {pose_d} from the one-device solve's "
+                             f"(bound {MESH_BA_POSE_TOL})")
+    print(f"mesh (a): the second {MESH_RANKS}-rank solve repeats the first bit for bit on "
+          f"every rank", flush=True)
+
+    # (b)
+    p0 = r0["pipeline"]
+    for r in ranks[1:]:
+        if not (r["pipeline"]["registered"] == p0["registered"]
+                and _same_bits(r["pipeline"]["poses"], p0["poses"])):
+            raise AssertionError(f"mesh (b): rank {r['rank']}'s map differs from rank 0's")
+    common = sorted(set(p0["registered"]) & set(pipe_ref["registered"]))
+    ia = [p0["registered"].index(i) for i in common]
+    ib = [pipe_ref["registered"].index(i) for i in common]
+    pose_d = float(np.abs(p0["poses"][ia] - pipe_ref["poses"][ib]).max()) if common else None
+    limit = 2.0 * JAX_CPU_PIPELINE_ATE_M
+    rec = dict(registered=len(p0["registered"]), maps=p0["maps"], ate=p0["ate"],
+               ate_1rank=pipe_ref["ate"], closures=p0["closures"],
+               closures_1rank=pipe_ref["closures"],
+               wall_s=[r["pipeline"]["wall"] for r in ranks], wall_1rank_s=pipe_ref["wall"],
+               host_ms_per_slot=[r["pipeline"]["slot_ms"] for r in ranks],
+               host_ms_per_slot_1rank=pipe_ref["slot_ms"], slots=p0["slots"],
+               global_ba_s=[r["pipeline"]["global_ba_s"] for r in ranks],
+               collective_s=[r["pipeline"]["collective_s"] for r in ranks],
+               max_pose_diff_vs_1rank=pose_d,
+               launches=[r["pipeline"]["launches"] for r in ranks],
+               timings_s=[{k: round(v, 4) for k, v in r["pipeline"]["timings"].items()}
+                          for r in ranks])
+    print("mesh (b) pipeline " + json.dumps(rec), flush=True)
+    if len(p0["registered"]) < JAX_CPU_PIPELINE_REGISTERED or p0["maps"] != 1:
+        raise AssertionError(f"mesh (b): registered {len(p0['registered'])}/{SURVEY_IMAGES} "
+                             f"in {p0['maps']} maps")
+    if not p0["ate"] < limit:
+        raise AssertionError(f"mesh (b): ATE {p0['ate']} m >= {limit} m")
+    if p0["closures"] <= 0:
+        raise AssertionError("mesh (b): no loop closure committed")
+    if p0["registered"] != pipe_ref["registered"] or p0["closures"] != pipe_ref["closures"]:
+        raise AssertionError(f"mesh (b): {len(p0['registered'])} registered and "
+                             f"{p0['closures']} closures against one process's "
+                             f"{len(pipe_ref['registered'])} and {pipe_ref['closures']}")
+    if not pose_d <= MESH_PIPELINE_POSE_TOL:
+        raise AssertionError(f"mesh (b): poses {pose_d} from one process's "
+                             f"(bound {MESH_PIPELINE_POSE_TOL})")
+    for r in ranks:
+        for what, launches in (("(a)", r["ba"][0]["launches"]),
+                               ("(b)", r["pipeline"]["launches"])):
+            need = ("seg_accum_full", "seg_accum_sorted") + (("match",) if what == "(b)" else ())
+            for k in need:
+                if launches[k] <= 0:
+                    raise AssertionError(f"mesh {what}: rank {r['rank']} never launched {k}")
+        if r["step"]["launches"]["match"] != 1:
+            raise AssertionError(f"mesh (c): rank {r['rank']} launched K1 "
+                                 f"{r['step']['launches']['match']} times")
+    total = {k: sum(r["pipeline"]["launches"][k] for r in ranks)
+             for k in r0["pipeline"]["launches"]}
+    return total, check_shard_shapes(torch, dev, raw)
+
+
+def check_shard_shapes(torch, dev, raw):
+    """The kernels at one rank's shapes of the mesh phase: K2 and K3 at
+    rank 0's shard of the survey's global problem (the CG matvec's (O, 6)
+    into the I images and (O, 3) into its dense points), K1 at the
+    register_view_pairs block of MESH_RANKS ranks (16 slots), each held to
+    its plain version and timed as in the kernels phase."""
+    import numpy as np
+    from mavmap_tpu_torch.parallel import partition_problem
+
+    _phase("kernels at a rank's shapes")
+    prob, _, _ = partition_problem(
+        raw["poses"], raw["points"], raw["cam_params"], raw["cam_models"], raw["obs_image"],
+        raw["obs_point"], raw["obs_cam"], raw["obs_uv"], MESH_RANKS,
+        pose_states=_global_states(len(raw["poses"])), bucket=True, shard=0)
+    rng = np.random.default_rng(4)
+    O, I = prob.obs_image.shape[0], prob.poses.shape[0]
+    c = torch.as_tensor(rng.normal(size=(O, 6)).astype(np.float32), device=dev)
+    full = _check_seg_full_shape(torch, c, torch.as_tensor(prob.obs_image, device=dev), I,
+                                 "rank 0's shard")
+    Pd = prob.point_rows.shape[0]
+    c = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32), device=dev)
+    srt = _check_seg_sorted_shape(torch, c, torch.as_tensor(prob.pt_offsets, device=dev), Pd,
+                                  "rank 0's shard")
+    batched = check_match_batched(torch, dev, ((GEOMETRY_SLOTS[-1] // MESH_RANKS, 0, True),))
+    return dict(full=[full], sorted=[srt], batched=batched)
 
 
 # ------------------------------------------------------------------ submaps
@@ -1817,14 +2130,20 @@ def main():
     kp = check_ptblk_shapes(torch, dev, m, window_prob)
     del m, window_prob
     scene, feats, gt = _survey_scene()
-    phases["survey"], survey_prob = survey_phase(torch, dev, scene, feats)
+    phases["survey"], survey_prob, survey_raw = survey_phase(torch, dev, scene, feats)
     _phase("kernels at the survey's shapes")
     ks = check_survey_shapes(torch, dev, survey_prob)
     del survey_prob
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
     batched_geometry_phase(torch, dev, scene, feats, gt)
-    phases["pipeline"] = pipeline_phase(torch, dev, scene, feats)
-    del scene, feats, gt
+    phases["pipeline"], pipe_ref = pipeline_phase(torch, dev, scene, feats)
+    phases["mesh"], km = mesh_phase(torch, dev, scene, feats, gt, survey_raw, pipe_ref)
+    k1["batched"] += km["batched"]
+    ks["full"] += km["full"]
+    ks["sorted"] += km["sorted"]
+    ks["max_abs_err"] = max([ks["max_abs_err"]] + [r["max_abs_err"] for r in km["full"]])
+    ks["sorted_err"] = max([ks["sorted_err"]] + [r["max_abs_err"] for r in km["sorted"]])
+    del scene, feats, gt, survey_raw
     phases["submaps"] = submaps_phase(torch, dev)
     phases["cli"], _ = cli_phase(torch, dev)
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s of its {SMOKE_LIMIT_S} s limit",

@@ -24,7 +24,13 @@ matvec's included; on the CPU the wrappers run their plain PyTorch
 versions, K2's keyed by the same plans. Every sum of a solve adds in an
 order fixed by its plan or its offsets, none by atomics, so a solve gives
 the same bits on every run. The LM and CG loops are Python loops with an
-early exit (one host sync per iteration).
+early exit (one host sync per iteration). A singular reduced system gives
+a NaN step, which the LM rejects, as XLA's solve does in the JAX package.
+
+The point-sharded solve (parallel/dist_ba.py) runs these loops with a
+`psum` hook: the rank-ordered sum over the ranks of the camera system's
+pieces (the JAX package's jax.lax.psum over the mesh axis). Without the
+hook every function computes exactly what the single-device solve does.
 
 `bundle_adjust_async` keeps the JAX package's dispatch/finalize interface
 but runs the solve when it is called: the loops sync the host every
@@ -39,7 +45,7 @@ import torch
 from torch.func import jacfwd, jvp, vmap
 
 from ..models import camera as cam
-from ..ops.essential import solve_or_nan
+from ..ops.essential import inv_or_nan, solve_or_nan
 from ..ops.projection import compose_proj_matrix, transform_points
 from ..ops.reduce import sum_pairwise
 from ..ops.cuda.ba_accum import (
@@ -320,21 +326,25 @@ def _cauchy_weight(res_sq_norm, scale):
     return 1.0 / (1.0 + res_sq_norm / (scale * scale))
 
 
-def _robust_cost(prob: BAProblem, poses, r2, scale):
+def _robust_cost(prob: BAProblem, poses, r2, scale, psum=None):
+    """0.5 sum rho over the observations (summed over the ranks by `psum`),
+    plus the rotation priors, which every rank holds whole: added once."""
     s = r2[0] * r2[0] + r2[1] * r2[1]
     c2 = scale * scale
     rho = c2 * torch.log1p(s / c2)
     cost = 0.5 * torch.sum(torch.where(prob.obs_mask, rho, torch.zeros_like(rho)))
+    if psum is not None:
+        cost = psum(cost)
     rr = _rot_residuals(prob, poses)
     return cost + 0.5 * torch.sum(rr * rr)
 
 
-def _total_cost_d(prob: BAProblem, poses, points_d, scale):
+def _total_cost_d(prob: BAProblem, poses, points_d, scale, psum=None):
     """Robust total cost over DENSE points."""
     r2 = cm.residual_cols(
         poses[prob.obs_image], points_d[prob.obs_point_dense],
         prob.cam_params[prob.obs_cam], prob.cam_models[prob.obs_cam], prob.obs_uv)
-    return _robust_cost(prob, poses, r2, scale)
+    return _robust_cost(prob, poses, r2, scale, psum)
 
 
 def _total_cost_selfcal_d(prob: BAProblem, poses, points_d, cam_params, scale):
@@ -382,7 +392,7 @@ def _seg_pt(prob: BAProblem, vals):
     return seg_accum_sorted(flat, prob.pt_offsets, Pd).reshape((Pd,) + vals.shape[1:])
 
 
-def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
+def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale, psum=None):
     """Normal-equation blocks of the pose-only system. points_d is DENSE.
 
     Returns (U, Vinv, bp, G, T, g_red):
@@ -390,6 +400,11 @@ def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
       Vinv (Pd,9) flat inverse damped point blocks, bp (Pd,3) point
       gradients, G (O,18) flat couplings Jc^T W Jp, T (O,18) flat G V^-1,
       g_red (I,6) reduced gradient bc - sum_o T_o bp[pt_o].
+
+    With `psum` (observations sharded by point over ranks) the per-image
+    sums U, bc and the reduced gradient's are summed over the ranks, U and
+    bc before the replicated priors and the damping are added; V, bp, G and
+    T stay shard-local, since every observation of a point is on one shard.
     """
     I = poses.shape[0]
     r2, Jc, Jp = cm.residual_jacobian_cols(
@@ -410,6 +425,8 @@ def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
     # Per-image 6x6 blocks + gradient: one (O, 42) reduction.
     UB = _seg_plan(prob.plan_img,
                    cm.stack_cols(cm.jtwj_cols(Jc, Jc, w) + cm.jtwr_cols(Jc, r2, w)))
+    if psum is not None:
+        UB = psum(UB)
     U = UB[:, :36].reshape(I, 6, 6)
     bc = UB[:, 36:]
     # Per-point 3x3 blocks + gradient: one (O, 12) reduction.
@@ -437,6 +454,8 @@ def _assemble_blocks(prob: BAProblem, poses, points_d, lam, scale):
 
     bp_o = cm.cols_of(bp[prob.obs_point_dense])
     g_local = _seg_plan(prob.plan_img, cm.stack_cols(cm.matvec_cols(Tcols, bp_o, 6, 3)))
+    if psum is not None:
+        g_local = psum(g_local)
     return U, Vinv, bp, G, T, bc - g_local
 
 
@@ -469,13 +488,17 @@ def _ptblk_agg(prob: BAProblem, plan, T, G):
             agg[..., k:].reshape(Pd, nblk, k // 3, 3))
 
 
-def _lm_step(prob: BAProblem, poses, points_d, lam, scale):
-    """One damped LM solve (exact dense Schur): (dposes, dpoints_d)."""
+def _lm_step(prob: BAProblem, poses, points_d, lam, scale, psum=None):
+    """One damped LM solve (exact dense Schur): (dposes, dpoints_d); NaN
+    where the reduced system is singular. With `psum` the Schur
+    off-diagonal is summed over the ranks too."""
     I = poses.shape[0]
-    U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale)
+    U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale, psum)
 
     That, Ghat = _ptblk_agg(prob, prob.plan_ptimg, [T], [G])  # (Pd, I, 6, 3) each
     S_off = torch.einsum("pbij,pckj->bcik", That, Ghat)
+    if psum is not None:
+        S_off = psum(S_off)
     idx = torch.arange(I, device=poses.device)
     S = -S_off
     S[idx, idx] += U
@@ -484,7 +507,7 @@ def _lm_step(prob: BAProblem, poses, points_d, lam, scale):
     free = prob.pose_free.reshape(I * 6)
     Sd = Sd * free[:, None] * free[None, :] + torch.diag(1.0 - free)
     gd = g_red.reshape(I * 6) * free
-    dc = -torch.linalg.solve(Sd, gd).reshape(I, 6) * prob.pose_free
+    dc = -solve_or_nan(Sd, gd).reshape(I, 6) * prob.pose_free
     return dc, _backsub_points(prob, Vinv, bp, G, dc)
 
 
@@ -516,7 +539,7 @@ def _pcg(matvec, Minv, b, free, cg_iters, cg_tol, stats=None):
 
 
 def _lm_step_cg(prob: BAProblem, poses, points_d, lam, scale, cg_iters: int, cg_tol,
-                stats=None):
+                stats=None, psum=None):
     """One damped LM solve by matrix-free preconditioned CG on the reduced
     camera system (Ceres ITERATIVE_SCHUR + SCHUR_JACOBI in spirit; the
     reference uses SPARSE_SCHUR, bundle_adjustment.cc:554-569).
@@ -525,16 +548,21 @@ def _lm_step_cg(prob: BAProblem, poses, points_d, lam, scale, cg_iters: int, cg_
     the observations per CG iteration (reduce by point — K3, scatter back
     by image — K2); no co-observation pairs are enumerated. The
     preconditioner is the exact 6x6 diagonal blocks of S,
-    D_i = U_i - sum_{o: img_o = i} T_o G_o^T (one K2 reduction).
+    D_i = U_i - sum_{o: img_o = i} T_o G_o^T (one K2 reduction); a singular
+    block gives NaN, and the LM rejects the step. With `psum` the
+    preconditioner's and each matvec's per-image sums are summed over the
+    ranks: one (I, 6) sum per CG iteration.
     Returns (dposes, dpoints_d)."""
     I = poses.shape[0]
-    U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale)
+    U, Vinv, bp, G, T, g_red = _assemble_blocks(prob, poses, points_d, lam, scale, psum)
     free = prob.pose_free
     D_local = _seg_plan(prob.plan_img, cm.stack_cols(
         cm.abt_cols(cm.cols_of(T), cm.cols_of(G), 6, 3, 6))).reshape(I, 6, 6)
+    if psum is not None:
+        D_local = psum(D_local)
     # Pin fixed components so the blocks stay invertible.
     D = (U - D_local) * free[:, :, None] * free[:, None, :] + torch.diag_embed(1.0 - free)
-    Minv = torch.linalg.inv(D)
+    Minv = inv_or_nan(D)
 
     G3 = G.reshape(-1, 6, 3)
     V3 = Vinv.reshape(-1, 3, 3)
@@ -544,6 +572,8 @@ def _lm_step_cg(prob: BAProblem, poses, points_d, lam, scale, cg_iters: int, cg_
         tp = _seg_pt(prob, cm.matTvec(G3, x[prob.obs_image]))
         s = cm.matvec(V3, tp)
         y2 = _seg_plan(prob.plan_img, cm.matvec(G3, s[prob.obs_point_dense]))
+        if psum is not None:
+            y2 = psum(y2)
         return (y - y2) * free
 
     x = _pcg(matvec, Minv, -g_red * free, free, cg_iters, cg_tol, stats)
@@ -667,7 +697,7 @@ def _lm_step_selfcal(prob: BAProblem, poses, points_d, cam_params, cam_free, lam
     Sd = S.permute(0, 2, 1, 3).reshape(B * 9, B * 9)
     Sd = Sd * free[:, None] * free[None, :] + torch.diag(1.0 - free)
     gd = g_red.reshape(B * 9) * free  # the REDUCED gradient
-    dx = -torch.linalg.solve(Sd, gd).reshape(B, 9)
+    dx = -solve_or_nan(Sd, gd).reshape(B, 9)
     dc = dx[:I, :6] * prob.pose_free
     dk = dx[I:] * cam_free
     return dc, _selfcal_backsub(prob, Vinv, bp, Gcols, blk, dx), dk
@@ -698,7 +728,7 @@ def _lm_step_selfcal_cg(prob: BAProblem, poses, points_d, cam_params, cam_free, 
         cm.stack_cols(cm.abt_cols(Tcols[a], Gcols[a], 9, 3, 9)) for a in range(2)])).reshape(
         B, 9, 9)
     D = (Ddiag + torch.diag_embed(damp) - D_schur) * free[:, :, None] * free[:, None, :]
-    Minv = torch.linalg.inv(D + torch.diag_embed(1.0 - free))
+    Minv = inv_or_nan(D + torch.diag_embed(1.0 - free))
 
     E3 = [torch.stack([cm.stack_cols(Ecols[a][k]) for k in range(2)], dim=1)
           for a in range(2)]  # (O, 2, 9) per entry
@@ -782,12 +812,14 @@ def _lm_loop_selfcal(prob: BAProblem, cam_free, scale, lambda_init, lambda_up,
 
 def _lm_loop(prob: BAProblem, scale, lambda_init, lambda_up, lambda_down,
              function_tolerance, max_iters: int, solver: str = "dense",
-             cg_max_iters: int = 100, cg_tol: float = 1e-3, stats=None):
+             cg_max_iters: int = 100, cg_tol: float = 1e-3, stats=None, psum=None):
     """LM over poses and dense points. Returns (poses, points, cost,
-    init_cost, iterations)."""
+    init_cost, iterations). With `psum` (parallel/dist_ba.py) the cost and
+    the camera system are summed over the ranks, so every rank takes the
+    same steps and decisions; each rank's points are its shard's."""
     points_d = _gather_dense_points(prob, prob.points)
     poses = prob.poses
-    cost = _total_cost_d(prob, poses, points_d, scale)
+    cost = _total_cost_d(prob, poses, points_d, scale, psum)
     init_cost = cost
     lam = torch.tensor(lambda_init, dtype=torch.float32, device=poses.device)
     rel_prev = torch.tensor(1.0, dtype=torch.float32, device=poses.device)
@@ -795,11 +827,11 @@ def _lm_loop(prob: BAProblem, scale, lambda_init, lambda_up, lambda_down,
     while it < max_iters:
         if solver == "cg":
             dc, dp = _lm_step_cg(prob, poses, points_d, lam, scale, cg_max_iters,
-                                 _cg_tolerance(rel_prev, cg_tol), stats)
+                                 _cg_tolerance(rel_prev, cg_tol), stats, psum)
         else:
-            dc, dp = _lm_step(prob, poses, points_d, lam, scale)
+            dc, dp = _lm_step(prob, poses, points_d, lam, scale, psum)
         new_poses, new_points = poses + dc, points_d + dp
-        new_cost = _total_cost_d(prob, new_poses, new_points, scale)
+        new_cost = _total_cost_d(prob, new_poses, new_points, scale, psum)
         accept = new_cost < cost
         poses = torch.where(accept, new_poses, poses)
         points_d = torch.where(accept, new_points, points_d)

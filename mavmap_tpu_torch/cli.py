@@ -8,7 +8,12 @@ binary PGM, read without Pillow by utils/imageio.py) for the detector, or
 cached feature .npz files; output: estimated poses, point clouds and
 VRML/PLY models; sub-maps are merged into one unless --no-merge, and
 --parallel-segments N maps N overlapping segments before that merge.
-Options the port does not carry (--mesh != 1, --pipeline-chains,
+--mesh N runs the mapping on N torch.distributed ranks (started here
+through parallel.launch, or the ranks of a torchrun environment): the
+global bundle adjustment is sharded by 3-D point and the batched fan-outs
+split their slots over the ranks; rank 0 writes the outputs, and the exit
+code is rank 0's once every rank has finished (a rank that fails makes it
+non-zero). Options the port does not carry (--pipeline-chains,
 --matcher-backend other than auto) are refused by run_pipeline's
 NotImplementedError, and the CLI exits with 1.
 
@@ -175,8 +180,9 @@ def build_parser():
                         "frames during mapping (0 = only at the end), so a "
                         "preempted run resumes with --load-map")
     p.add_argument("--mesh", type=int, default=1,
-                   help="device-mesh size for distributed global BA (beyond "
-                        "the reference); only 1 (one device) is ported")
+                   help="ranks for the distributed global BA and the sharded "
+                        "batched fan-outs (beyond the reference): 1 = this "
+                        "process, 0 = one per visible CUDA device")
     p.add_argument("--process-prev-prev", action="store_true")
 
     # Constraints (mapper.cc:871-899).
@@ -305,7 +311,7 @@ def run(argv=None):
     from .features import FeatureCache
     from .loop import VocTree
     from .sfm import outputs
-    from .sfm.pipeline import _refuse_unported, run_pipeline
+    from .sfm.pipeline import _pipeline_mesh, _refuse_unported, run_pipeline
     from .utils.imageio import read_image
     from .utils.io import (cameras_from_records, read_control_point_data, read_image_data,
                            write_control_point_data)
@@ -327,7 +333,10 @@ def run(argv=None):
             rec.camera_model = 1  # PINHOLE
             rec.camera_params = [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
     cam_models, cam_params, image_cameras = cameras_from_records(records)
-    print(f"Loaded {len(records)} images, {len(cam_models)} cameras")
+    mesh = _pipeline_mesh(pipeline_options(args, False), device)
+    rank = 0 if mesh is None else mesh.rank
+    if rank == 0:
+        print(f"Loaded {len(records)} images, {len(cam_models)} cameras")
 
     cache_path = args.cache_path or os.path.join(args.output_path, "cache")
     os.makedirs(args.output_path, exist_ok=True)
@@ -399,6 +408,8 @@ def run(argv=None):
         lo = max(args.start_image_idx, 0)
         hi = args.end_image_idx if args.end_image_idx >= 0 else len(records) - 1
         todo = [i for i in range(lo, min(hi + 1, len(records))) if os.path.exists(image_path(i))]
+        if mesh is not None:  # each rank extracts its share; all then read every file
+            todo = todo[mesh.rank::mesh.size]
         if todo:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -406,6 +417,8 @@ def run(argv=None):
                 list(ex.map(lambda i: cache.query(i, records[i].name), todo))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if mesh is not None:
+        mesh.barrier()
     detection_s = time.perf_counter() - t_det
     if args.reference_cache_path:
         from .features import ReferenceCacheProvider
@@ -432,6 +445,8 @@ def run(argv=None):
                           voc_tree=voc_tree, rot_priors=rot_priors,
                           control_points=control_points, resume_from=args.load_map or None,
                           device=device)
+    if rank != 0:  # every rank holds the same map; rank 0 writes it
+        return CliRun(0 if result.mappers else 1, result, detection_s)
 
     if args.save_map and result.mappers:
         from .utils.checkpoint import save_map
@@ -483,8 +498,44 @@ def run(argv=None):
     return CliRun(0, result, detection_s)
 
 
-def main(argv=None):
+def _rank_rc(mesh, argv):
+    """One rank of `--mesh N`: the CLI's run, its return code."""
     return run(argv).rc
+
+
+def main(argv=None):
+    """The CLI's return code. --mesh N (N > 1, or 0 with more than one CUDA
+    device) runs `run` on N ranks: the ranks of a torchrun environment
+    (WORLD_SIZE set), or N processes started here with parallel.launch."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if args.mesh == 1:
+        return run(argv).rc
+
+    import torch
+
+    from .parallel.multihost import init_multihost, launch
+
+    device = torch.device(args.device)
+    if "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        init_multihost(device=device)
+        return run(argv).rc
+    n = args.mesh if args.mesh > 0 else (
+        torch.cuda.device_count() if device.type == "cuda" else 1)
+    if n <= 1:
+        return run(argv).rc
+    try:
+        rcs = launch(_rank_rc, n, device.type, args=(argv,))
+    except RuntimeError as e:
+        print(f"mavmap_tpu_torch: {e}", file=sys.stderr)
+        return 1
+    if any(rc != rcs[0] for rc in rcs):
+        print(f"mavmap_tpu_torch: the ranks returned {rcs}", file=sys.stderr)
+        return 1
+    return rcs[0]
 
 
 if __name__ == "__main__":

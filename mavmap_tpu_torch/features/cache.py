@@ -55,9 +55,13 @@ class FeatureCache:
         out = self.detector(image_idx)
         kp, desc = out[0], out[1]
         dims = out[2] if len(out) > 2 else (0, 0)
-        np.savez(path, keypoints=np.asarray(kp, np.float32),
+        # Written under a name of this process, then renamed: ranks that
+        # extract the same image at once never read half a file.
+        tmp = f"{path[:-len('.npz')]}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, keypoints=np.asarray(kp, np.float32),
                  descriptors=np.asarray(desc, np.float32), dims=np.asarray(dims, np.int32),
                  fingerprint=self.fingerprint)
+        os.replace(tmp, path)
         return Features.from_arrays(kp, desc, self.capacity)
 
     def query_dimensions(self, image_idx, name):

@@ -182,6 +182,14 @@ def solve_or_nan(A, B):
     return torch.where(bad, torch.full_like(X, float("nan")), X)
 
 
+def inv_or_nan(A):
+    """Batched inverse; NaN where A is singular (XLA's behavior — linalg.inv
+    would raise)."""
+    X, info = torch.linalg.inv_ex(A)
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    return torch.where(bad, torch.full_like(X, float("nan")), X)
+
+
 def _svd_or_nan(A, full_matrices=True):
     """Batched SVD; NaN factors where a matrix holds a non-finite entry
     (XLA's behavior — torch.linalg.svd would raise). Degenerate RANSAC

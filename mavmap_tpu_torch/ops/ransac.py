@@ -36,30 +36,47 @@ class RansacResult(NamedTuple):
     residuals: torch.Tensor      # (N,) residuals of the best model
 
 
-def sample_indices(generator, num_trials, sample_size, num_points,
-                   valid_mask=None, device=None):
-    """(T, S) indices sampled without replacement per trial, valid-only:
-    per-trial top-S of iid uniforms with invalid entries at -inf."""
-    u = torch.rand((num_trials, num_points), generator=generator, device=device)
+def _top_valid(u, sample_size, valid_mask=None):
+    """Per trial, the indices of the sample_size largest uniforms among the
+    valid entries (invalid ones at -inf)."""
     if valid_mask is not None:
         u = torch.where(valid_mask[None, :], u, torch.full_like(u, -float("inf")))
     return torch.topk(u, sample_size, dim=1).indices
 
 
-def draw_samples(generator, draws):
+def sample_indices(generator, num_trials, sample_size, num_points,
+                   valid_mask=None, device=None):
+    """(T, S) indices sampled without replacement per trial, valid-only:
+    per-trial top-S of iid uniforms with invalid entries at -inf."""
+    u = torch.rand((num_trials, num_points), generator=generator, device=device)
+    return _top_valid(u, sample_size, valid_mask)
+
+
+def draw_samples(generator, draws, block=None):
     """Sample indices of a batch of slots' RANSAC runs. draws: one
     (num_trials, sample_size, valid_mask (B, N)) per run of a slot; returns
     one (B, T, S) tensor per run. The draws go slot by slot and, within a
     slot, in the order of `draws`: the order in which the single-slot step
     draws, so slot b draws what that step draws from a generator seeded
-    alike."""
+    alike.
+
+    block=(lo, n): the B slots are slots lo .. lo + B - 1 of a step of n
+    slots sharded over ranks (parallel/dist_register.py). The generator
+    then draws the uniforms of all n slots in slot order, as the unsharded
+    step does, and keeps this block's: every rank's generator advances as
+    one rank's would. A uniform does not depend on the valid mask, which
+    only this block's slots need."""
     B = draws[0][2].shape[0]
+    lo, n = (0, B) if block is None else block
     out = [[] for _ in draws]
-    for b in range(B):
+    for b in range(n):
         for k, (trials, size, valid) in enumerate(draws):
-            out[k].append(sample_indices(generator, trials, size, valid.shape[-1], valid[b],
-                                         device=valid.device))
-    return [torch.stack(o) for o in out]
+            u = torch.rand((trials, valid.shape[-1]), generator=generator, device=valid.device)
+            if lo <= b < lo + B:
+                out[k].append(_top_valid(u, size, valid[b - lo]))
+    return [torch.stack(o) if o else
+            torch.zeros((0, trials, size), dtype=torch.int64, device=valid.device)
+            for o, (trials, size, valid) in zip(out, draws)]
 
 
 def ransac(generator, x, y, solve_fn: Callable, residual_fn: Callable,

@@ -21,7 +21,9 @@ RANSAC draws its samples from an explicit torch.Generator, slot by slot
 in slot order before the batched body (`ops.ransac.draw_samples`), so a
 slot draws what the single step draws from a generator seeded alike;
 `samples` injects (T, S) sample indices instead (tests feed the JAX
-package's), with a leading slot axis for the batched steps.
+package's), with a leading slot axis for the batched steps. `draw_block`
+runs a block of a larger step's slots (parallel/dist_register.py): the
+generator draws for every slot of that step and the block keeps its own.
 """
 
 import math
@@ -251,11 +253,12 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
 def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_curr,
                        prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
                        cam_params, model_codes, code_ids, norm_thresholds, p3p_trials,
-                       hom_trials, refine_iters, samples):
+                       hom_trials, refine_iters, samples, draw_block=None):
     """register_view after the match, over a leading slot axis (every
     input with a leading B; model_codes the B host codes, code_ids the same
     on the device where they mix models): disparity, homography and P3P
-    RANSAC, the pose refinement, track checks and new triangulations."""
+    RANSAC, the pose refinement, track checks and new triangulations.
+    draw_block: (lo, n), see draw_samples."""
     num_matches = torch.sum(valid, dim=-1)
     med_disp = matching.median_feature_disparity(kp_prev, kp_curr, matches, valid)
 
@@ -265,7 +268,8 @@ def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_cu
     stable = valid & prev_stable & prev_has_tri
 
     if samples is None:
-        samples = draw_samples(generator, [(hom_trials, 4, valid), (p3p_trials, 4, stable)])
+        samples = draw_samples(generator, [(hom_trials, 4, valid), (p3p_trials, 4, stable)],
+                               draw_block)
     s_h, s_p = samples
     nt = norm_thresholds
     hom = ransac(None, x_prev, x_curr, homography.solve_homography,
@@ -439,15 +443,16 @@ def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
 def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
                         ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None):
+                        refine_iters=30, samples=None, draw_block=None):
     """register_view of one current image against B processed candidates
     (the JAX package's jax.vmap over loop-closure candidates,
     sequential_mapper.cc:1182-1211): the candidates' features, track state
     and poses carry a leading B; the current image's features and camera
     are shared. One batched K1 launch matches every slot and the geometry
     runs batched over the slots. samples: optional (homography
-    (B, T_h, 4), p3p (B, T_p, 4)). Returns (rows (B, F, 12), scalars
-    (B, 13))."""
+    (B, T_h, 4), p3p (B, T_p, 4)); draw_block: (lo, n), the slots' place
+    in a step sharded over ranks (see draw_samples). Returns (rows
+    (B, F, 12), scalars (B, 13))."""
     matches, valid = matching.match_features_batched(
         desc_p, desc_c, mask_p, mask_c, kpp, kp_curr, ratio=ratio, max_distance=max_distance)
     B = matches.shape[0]
@@ -455,20 +460,20 @@ def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, ma
                               nc_.expand(B, -1, -1), xyz, has_tri, stable, prev_rvec,
                               prev_tvec, kparams.expand(B, -1), [int(model_code)] * B, None,
                               _slot_thresholds(norm_threshold, B, kpp.device), p3p_trials,
-                              hom_trials, refine_iters, samples)
+                              hom_trials, refine_iters, samples, draw_block)
 
 
 def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
                         ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None):
+                        refine_iters=30, samples=None, draw_block=None):
     """register_view over B full (current, previous) pairs: both sides carry
     a leading B, as do kparams (B, 9); model_code and norm_threshold are
     one value per slot (the back-fill and closure-sweep pairs,
     mapper.cc:221-299). One batched K1 launch matches every slot and the
     geometry runs batched over the slots; slots of different camera models
-    refine their poses under their own model. Returns (rows (B, F, 12),
-    scalars (B, 13))."""
+    refine their poses under their own model; draw_block as in
+    register_view_batch. Returns (rows (B, F, 12), scalars (B, 13))."""
     matches, valid = matching.match_features_batched(
         desc_p, desc_c, mask_p, mask_c, kpp, kpc, ratio=ratio, max_distance=max_distance)
     B = matches.shape[0]
@@ -480,7 +485,8 @@ def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c
     code_ids = per_slot[1] if len(set(codes)) > 1 else None
     return _register_geometry(generator, matches, valid, kpp, np_, kpc, nc_, xyz, has_tri,
                               stable, prev_rvec, prev_tvec, kparams, codes, code_ids,
-                              per_slot[0], p3p_trials, hom_trials, refine_iters, samples)
+                              per_slot[0], p3p_trials, hom_trials, refine_iters, samples,
+                              draw_block)
 
 
 def unpack_register(rows, scalars) -> RegisterResult:

@@ -35,8 +35,15 @@ convert to normalized units with threshold / mean(fx, fy), like the
 reference (camera_models.cc:47-52). IMU rotation priors enter adjust_bundle
 and adjust_global_bundle (rot_priors, with the model first rotated into the
 priors' frame); with `debug` and a DebugDumper in `debug_dumper`, the steps
-write the reference's debug dumps (sfm/debug.py). Not in this package yet:
-the multi-device global BA.
+write the reference's debug dumps (sfm/debug.py).
+
+With a parallel.Mesh of more than one rank (mesh=), every rank runs this
+mapper on the same host state; the batched fan-outs (the loop-closure
+pre-gate's match counts, the candidates' and the pairs' registrations)
+split their slots over the ranks (parallel/dist_register.py) and the
+global bundle adjustment is sharded by 3-D point (parallel/dist_ba.py).
+After each, the ranks compare a digest of the map they hold, and a
+difference raises.
 """
 
 import time as _time
@@ -80,7 +87,8 @@ class _LRUCache(OrderedDict):
 
 class SequentialMapper:
     def __init__(self, image_cameras, cam_models, cam_params, feature_provider,
-                 device, seed=0, cache_capacity=128, loop_detector=None, store_backend="auto"):
+                 device, seed=0, cache_capacity=128, loop_detector=None, store_backend="auto",
+                 mesh=None):
         """image_cameras: (num_images,) camera index per dataset image;
         cam_models/cam_params: per-camera model codes and padded params;
         feature_provider: FeatureProvider with fixed capacity; device: the
@@ -89,8 +97,11 @@ class SequentialMapper:
         loop_detector: a loop.LoopDetector every committed image is added
         to (None: no loop closure); store_backend: 'native' or 'auto' (the
         C++ track store, fm/native_map_store.py; its build raises where it
-        fails) or 'python' (fm/map_store.py)."""
+        fails) or 'python' (fm/map_store.py); mesh: a parallel.Mesh whose
+        ranks share the fan-outs and the global bundle adjustment (one rank,
+        or None: this process alone)."""
         self.device = torch.device(device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.loop_detector = loop_detector
         self.image_cameras = np.asarray(image_cameras, np.int32)
         self.cam_models = np.asarray(cam_models, np.int32)
@@ -332,6 +343,32 @@ class SequentialMapper:
         """Host seconds and slots of one batched registration step."""
         self._count_time("batch_register_s", _time.perf_counter() - t0)
         self._count("batch_register_slots", n)
+
+    def _step(self, step):
+        """A batched registration step, or with a mesh the step with its
+        slots split over the ranks (parallel/dist_register.py)."""
+        if self.mesh is None:
+            return step
+        from functools import partial
+
+        from ..parallel.dist_register import dist_step
+
+        return partial(dist_step, self.mesh, step)
+
+    def _check_replicated(self, what, *results):
+        """With a mesh: raise unless every rank holds the same map (the
+        counts, the registered poses, the 3-D points and the RANSAC
+        generator's state) and the same `results`, bit for bit."""
+        if self.mesh is None:
+            return
+        from ..parallel.multihost import digest
+
+        st = self.store
+        reg = np.flatnonzero(st.image_registered[: st.num_images])
+        valid = np.flatnonzero(st.point3D_valid)
+        self.mesh.check_same(what, [len(reg), len(valid)] + digest(
+            st.image_rvecs[reg], st.image_tvecs[reg], st.point3D_xyz[valid],
+            self._gen.get_state().numpy(), *results))
 
     def _dump_matches(self, idx_a, idx_b, r, inlier):
         """The step's matches before and after RANSAC (reference
@@ -666,6 +703,13 @@ class SequentialMapper:
             return np.zeros(0, np.int64)
         _, dq, mq, _ = self._device_features(image_idx)
         _, dstack, mstack, _ = self._stacked_features(cand_idxs)
+        if self.mesh is not None:
+            from ..parallel.dist_register import dist_match_counts
+
+            counts = dist_match_counts(self.mesh, dq, mq, dstack, mstack,
+                                       options.match_max_ratio).cpu().numpy()
+            self._check_replicated("the match-count pre-gate", counts)
+            return counts
         _, ok = match_features_batched(dq, dstack, mq, mstack, ratio=options.match_max_ratio)
         return torch.sum(ok, dim=-1).cpu().numpy()
 
@@ -750,7 +794,7 @@ class SequentialMapper:
         ci = self.image_cameras[image_idx]
         tri_nt = self._norm_threshold(options.tri_max_reproj_error, image_idx)
         t0 = _time.perf_counter()
-        rows, scalars = register_view_batch(
+        rows, scalars = self._step(register_view_batch)(
             self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable, rvecs,
             tvecs, self._tensor(self.cam_params[ci]), int(self.cam_models[ci]),
             options.match_max_ratio, self._max_distance(options),
@@ -758,6 +802,7 @@ class SequentialMapper:
             p3p_trials=options.p3p_ransac_trials)
         rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
         self._count_batch(t0, n)
+        self._check_replicated("a batched candidate registration", scalars)
         return [(unpack_register(rows[k], scalars[k]), states[k][0], states[k][1], tri_nt)
                 for k in range(n)]
 
@@ -791,7 +836,7 @@ class SequentialMapper:
         cis = [self.image_cameras[c] for c, _ in pairs]
         tri_nts = [self._norm_threshold(options.tri_max_reproj_error, c) for c, _ in pairs]
         t0 = _time.perf_counter()
-        rows, scalars = register_view_pairs(
+        rows, scalars = self._step(register_view_pairs)(
             self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable, rvecs,
             tvecs, self._tensor(self.cam_params[cis]), [int(self.cam_models[c]) for c in cis],
             options.match_max_ratio, self._max_distance(options),
@@ -818,6 +863,7 @@ class SequentialMapper:
                 ok = self._register_commit(curr, prev, r, options, states[k][0], states[k][1],
                                            tri_nts[k])
             out.append(bool(ok))
+        self._check_replicated("a batched pair registration", scalars)
         return out
 
     # Pairs per batched K1 launch of the pair pre-gate.
@@ -1238,15 +1284,108 @@ class SequentialMapper:
                              gcp_point_ids=()):
         """Global BA: first processed pose fixed, second's x-translation
         fixed (reference sequential_mapper.cc:1092-1158); rot_priors and
-        gcp_point_ids as in adjust_bundle."""
+        gcp_point_ids as in adjust_bundle. With a mesh the solve is sharded
+        by 3-D point over the ranks (_adjust_global_bundle_dist)."""
         reg = [iid for iid in range(self.store.num_images)
                if self.store.image_registered[iid]]
         if len(reg) < 2:
             return None
         idxs = [self.image_id_to_idx[iid] for iid in reg]
+        if self.mesh is not None:
+            return self._adjust_global_bundle_dist(idxs, ba_options, rot_priors,
+                                                   rot_prior_weight, gcp_point_ids)
         return self.adjust_bundle(idxs[2:], [idxs[0]], [idxs[1]], ba_options=ba_options,
                                   rot_priors=rot_priors, rot_prior_weight=rot_prior_weight,
                                   gcp_point_ids=gcp_point_ids)
+
+    def _adjust_global_bundle_dist(self, idxs, ba_options=None, rot_priors=None,
+                                   rot_prior_weight=0.0, gcp_point_ids=()):
+        """The global BA sharded by 3-D point over the mesh's ranks
+        (parallel/dist_ba.py): points and their observations split over
+        the ranks, poses on every rank, the reduced camera system summed
+        over the ranks per LM iteration. Self-calibration runs as the JAX
+        package's two stages: stage 1 refines the shared intrinsics on one
+        device (every rank alike) on an observation subsample (all of them
+        up to selfcal_max_obs), stage 2 is the sharded solve with them held
+        fixed, from the map's poses and points. The per-point errors are
+        computed on every rank. Ground-control points stay fixed in both
+        stages (the JAX version frees them in stage 1)."""
+        from ..ba.core import point_mean_errors, problem_to_device, with_plans
+        from ..parallel.dist_ba import dist_bundle_adjust, partition_problem
+
+        ba_options = ba_options or BAOptions()
+        if bool(rot_priors) and rot_prior_weight > 0:
+            for fi in idxs[:2]:
+                if fi in rot_priors:
+                    self._align_model_to_rot_prior(fi, rot_priors[fi])
+                    break
+        (image_ids, poses, pids, points, obs_image, obs_point, obs_cam,
+         obs_xy) = self.ba_problem_arrays(min_track_len=ba_options.min_track_len)
+        if len(obs_xy) == 0:
+            return None
+        states = [0] * len(image_ids)
+        states[0] = BA_POSE_FIXED
+        states[1] = BA_POSE_FIXED_X
+        gcp = np.asarray(list(gcp_point_ids))
+        point_fixed = np.bincount(obs_point, minlength=len(points)) < 2
+        if len(gcp):
+            point_fixed |= np.isin(pids, gcp)
+        rp = np.zeros((len(image_ids), 3), np.float32)
+        rw = np.zeros((len(image_ids),), np.float32)
+        if rot_priors:
+            for k, iid in enumerate(image_ids):
+                idx = self.image_id_to_idx[iid]
+                if idx in rot_priors:
+                    rp[k] = rot_priors[idx]
+                    rw[k] = rot_prior_weight
+
+        if ba_options.refine_camera_params:
+            stride = max(int(np.ceil(len(obs_xy) / ba_options.selfcal_max_obs)), 1)
+            sub = np.arange(0, len(obs_xy), stride)
+            rows_s, obs_point_s, counts_s = np.unique(obs_point[sub], return_inverse=True,
+                                                      return_counts=True)
+            point_fixed_s = counts_s < 2
+            if len(gcp):
+                point_fixed_s |= np.isin(pids[rows_s], gcp)
+            prob_s = build_problem(
+                poses, points[rows_s], self.store.camera_params.astype(np.float32),
+                self.store.camera_models, obs_image[sub], obs_point_s.astype(np.int32),
+                obs_cam[sub], obs_xy[sub], pose_states=states, point_fixed=point_fixed_s,
+                rot_prior=rp, rot_prior_weight=rw, bucket=True)
+            t0 = _time.perf_counter()
+            _, _, info_s = bundle_adjust(
+                prob_s, _dc_replace(ba_options, update_point3D_errors=False), self.device,
+                num_obs=len(sub))
+            self._count_time("ba_selfcal_s", _time.perf_counter() - t0)
+            self._count("ba_selfcal_iters", int(info_s["iterations"]))
+            self._adopt_cam_params(info_s["cam_params"])
+
+        cams = self.store.camera_params.astype(np.float32)
+        mesh = self.mesh
+        prob, new_index, per_shard = partition_problem(
+            poses, points, cams, self.store.camera_models, obs_image, obs_point, obs_cam,
+            obs_xy, mesh.size, pose_states=states, point_fixed=point_fixed, rot_prior=rp,
+            rot_prior_weight=rw, bucket=True, shard=mesh.rank)
+        t0 = _time.perf_counter()
+        new_poses, new_points, info = dist_bundle_adjust(
+            mesh, prob, _dc_replace(ba_options, refine_camera_params=False,
+                                    update_point3D_errors=False), per_shard)
+        self._count_time("ba_solve_s", _time.perf_counter() - t0)
+        self._count_time("ba_collective_s", info["collective_s"])
+        self._count("ba_iters", int(info["iterations"]))
+        new_poses = new_poses[: len(image_ids)]
+        new_points = new_points[new_index]
+
+        point_errors = None
+        if ba_options.update_point3D_errors:
+            prob_e = build_problem(new_poses, new_points, cams, self.store.camera_models,
+                                   obs_image, obs_point, obs_cam, obs_xy, bucket=True)
+            prob_e = problem_to_device(with_plans(prob_e, ("plan_pt",)), self.device)
+            point_errors = point_mean_errors(prob_e, prob_e.poses,
+                                             prob_e.points).cpu().numpy()[: len(points)]
+        self.apply_ba_result(image_ids, new_poses, pids, new_points, point_errors=point_errors)
+        self._check_replicated("the distributed global bundle adjustment", new_poses)
+        return info
 
     def ba_problem_arrays(self, min_track_len=2):
         """Arrays for bundle adjustment over the current map: (image_ids,

@@ -11,7 +11,11 @@ into one (merge_mappers, SequentialMapper.merge; mapper.cc:302-379), the
 final closure sweeps, ground-control-point geo-registration and the
 point-cloud filter; IMU rotation priors in every bundle adjustment, map
 checkpoints with resume, and the debug dumps. Every mapping step runs on
-the device given to run_pipeline.
+the device given to run_pipeline. With mesh_devices > 1 the run spans
+that many torch.distributed ranks (parallel/), each mapping alike: the
+batched fan-outs split their slots over the ranks, the global bundle
+adjustment is sharded by 3-D point, and rank 0 alone writes checkpoints
+and debug dumps.
 
 Options of the JAX pipeline that this package does not carry yet raise
 NotImplementedError at entry (see _refuse_unported), naming the ROADMAP
@@ -103,7 +107,12 @@ class PipelineOptions:
     # global BA; up to `final_closure_sweeps` rounds or until one adds none.
     final_closure_sweeps: int = 1
     final_closure_step: int = 2
-    mesh_devices: int = 1           # multi-device global BA: not ported
+    # Ranks (beyond the reference, which is one process): 1 = this process
+    # alone, N > 1 = the N ranks of an initialised torch.distributed group
+    # (parallel.launch, the CLI's --mesh, or torchrun) whose global BA is
+    # sharded by point and whose batched fan-outs split their slots; 0 = one
+    # rank per visible CUDA device (1 on the CPU).
+    mesh_devices: int = 1
     # Map checkpoints (beyond the reference): every `checkpoint_period`
     # committed frames the main mapper's state (map and loop-retrieval
     # database) is written to `checkpoint_path`; run_pipeline(resume_from=)
@@ -118,8 +127,6 @@ def _refuse_unported(opts):
     """Raise NotImplementedError for every option of the JAX pipeline whose
     code this package does not carry, naming its ROADMAP queue item."""
     refused = [
-        (opts.mesh_devices != 1, "mesh_devices != 1 (multi-device global BA): ROADMAP queue "
-                                 "item 8"),
         (opts.pipeline_chains, "pipeline_chains (speculative chain pipelining): on the "
                                "ROADMAP's do-not-port list"),
         (opts.matcher_backend != "auto", f"matcher_backend={opts.matcher_backend!r}: the port "
@@ -128,6 +135,30 @@ def _refuse_unported(opts):
     for hit, what in refused:
         if hit:
             raise NotImplementedError(f"run_pipeline: {what} is not ported")
+
+
+def _pipeline_mesh(opts: PipelineOptions, device):
+    """The run's parallel.Mesh, or None for one process: mesh_devices ranks
+    (0: one per visible CUDA device, 1 on the CPU), which must be the ranks
+    of the initialised torch.distributed group."""
+    from ..parallel.multihost import global_mesh
+
+    n = opts.mesh_devices
+    if n == 0:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n < 0:
+        raise ValueError(f"run_pipeline: mesh_devices={opts.mesh_devices}")
+    if n == 1:
+        return None
+    mesh = global_mesh(device)
+    if mesh.size != n:
+        raise RuntimeError(
+            f"run_pipeline: mesh_devices={n} needs a torch.distributed group of {n} ranks, "
+            f"this process has {mesh.size}: run it in every rank of "
+            f"mavmap_tpu_torch.parallel.launch(fn, {n}, device), under "
+            f"`torchrun --nproc-per-node {n}` after parallel.init_multihost(), or use the "
+            f"CLI's --mesh {n}")
+    return mesh
 
 
 def _mapper_options(opts: PipelineOptions, initial=False, num_proc=1000000):
@@ -615,7 +646,11 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     with its loop-retrieval database into the first mapper; the sequential
     loop continues from the frame after the last processed one (also with
     parallel_segments > 1), then the usual post-pass. Returns a
-    PipelineResult with per-stage wall seconds in `timings`."""
+    PipelineResult with per-stage wall seconds in `timings`.
+
+    mesh_devices > 1: call this in every rank of a torch.distributed group
+    of that many ranks (see PipelineOptions.mesh_devices), each with its
+    rank's device (the mesh's); every rank returns the same map."""
     from ..loop import LoopDetector
 
     opts = opts or PipelineOptions()
@@ -623,6 +658,11 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pipeline: no CUDA device (pass device='cpu' to run on the CPU)")
+    mesh = _pipeline_mesh(opts, device)
+    if mesh is not None:
+        device = mesh.device
+        if mesh.rank != 0:  # rank 0 alone prints and dumps
+            opts = replace(opts, verbose=False, debug=False)
     num_images = len(image_cameras)
     start = opts.start_image_idx
     end = opts.end_image_idx if opts.end_image_idx >= 0 else num_images - 1
@@ -638,7 +678,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     def new_mapper(k):
         det = LoopDetector(voc_tree) if (voc_tree is not None and opts.loop_detection) else None
         m = SequentialMapper(image_cameras, cam_models, cam_params, provider, device,
-                             seed=k, loop_detector=det)
+                             seed=k, loop_detector=det, mesh=mesh)
         m.debug_dumper = dumper
         return m
 
@@ -662,7 +702,8 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                       f"continuing at #{idx}")
 
     # Periodic checkpoints: after every `checkpoint_period` frames newly
-    # committed to the current mapper.
+    # committed to the current mapper. A checkpoint lands the deferred
+    # window solves, so every rank keeps the schedule and rank 0 alone writes.
     ckpt_last = [mapper.num_proc_images]
 
     def maybe_checkpoint(m):
@@ -671,7 +712,10 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
         if m.num_proc_images - ckpt_last[0] >= opts.checkpoint_period:
             from ..utils.checkpoint import save_map
 
-            save_map(m, opts.checkpoint_path)
+            if mesh is None or mesh.rank == 0:
+                save_map(m, opts.checkpoint_path)
+            else:
+                m.flush_ba()
             ckpt_last[0] = m.num_proc_images
 
     # Per-stage wall clocks (the reference prints per-frame and total

@@ -15,7 +15,8 @@ JAX package's.
     the JAX package's;
   - --parallel-segments 2 writes its outputs from one merged map;
   - the CLI refuses to run on the CPU unless --device cpu is given, and
-    refuses the options the port does not carry.
+    refuses the options the port does not carry (--mesh runs:
+    tests/test_torch_parallel.py).
 """
 
 import copy
@@ -274,8 +275,7 @@ def test_cli_parallel_segments_writes_one_map(cli_runs):
     assert len(_rows(out / "points3D.txt")) > 100
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "2"], "item 8"),
-                                        (["--pipeline-chains"], "do-not-port"),
+@pytest.mark.parametrize("flags,item", [(["--pipeline-chains"], "do-not-port"),
                                         (["--matcher-backend", "xla"], "K1")])
 def test_cli_refuses_unported_options(cli_runs, capsys, flags, item):
     """A flag whose option the port does not carry reaches run_pipeline's

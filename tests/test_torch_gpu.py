@@ -29,7 +29,10 @@ relative). The pose LM rejects a non-finite step on the card as on the
 CPU. tests/test_torch_merge.py's restart-and-merge run repeats bit
 for bit on the card, runs with index_add_ and accumulating index_put_
 refused on CUDA tensors, and registers the same frames on the Python track
-store as on the native one.
+store as on the native one. Two ranks sharing the card (parallel.launch,
+gloo) solve a point-sharded bundle adjustment twice with the same bits on
+both ranks, and split the 32-slot registration steps with every slot
+equal to the unsharded step's bits.
 """
 
 
@@ -579,11 +582,9 @@ def test_seg_accum_sorted_kernel_refuses_bad_offsets(dev):
     assert build.launches["seg_accum_sorted"] == before
 
 
-def _ba_problem(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
-    """tests/test_torch_ba.py's scene: rotated views, 0.5 px noise, a 1 %
-    focal error by default. The rotations keep focal length and depth
-    apart; with pure translation along x the two trade off almost freely,
-    and f32 rounding then moves the result by far more than it does here."""
+def _ba_arrays(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
+    """_ba_problem's host arrays (build_problem's positional arguments) and
+    pose states."""
     K = np.zeros((1, 9), np.float32)
     K[0, :4] = [700.0, 700.0, 400.0, 300.0]
     X = (rng.normal(size=(P, 3)) * [4, 4, 2] + [0, 0, 14]).astype(np.float32)
@@ -605,9 +606,18 @@ def _ba_problem(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
     X0 = X + rng.normal(size=X.shape).astype(np.float32) * 0.05
     K0 = K.copy()
     K0[0, :2] *= focal
-    return build_problem(poses0.astype(np.float32), X0.astype(np.float32), K0, [1],
-                         oi, op, np.zeros(len(oi), np.int32), np.array(uv, np.float32),
-                         pose_states=[1, 2] + [0] * (I - 2), bucket=True)
+    return ((poses0.astype(np.float32), X0.astype(np.float32), K0, np.array([1], np.int32),
+             np.array(oi), np.array(op), np.zeros(len(oi), np.int32), np.array(uv, np.float32)),
+            [1, 2] + [0] * (I - 2))
+
+
+def _ba_problem(rng, I=8, P=240, per_image=140, noise=0.5, focal=(1.01, 1.01)):
+    """tests/test_torch_ba.py's scene: rotated views, 0.5 px noise, a 1 %
+    focal error by default. The rotations keep focal length and depth
+    apart; with pure translation along x the two trade off almost freely,
+    and f32 rounding then moves the result by far more than it does here."""
+    args, states = _ba_arrays(rng, I, P, per_image, noise, focal)
+    return build_problem(*args, pose_states=states, bucket=True)
 
 
 @pytest.mark.parametrize("selfcal", [True, False])
@@ -825,3 +835,86 @@ def test_pose_refinement_rejects_non_finite_steps(dev, rng):
         r, t, cost = pose_refinement(r0, t0, X, uv, np.ones(64, bool), K, 1, d)
         assert np.array_equal(r.cpu().numpy(), r0) and np.array_equal(t.cpu().numpy(), t0)
         assert not bool(torch.isfinite(cost))
+
+
+# ------------------------------------------------- two ranks on the card
+
+
+def _rank_bundle_adjust(mesh, args, states, solver):
+    """A rank of the two-rank solve: its shard solved twice."""
+    from mavmap_tpu_torch.parallel import dist_bundle_adjust, partition_problem
+
+    prob, new_index, per = partition_problem(*args, mesh.size, pose_states=states, bucket=True,
+                                             shard=mesh.rank)
+    out = []
+    for _ in range(2):
+        before = dict(build.launches)
+        poses, points, info = dist_bundle_adjust(
+            mesh, prob, BAOptions(max_num_iterations=6, solver=solver, function_tolerance=0.0),
+            per)
+        out.append((poses, points[new_index], info,
+                    {k: build.launches[k] - before[k] for k in before}))
+    return out
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_two_rank_bundle_adjust_repeats_bit_for_bit(dev, rng, solver):
+    """Two ranks sharing the card (gloo, host-staged sums in rank order)
+    solve the point-sharded problem twice: both solves give the same bits
+    on both ranks, K2 and K3 run in each rank's shard, and the result is
+    the one-device solve's at test_bundle_adjust_gpu_vs_cpu's bounds (poses
+    and points within 1e-3 of their scale; the scene's scale is pinned by
+    the second view's x alone, so a sum in another order moves the
+    x-translations by ~1e-4 of it after 6 iterations, the inexact CG by
+    more than the dense solve)."""
+    from mavmap_tpu_torch.parallel import launch
+
+    args, states = _ba_arrays(rng)
+    ranks = launch(_rank_bundle_adjust, 2, "cuda", args=(args, states, solver), timeout=300)
+    ref = ranks[0][0]
+    for r in ranks:
+        for poses, points, info, launches in r:
+            assert np.array_equal(poses, ref[0]) and np.array_equal(points, ref[1])
+            assert info["iterations"] == 6 and info["solver"] == solver
+            assert launches["seg_accum_full"] > 0 and launches["seg_accum_sorted"] > 0
+    p1, x1, _ = bundle_adjust(build_problem(*args, pose_states=states, bucket=True),
+                              BAOptions(max_num_iterations=6, solver=solver,
+                                        function_tolerance=0.0), dev)
+    for got, one in ((ref[0], p1), (ref[1], x1[: len(ref[1])])):
+        np.testing.assert_allclose(got, one, rtol=0, atol=1e-3 * np.abs(one).max())
+
+
+def _rank_register(mesh):
+    """A rank of the two-rank registration steps: _register_slots' 32-slot
+    steps split over the ranks, from generators seeded 11."""
+    from mavmap_tpu_torch.parallel import dist_register_view_batch, dist_register_view_pairs
+
+    out = []
+    for step, (args, _) in zip((dist_register_view_batch, dist_register_view_pairs),
+                               _register_slots(mesh.device)):
+        g = torch.Generator(device=mesh.device)
+        g.manual_seed(11)
+        before = build.launches["match_batched"]
+        rows, scalars = step(mesh, g, *args, p3p_trials=256)
+        out.append((rows.cpu().numpy(), scalars.cpu().numpy(),
+                    build.launches["match_batched"] - before))
+    return out
+
+
+def test_two_rank_registration_slots_equal_unsharded(dev):
+    """The 32-slot register_view_batch and register_view_pairs steps split
+    over two ranks sharing the card: every slot, on both ranks, gives the
+    unsharded step's bits, each rank with one batched K1 launch."""
+    from mavmap_tpu_torch.parallel import launch
+
+    ranks = launch(_rank_register, 2, "cuda", timeout=300)
+    for k, (step, (args, _)) in enumerate(zip((register_view_batch, register_view_pairs),
+                                              _register_slots(dev))):
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        rows, scalars = step(g, *args, p3p_trials=256)
+        for r in ranks:
+            got_rows, got_scalars, k1 = r[k]
+            assert k1 == 1
+            assert np.array_equal(got_rows, rows.cpu().numpy(), equal_nan=True)
+            assert np.array_equal(got_scalars, scalars.cpu().numpy(), equal_nan=True)

@@ -32,7 +32,10 @@ def test_port_imports_without_jax():
             "mavmap_tpu_torch.features.detector", "mavmap_tpu_torch.features.cache",
             "mavmap_tpu_torch.sfm.outputs", "mavmap_tpu_torch.sfm.debug",
             "mavmap_tpu_torch.utils.io", "mavmap_tpu_torch.utils.imageio",
-            "mavmap_tpu_torch.utils.timer", "mavmap_tpu_torch.utils.checkpoint"} <= set(mods)
+            "mavmap_tpu_torch.utils.timer", "mavmap_tpu_torch.utils.checkpoint",
+            "mavmap_tpu_torch.parallel", "mavmap_tpu_torch.parallel.multihost",
+            "mavmap_tpu_torch.parallel.dist_ba", "mavmap_tpu_torch.parallel.dist_match",
+            "mavmap_tpu_torch.parallel.dist_register"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

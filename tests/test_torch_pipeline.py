@@ -14,7 +14,8 @@ leaves no doubt:
     closure pairs committed (pair_graph);
   - process_remaining_images over a map of every other frame: the same
     frames filled;
-  - every option the port does not carry raises NotImplementedError.
+  - every option the port does not carry raises NotImplementedError
+    (mesh_devices runs: tests/test_torch_parallel.py).
 Sub-map merging and segment-parallel mapping are held in
 tests/test_torch_merge.py and tests/test_torch_segments.py.
 """
@@ -165,8 +166,6 @@ def test_process_remaining_images_fills_same_frames(survey):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("mesh_devices", 0, "item 8"),
-    ("mesh_devices", 2, "item 8"),
     ("pipeline_chains", True, "do-not-port"),
     ("matcher_backend", "pallas", "K1"),
     ("matcher_backend", "xla", "K1"),
@@ -174,7 +173,8 @@ def test_process_remaining_images_fills_same_frames(survey):
 def test_unported_options_raise(option, value, item):
     """Every option of the JAX pipeline that the port does not carry raises
     at entry, before any work, naming where it is queued; none falls back.
-    (The options ported with the CLI slice run in tests/test_torch_options.py.)"""
+    (The options ported with the CLI slice run in tests/test_torch_options.py,
+    mesh_devices in tests/test_torch_parallel.py.)"""
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_pipeline(np.zeros(4, np.int32), np.ones(1, np.int32),
                            np.zeros((1, 9), np.float32), None,
