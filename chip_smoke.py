@@ -19,27 +19,37 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     per shape its device time (calls replayed back to back from a CUDA
     graph, median of 5), host time per call, the plain version's and the
     library call's device times, its bound and the share of it reached,
-    and the profiler's kernel time;
+    and the profiler's kernel time. K2 is held on the path its plan takes
+    (make_plan's one_pass): a one-pass plan bit for bit against the planned
+    plain version on a CPU copy, a two-pass plan at 1e-5; the other path is
+    forced on the same plan, held the same way and timed beside it;
  5. main path: the sequential mapper over bench.py's 30-image scene —
     process_initial, process for every later frame with a 10-image
     self-calibrating window bundle adjustment after each success, then one
     global bundle adjustment — checking 30/30 registrations, the ATE
-    against ground truth, and that every kernel was launched;
+    against ground truth, that every kernel was launched, that K2's
+    one-pass path ran once per dense LM iteration (the per-(point, block)
+    sum) and that matcher_backend "auto" resolved to K1;
+    then the same loop over the first 8 frames with matcher_backend "xla"
+    (the plain PyTorch matcher on the card): 8/8 registered, no K1 launch;
  6. chained: bench.py's own loop (run() without its pipelining option) on
     the same scene — chains of 6 frames through process_chain_k, one
     deferred asynchronous window bundle adjustment per chain, flush_ba and
     the global bundle adjustment — checking 30/30, the ATE and launches;
     run twice, the two maps must be equal bit for bit (poses, points, ATE);
     then K2 at the per-(point, block) plan's shapes of its last window
-    problem and of its global problem, beside index_add_;
+    problem and of its global problem, and at the per-(point, image) and
+    per-point plans' shapes of the main path's global problem, beside
+    index_add_;
  7. survey: the same loop over benchmarks/pipeline_scale.py's scene at 200
     images, whose global bundle adjustment (>= 64 cameras) runs the
     matrix-free CG solver — checking the registered count and the ATE
     against the JAX package's on the CPU, and finite output;
  8. kernels at the survey's shapes: K2/K3 at the global problem's
     observation, block and point counts (the CG matvec's 3/6/9 columns, the
-    preconditioner's 81, and 81 with every row on the camera block), held
-    against their plain versions and timed as in phase 4;
+    preconditioner's 81, and 81 with every row on the camera block; the
+    per-(point, image) and per-point plans), held against their plain
+    versions and timed as in phase 4;
  9. CG against dense: one ~40-camera problem solved by both solvers, with
     and without self-calibration, on the card;
 10. batched geometry: one register_view_pairs step (the back-fill's and
@@ -290,13 +300,15 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes", "hbm") if t_bytes >= t_ops else (t_ops, "operations", "flops_f32")
 
 
-def _timed(torch, shape, kernel, plain, library, nbytes, flops, names):
+def _timed(torch, shape, kernel, plain, library, nbytes, flops, names, min_calls=50):
     """One timed shape of a kernel: device and host times of the kernel, its
     plain version and the library call (None where there is none), the
-    bound and the share of it reached, and the profiler's cross-check."""
-    ms, call_us = _time_ms(kernel)
-    plain_ms, _ = _time_ms(plain)
-    library_ms = _time_ms(library)[0] if library is not None else None
+    bound and the share of it reached, and the profiler's cross-check.
+    min_calls: the graph timer's least calls per replay (fewer where each
+    call allocates a large output, since the graph holds every call's)."""
+    ms, call_us = _time_ms(kernel, min_calls=min_calls)
+    plain_ms, _ = _time_ms(plain, min_calls=min_calls)
+    library_ms = _time_ms(library, min_calls=min_calls)[0] if library is not None else None
     bound_ms, by, resource = _bound(nbytes, flops)
     return dict(shape=shape, ms=ms, call_us=call_us, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
@@ -499,29 +511,66 @@ def _seg_err(got, ref, scale):
 
 
 def _check_seg_full_shape(torch, c, ids, S, what):
-    """K2 on one (contributions, ids) pair with the ids' host plan: held to
-    its plain version at 1e-5 of the per-segment sum of |contrib|, called
-    twice to show it repeats bit for bit, and timed beside index_add_."""
+    """K2 on one (contributions, ids) pair with the ids' host plan, on the
+    path the plan takes (make_plan's one_pass): a one-pass plan's sums
+    equal bit for bit the planned plain version run on a CPU copy, a
+    two-pass plan's are held to the plain version at 1e-5 of the
+    per-segment sum of |contrib|; called twice to show it repeats bit for
+    bit, and timed beside index_add_. The other path is forced on the same
+    plan, held the same way and timed too (ms_one_pass, ms_two_pass: the
+    numbers that set ONE_PASS_ROWS). Ids outside [0, S) are dropped (the
+    problems' padding rows); index_add_ is timed on the rows in segments,
+    gathered out of the others before the timer starts."""
+    import numpy as np
     from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
     rows, K = c.shape
-    plan = ka.make_plan(ids.cpu().numpy(), S).to(c.device)
-    got = ka.seg_accum_full(c, ids, S, plan)
-    again = ka.seg_accum_full(c, ids, S, plan)
+    ids_h = ids.cpu().numpy()
+    host_plan = ka.make_plan(ids_h, S)
+    plan = host_plan.to(c.device)
+    other = host_plan._replace(one_pass=not host_plan.one_pass).to(c.device)
+    ref_cpu = ka.seg_accum_planned_plain(c.cpu(), host_plan.to(torch.device("cpu")))
     ref = ka.seg_accum_full_plain(c, ids, S)
-    abs_err, rel = _seg_err(got, ref, ka.seg_accum_full_plain(c.abs(), ids, S))
-    if rel > 1e-5:
-        raise AssertionError(f"K2 {what} ({rows},{K})->{S}: relative error {rel}")
-    bitwise = bool(torch.equal(got, again))
-    if not bitwise:
-        raise AssertionError(f"K2 {what} ({rows},{K})->{S}: two calls differ")
+    scale = ka.seg_accum_full_plain(c.abs(), ids, S)
+    path = "one_pass" if plan.one_pass else "two_pass"
+
+    def held(p, name):
+        got = ka.seg_accum_full(c, ids, S, p)
+        again = ka.seg_accum_full(c, ids, S, p)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {what} ({rows},{K})->{S} {name}: two calls differ")
+        abs_err, rel = _seg_err(got, ref, scale)
+        if p.one_pass and not torch.equal(got.cpu(), ref_cpu):
+            raise AssertionError(f"K2 {what} ({rows},{K})->{S} {name}: differs from the CPU's "
+                                 f"planned plain version (rel {rel})")
+        if rel > 1e-5:
+            raise AssertionError(f"K2 {what} ({rows},{K})->{S} {name}: relative error {rel}")
+        return abs_err, rel
+
+    abs_err, rel = held(plan, path)
+    held(other, "forced " + ("two_pass" if plan.one_pass else "one_pass"))
+    n_kept = len(host_plan.order)
+    kept = torch.as_tensor(np.flatnonzero((ids_h >= 0) & (ids_h < S)), device=c.device)
+    lib_c, lib_ids = (c, ids.long()) if n_kept == rows else (c[kept], ids[kept].long())
+    calls = 50 if 4 * S * K < 1 << 28 else 5  # a survey plan_ptimg writes 1.4 GB a call
     r = _timed(torch, [rows, K, S], lambda: ka.seg_accum_full(c, ids, S, plan),
                lambda: ka.seg_accum_full_plain(c, ids, S),
-               lambda: torch.zeros((S, K), device=c.device).index_add_(0, ids, c),
-               *_seg_cost(rows, K, S), K2_KERNELS)
-    r.update(max_abs_err=abs_err, rel_err=rel, bitwise_repeat=bitwise)
-    print(f"K2 seg_accum_full {what} ({rows},{K})->{S}: max_abs_err {abs_err:.3g} "
-          f"(rel {rel:.3g}), repeats bit for bit: {bitwise}; " + _fmt(r), flush=True)
+               lambda: torch.zeros((S, K), device=c.device).index_add_(0, lib_ids, lib_c),
+               *_seg_cost(n_kept, K, S), (K3_KERNELS + (("Memset",) if plan.sparse else ())
+                                          if plan.one_pass else K2_KERNELS),
+               min_calls=calls)
+    other_ms, _ = _time_ms(lambda: ka.seg_accum_full(c, ids, S, other), min_calls=calls)
+    r.update(max_abs_err=abs_err, rel_err=rel, bitwise_repeat=True, path=path,
+             rows_in_segments=n_kept, longest_segment=int(np.diff(host_plan.seg_offsets).max(
+                 initial=0)),
+             bitwise_cpu=bool(plan.one_pass))
+    r["ms_one_pass"], r["ms_two_pass"] = ((r["ms"], other_ms) if plan.one_pass
+                                          else (other_ms, r["ms"]))
+    print(f"K2 seg_accum_full {what} ({rows},{K})->{S}, {n_kept} rows in segments, longest "
+          f"{r['longest_segment']}: {path}; max_abs_err {abs_err:.3g} (rel {rel:.3g})"
+          f"{', equal bit for bit to the CPU planned plain version' if plan.one_pass else ''}, "
+          f"repeats bit for bit; one pass {1000 * r['ms_one_pass']:.2f} µs, two passes "
+          f"{1000 * r['ms_two_pass']:.2f} µs; " + _fmt(r), flush=True)
     return r
 
 
@@ -655,19 +704,37 @@ def _check_map(m, n_images, min_registered, ate, ate_limit, what):
     return nreg
 
 
-def _check_launches(what, launches, min_match, min_seg, per):
+def _check_launches(what, launches, min_match, min_seg, per, min_one_pass=0):
     """Every kernel of the path ran: K1 at least min_match times, K2 and K3
-    at least min_seg times (once per `per`)."""
+    at least min_seg times (once per `per`), K2's one-pass path at least
+    min_one_pass times (once per dense self-calibrating LM iteration: its
+    per-(point, block) sum, plan_ptblk)."""
     if launches["match"] < min_match:
         raise AssertionError(f"{what}: match kernel launched {launches['match']} < "
                              f"{min_match} times")
     for k in ("seg_accum_full", "seg_accum_sorted"):
         if launches[k] < min_seg:
             raise AssertionError(f"{what}: {k} launched {launches[k]} times for {per}")
+    if launches["seg_accum_full_one_pass"] < min_one_pass:
+        raise AssertionError(f"{what}: K2's one-pass path launched "
+                             f"{launches['seg_accum_full_one_pass']} < {min_one_pass} times: the "
+                             f"dense window BA's plan_ptblk did not take it")
+
+
+def _check_matcher(what, m, launches, backend):
+    """The mapper resolved its matcher_backend to `backend`: 'pallas' (the
+    default 'auto') launched K1, 'xla' never did."""
+    if m.matcher_backend_resolved != backend:
+        raise AssertionError(f"{what}: matcher_backend resolved to "
+                             f"{m.matcher_backend_resolved!r}, not {backend!r}")
+    if (launches["match"] > 0) != (backend == "pallas"):
+        raise AssertionError(f"{what}: matcher {backend!r} with {launches['match']} K1 "
+                             f"launches")
 
 
 def main_path_phase(torch, dev):
-    """bench.py's scene through the port's per-frame mapping loop."""
+    """bench.py's scene through the port's per-frame mapping loop. Returns
+    (launches, the mapper)."""
     from mavmap_tpu_torch.ba import BAOptions
     from mavmap_tpu_torch.ops.cuda import build
     from mavmap_tpu_torch.sfm import SequentialMapper
@@ -727,7 +794,44 @@ def main_path_phase(torch, dev):
     # One match per registration attempt: the initial pair and each of the
     # NUM_IMAGES - 2 later frames, so NUM_IMAGES - 1 in all.
     _check_launches("main path", launches, NUM_IMAGES - 1, lm_iters,
-                    f"{lm_iters} LM iterations")
+                    f"{lm_iters} LM iterations", min_one_pass=window_iters)
+    _check_matcher("main path", m, launches, "pallas")
+    return launches, m
+
+
+# Frames of the per-frame loop that the xla-matcher phase maps.
+XLA_FRAMES = 8
+
+
+def xla_matcher_phase(torch, dev):
+    """The per-frame loop of the main path over bench.py's scene's first
+    XLA_FRAMES frames with matcher_backend="xla": the plain PyTorch matcher
+    on the card. Every frame must register and K1 must never launch."""
+    import dataclasses
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm import SequentialMapper
+
+    _phase("xla matcher")
+    scene, prov = _bench_scene()
+    opts, init_opts = (dataclasses.replace(o, matcher_backend="xla")
+                       for o in _mapper_options())
+    m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                         prov, dev, seed=0)
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ok = [m.process_initial(0, 1, init_opts)]
+    for i in range(2, XLA_FRAMES):
+        ok.append(m.process(i, i - 1, opts))
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    nreg = int(m.store.image_registered.sum())
+    print(f"xla matcher: registered {nreg}/{XLA_FRAMES} in {wall:.3f} s, matcher "
+          f"{m.matcher_backend_resolved!r}, launches {json.dumps(launches)}", flush=True)
+    if not all(ok) or nreg != XLA_FRAMES:
+        raise AssertionError(f"xla matcher: {nreg}/{XLA_FRAMES} registered ({ok})")
+    _check_matcher("xla matcher", m, launches, "xla")
     return launches
 
 
@@ -866,7 +970,9 @@ def chained_phase(torch, dev, name="chained"):
     _report_loop(name, m, NUM_IMAGES, ate, limit, s, launches)
     _check_map(m, NUM_IMAGES, NUM_IMAGES, ate, limit, name)
     lm_iters = s["window_iters"] + s["global"]["iterations"]
-    _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
+    _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations",
+                    min_one_pass=s["window_iters"])
+    _check_matcher(name, m, launches, "pallas")
     return launches, _map_state(m, ate), m, s["window_prob"]
 
 
@@ -885,28 +991,48 @@ def check_repeat(first, second):
     return same
 
 
-def check_ptblk_shapes(torch, dev, m, window_prob):
-    """K2 at the shapes of the dense self-calibrating step's per-(point,
-    block) aggregation (plan_ptblk: [That | Ghat] of both block entries,
-    54 columns, into Pd B segments), random values on the ids of the chained
-    loop's last window problem and of its global problem, beside
-    index_add_."""
+# The per-(point, ...) K2 plans and their columns: plan_ptblk [That | Ghat]
+# of both block entries (the dense self-calibrating step), plan_ptimg
+# [T | G] of the image entry (the dense pose-only step), plan_pt the
+# per-point error sum and count (point_mean_errors).
+PT_PLAN_COLUMNS = {"plan_ptblk": 54, "plan_ptimg": 36, "plan_pt": 2}
+
+
+def _check_plan_shape(torch, dev, rng, prob, name, what):
+    """K2 at one plan's shape of a problem: random values on its real ids."""
     import numpy as np
-    from mavmap_tpu_torch.ba import build_problem
     from mavmap_tpu_torch.ba.core import plan_ids
 
-    _phase("kernels at the per-(point, block) shapes")
+    ids, S = plan_ids(prob, name)
+    c = torch.as_tensor(rng.normal(size=(len(ids), PT_PLAN_COLUMNS[name])).astype(np.float32),
+                        device=dev)
+    return _check_seg_full_shape(torch, c, torch.as_tensor(ids.astype(np.int32), device=dev),
+                                 S, f"{what} {name[5:]}")
+
+
+def _global_problem(m):
+    from mavmap_tpu_torch.ba import build_problem
+
     _, poses, _, points, oi, op, oc, xy = m.ba_problem_arrays()
-    global_prob = build_problem(poses, points, m.store.camera_params, m.store.camera_models,
-                                oi, op, oc, xy, bucket=True)
+    return build_problem(poses, points, m.store.camera_params, m.store.camera_models,
+                         oi, op, oc, xy, bucket=True)
+
+
+def check_ptblk_shapes(torch, dev, m, window_prob, main_m):
+    """K2 at the shapes of the dense steps' per-(point, block) aggregation
+    (plan_ptblk) of the chained loop's last window problem and of its
+    global problem, and at plan_ptimg and plan_pt of the per-frame loop's
+    global problem; random values on the real ids, beside index_add_."""
+    import numpy as np
+
+    _phase("kernels at the per-(point, block) shapes")
     rng = np.random.default_rng(4)
-    out = []
-    for what, prob in (("window ptblk", window_prob), ("global ptblk", global_prob)):
-        ids, S = plan_ids(prob, "plan_ptblk")
-        c = torch.as_tensor(rng.normal(size=(len(ids), 54)).astype(np.float32), device=dev)
-        out.append(_check_seg_full_shape(torch, c, torch.as_tensor(ids.astype(np.int32),
-                                                                   device=dev), S, what))
-    return out
+    main_prob = _global_problem(main_m)
+    return [_check_plan_shape(torch, dev, rng, prob, name, what)
+            for what, prob, name in (("window", window_prob, "plan_ptblk"),
+                                     ("global", _global_problem(m), "plan_ptblk"),
+                                     ("per-frame global", main_prob, "plan_ptimg"),
+                                     ("per-frame global", main_prob, "plan_pt"))]
 
 
 def _survey_scene():
@@ -981,7 +1107,8 @@ def survey_phase(torch, dev, scene, feats):
     _check_map(m, SURVEY_IMAGES, JAX_CPU_SURVEY_REGISTERED, ate, limit, "survey")
     lm_iters = s["window_iters"] + g["iterations"]
     _check_launches("survey", launches, SURVEY_IMAGES - 1, lm_iters + sum(cg),
-                    f"{lm_iters} LM and {sum(cg)} CG iterations")
+                    f"{lm_iters} LM and {sum(cg)} CG iterations",
+                    min_one_pass=s["window_iters"])
     return launches, prob, s["global_arrays"]
 
 
@@ -1006,6 +1133,10 @@ def check_survey_shapes(torch, dev, prob):
                             ("survey", obs_image, 6, I)):
         c = torch.as_tensor(rng.normal(size=(len(seg), K)).astype(np.float32), device=dev)
         r = _check_seg_full_shape(torch, c, torch.as_tensor(seg, device=dev), S, what)
+        out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+        out["full"].append(r)
+    for name in ("plan_ptimg", "plan_pt"):
+        r = _check_plan_shape(torch, dev, rng, prob, name, "survey")
         out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
         out["full"].append(r)
     offsets = prob.pt_offsets.astype(np.int32)
@@ -1294,6 +1425,7 @@ def pipeline_phase(torch, dev, scene, feats):
         raise AssertionError("pipeline: batched K1 never launched")
     lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
     _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
+    _check_matcher("pipeline", m, launches, "pallas")
     return dict(launches, match_batched_slots=slots["match_batched"]), _map_summary(res, scene,
                                                                                    wall)
 
@@ -2074,7 +2206,8 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
     the survey's CG matvec (2O, 9), K3 the survey's (O, 3)), with every
-    timed shape listed and the launch floor beside them."""
+    timed shape listed and the launch floor beside them; for K2 also its
+    one-pass launches per phase and the path each timed shape took."""
     def launches(k):
         return phases["main"][k], {p: n[k] for p, n in phases.items()}
 
@@ -2100,6 +2233,10 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
         if name == "match":
             row["library_note"] = "no single PyTorch call gives both directions' top-2"
             row["launches_batched_by_phase"] = {p: n["match_batched"] for p, n in phases.items()}
+        if name == "seg_accum_full":
+            row["launches_one_pass_by_phase"] = {p: n["seg_accum_full_one_pass"]
+                                                 for p, n in phases.items()}
+            row["paths"] = [[r["shape"], r["path"]] for r in shapes]
         row["shapes"] = shapes
         rows.append(row)
     return json.dumps({"kernels": rows})
@@ -2123,12 +2260,14 @@ def main():
     k1["batched"] = check_match_batched(torch, dev)
     k2 = check_seg_full(torch, dev)
     k3 = check_seg_sorted(torch, dev)
-    phases = {"main": main_path_phase(torch, dev)}
+    phases = {}
+    phases["main"], main_m = main_path_phase(torch, dev)
+    phases["xla_matcher"] = xla_matcher_phase(torch, dev)
     phases["chained"], first, m, window_prob = chained_phase(torch, dev)
     phases["chained_repeat"], second, _, _ = chained_phase(torch, dev, "chained repeat")
     check_repeat(first, second)
-    kp = check_ptblk_shapes(torch, dev, m, window_prob)
-    del m, window_prob
+    kp = check_ptblk_shapes(torch, dev, m, window_prob, main_m)
+    del m, window_prob, main_m
     scene, feats, gt = _survey_scene()
     phases["survey"], survey_prob, survey_raw = survey_phase(torch, dev, scene, feats)
     _phase("kernels at the survey's shapes")

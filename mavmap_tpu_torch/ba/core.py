@@ -151,26 +151,32 @@ def plan_ids(prob: BAProblem, name):
     blk[:, a] * B + blk[:, b], into B^2; plan_ptimg each observation's
     (dense point, image) pair into Pd I; plan_ptblk both entries' (dense
     point, block) pairs, entry 0's rows then entry 1's, into Pd B; plan_pt
-    each observation's point into the P points. Padding
-    rows keep their ids (the last real point and image, camera 0): their
-    values are zero wherever they land."""
+    each observation's point into the P points. Padding rows (bucketing's,
+    ~obs_mask) get id -1, so every plan leaves them out: their values are
+    zero, and on their ids (the last real point and image) they would
+    crowd one segment with up to 4095 rows."""
     I, C, Pd = len(prob.poses), len(prob.cam_params), len(prob.point_rows)
     B = I + C
+    real = np.asarray(prob.obs_mask, bool)
     obs_image = np.asarray(prob.obs_image, np.int64)
     pt = np.asarray(prob.obs_point_dense, np.int64)
     blk = (obs_image, I + np.asarray(prob.obs_cam, np.int64))
+
+    def ids(*entries):
+        return np.concatenate([np.where(real, e, -1) for e in entries])
+
     if name == "plan_img":
-        return obs_image, I
+        return ids(obs_image), I
     if name == "plan_blk":
-        return np.concatenate(blk), B
+        return ids(*blk), B
     if name == "plan_hess":
-        return np.concatenate([blk[a] * B + blk[b] for a in range(2) for b in range(2)]), B * B
+        return ids(*(blk[a] * B + blk[b] for a in range(2) for b in range(2))), B * B
     if name == "plan_ptimg":
-        return pt * I + obs_image, Pd * I
+        return ids(pt * I + obs_image), Pd * I
     if name == "plan_ptblk":
-        return np.concatenate([pt * B + blk[a] for a in range(2)]), Pd * B
+        return ids(*(pt * B + b for b in blk)), Pd * B
     if name == "plan_pt":
-        return np.asarray(prob.obs_point, np.int64), len(prob.points)
+        return ids(np.asarray(prob.obs_point, np.int64)), len(prob.points)
     raise ValueError(f"unknown K2 plan {name!r}")
 
 

@@ -13,8 +13,9 @@ through parallel.launch, or the ranks of a torchrun environment): the
 global bundle adjustment is sharded by 3-D point and the batched fan-outs
 split their slots over the ranks; rank 0 writes the outputs, and the exit
 code is rank 0's once every rank has finished (a rank that fails makes it
-non-zero). Options the port does not carry (--pipeline-chains,
---matcher-backend other than auto) are refused by run_pipeline's
+non-zero). --matcher-backend takes the JAX CLI's values: auto and pallas
+run CUDA kernel K1, xla the plain PyTorch matcher. The option the port does
+not carry (--pipeline-chains) is refused by run_pipeline's
 NotImplementedError, and the CLI exits with 1.
 
 Usage:
@@ -200,8 +201,9 @@ def build_parser():
 
     p.add_argument("--matcher-backend", default="auto",
                    choices=("auto", "xla", "pallas"),
-                   help="descriptor-matcher kernel; the port has one, the "
-                        "CUDA matcher (auto); the others are refused")
+                   help="descriptor matcher: auto and pallas = CUDA kernel K1 "
+                        "(its plain version with --device cpu), xla = the "
+                        "plain PyTorch matcher")
     p.add_argument("--device", default="cuda",
                    help="torch device every step runs on: the CUDA card by "
                         "default; pass cpu to run on the CPU")

@@ -21,6 +21,27 @@
 // No memset, no atomics, no contention on a crowded segment, and the same
 // bits on every run: the order of every addition is fixed by the plan and
 // the launch shape, which the host derives from the plan alone.
+//   one pass (mavmap_seg_accum_one_pass): a plan whose longest segment
+//     is short for its segment count (make_plan's one_pass_limit, from
+//     the plan alone) is summed by seg_rows_kernel<true, ...>, K3's kernel
+//     with the rows gathered through `order`: one thread per (segment,
+//     column), one launch, no atomics. The per-(point, block) plans of
+//     the dense steps have ~10^5 segments of a few rows each, mostly
+//     empty; the two passes spent a block on each of them in pass 2 and a
+//     256-thread block on each piece of one or two rows in pass 1. The
+//     rows are added in plan order from 0.0, the order of the planned
+//     plain version (index_add_) on the CPU, so this path gives its bits.
+//     Its time grows with the longest segment, whose thread adds the rows
+//     one after another (~80 ns a row past the first 2 ROW_BATCH), while
+//     the two passes' grows with the segment count: make_plan weighs the
+//     two (ops/cuda/ba_accum.py ONE_PASS_ROWS, with the measurements).
+//     A thread of an empty segment still waits for its offsets before it
+//     writes its zero, so on a plan whose segments are mostly empty the
+//     kernel wrote at ~1.2 TB/s and lost to index_add_ (a memset, then
+//     the rows added). There (make_plan's `sparse`) the output is zeroed
+//     by cudaMemsetAsync first and the kernel (SCATTER) runs over the
+//     non-empty segments alone, writing each one's row; the bits are the
+//     same (benchmarks/torch_k2_paths.py's sparse plans time both).
 // Bound on an H100: one read of O x K floats and of the row indices, one
 // write of S x K. The rows are gathered through `order`: a row of K floats
 // is K*4 bytes at an arbitrary offset, so at K = 3..9 each row touches one
@@ -53,6 +74,9 @@
 // track; here the loads of up to 2 ROW_BATCH rows are in flight together.
 // Staging groups of whole segments in shared memory and adding from there
 // was slower at the survey's shape (benchmarks/torch_k3_designs.py).
+// The one-pass path of K2 is the same kernel (GATHER = true): one more
+// dependent round of loads (offsets, order, rows); K3's instance
+// (GATHER = false) computes the same addresses it always did.
 
 #include <cuda_runtime.h>
 
@@ -136,32 +160,47 @@ seg_merge_kernel(const float* __restrict__ partial, const int* __restrict__ seg_
 }
 
 // Thread t sums column t % K of segment t / K (t < S K, checked by the
-// caller to fit an int).
+// caller to fit an int). The i-th row of segment s is row a + i, a =
+// offsets[s] (K3), or row order[a + i] (GATHER: K2's one-pass path). The
+// sum goes to output row s, or to row out_rows[s] (SCATTER: the one-pass
+// path over the non-empty segments of a plan whose segments are mostly
+// empty).
+template <bool GATHER, bool SCATTER>
 __global__ void __launch_bounds__(SORTED_THREADS)
-seg_rows_kernel(const float* __restrict__ contrib, const int* __restrict__ offsets, int S,
+seg_rows_kernel(const float* __restrict__ contrib, const int* __restrict__ order,
+                const int* __restrict__ offsets, const int* __restrict__ out_rows, int S,
                 int K, float* __restrict__ out) {
   const int t = blockIdx.x * SORTED_THREADS + threadIdx.x;
   if (t >= S * K) return;
   const int s = t / K;
   const int col = t - s * K;
+  const long long dst = SCATTER ? (long long)__ldg(out_rows + s) * K + col : t;
   const int a = __ldg(offsets + s);
   const int n = __ldg(offsets + s + 1) - a;
   float acc = 0.f;
-  if (n > 0) {
-    const float* p = contrib + (long long)a * K + col;
+  if (GATHER && n == 1) {
+    // One row (most segments of the per-(point, block) plans): one load of
+    // its index and one of its value, not a batch of clamped loads.
+    acc += __ldg(contrib + (long long)__ldg(order + a) * K + col);
+  } else if (n > 0) {
+    const float* p = contrib + (GATHER ? 0 : (long long)a * K) + col;
+    const int* rows = order + a;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       if (q > 0 && n <= ROW_BATCH) break;
       float v[ROW_BATCH];
 #pragma unroll
-      for (int u = 0; u < ROW_BATCH; ++u)
-        v[u] = __ldg(p + (long long)min(q * ROW_BATCH + u, n - 1) * K);
+      for (int u = 0; u < ROW_BATCH; ++u) {
+        const int i = min(q * ROW_BATCH + u, n - 1);
+        v[u] = __ldg(p + (long long)(GATHER ? __ldg(rows + i) : i) * K);
+      }
 #pragma unroll
       for (int u = 0; u < ROW_BATCH; ++u) acc = q * ROW_BATCH + u < n ? acc + v[u] : acc;
     }
-    for (int r = 2 * ROW_BATCH; r < n; ++r) acc += __ldg(p + (long long)r * K);
+    for (int i = 2 * ROW_BATCH; i < n; ++i)
+      acc += __ldg(p + (long long)(GATHER ? __ldg(rows + i) : i) * K);
   }
-  out[t] = acc;
+  out[dst] = acc;
 }
 
 }  // namespace
@@ -197,7 +236,34 @@ int mavmap_seg_accum_sorted(const float* contrib, const int* offsets, int S, int
   const long long n = (long long)S * K;
   if (n == 0) return (int)cudaGetLastError();
   const int blocks = (int)((n + SORTED_THREADS - 1) / SORTED_THREADS);
-  seg_rows_kernel<<<blocks, SORTED_THREADS, 0, stream>>>(contrib, offsets, S, K, out);
+  seg_rows_kernel<false, false><<<blocks, SORTED_THREADS, 0, stream>>>(contrib, nullptr, offsets,
+                                                                       nullptr, S, K, out);
+  return (int)cudaGetLastError();
+}
+
+// K2's one-pass path, out (S, K) fully written, segment s being the rows
+// order[seg_offsets[s]:seg_offsets[s + 1]] added in that order from 0.0.
+// Not sparse: offsets is the plan's seg_offsets (n = S segments), one
+// thread per (segment, column). sparse: the plan is mostly empty; out is
+// zeroed and its n non-empty segments are summed, out_rows (n,) naming
+// each one's segment and offsets (n + 1) their CSR offsets into order
+// (make_plan's filled, filled_offsets). S K < 2^31.
+int mavmap_seg_accum_one_pass(const float* contrib, const int* order, const int* offsets,
+                              const int* out_rows, int sparse, int n, int S, int K,
+                              float* out, cudaStream_t stream) {
+  const long long items = (long long)n * K;
+  if ((long long)S * K == 0) return (int)cudaGetLastError();
+  const int blocks = (int)((items + SORTED_THREADS - 1) / SORTED_THREADS);
+  if (sparse) {
+    cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)S * K, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (items > 0)
+      seg_rows_kernel<true, true><<<blocks, SORTED_THREADS, 0, stream>>>(
+          contrib, order, offsets, out_rows, n, K, out);
+  } else {
+    seg_rows_kernel<true, false><<<blocks, SORTED_THREADS, 0, stream>>>(
+        contrib, order, offsets, nullptr, n, K, out);
+  }
   return (int)cudaGetLastError();
 }
 

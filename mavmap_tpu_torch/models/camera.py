@@ -45,6 +45,10 @@ def camera_model_code(name: str) -> int:
     return CAMERA_MODEL_CODES[name.upper()]
 
 
+def camera_model_name(code: int) -> str:
+    return CAMERA_MODEL_NAMES[int(code)]
+
+
 def pad_params(params, device, dtype=torch.float32):
     """Pad a parameter list/array to MAX_CAM_PARAMS with zeros."""
     params = torch.as_tensor(np.asarray(params), dtype=dtype, device=device)

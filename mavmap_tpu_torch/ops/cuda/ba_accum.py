@@ -8,7 +8,14 @@
                      by id and cuts each segment into pieces of at most
                      PIECE_ROWS rows; pass 1 sums each piece, pass 2 each
                      segment's pieces, both in a fixed order: no atomics, no
-                     memset, and the same bits on every run.
+                     memset, and the same bits on every run. A plan whose
+                     longest segment is short for its segment count
+                     (one_pass_limit: the dense steps' per-(point, block)
+                     plans, the per-point plan) takes one pass instead:
+                     K3's kernel with the rows gathered through the plan's
+                     order, which adds them in plan order from 0.0 and so
+                     gives the bits of the planned plain version run on
+                     the CPU.
   seg_accum_sorted — the same sum for rows sorted by a gapless dense id,
                      given as CSR offsets (rows offsets[s]:offsets[s+1] form
                      segment s). Replaces the banded Pallas kernel
@@ -35,6 +42,26 @@ import torch
 from . import build
 
 PIECE_ROWS = 256  # rows per piece, one pass-1 block each (csrc/ba_accum.cu)
+# The path of a plan (one_pass_limit). One pass costs ~80 ns per row of
+# the longest segment (its thread adds them one after another) and two
+# passes ~4.5 µs plus ~2.3 ns per segment (pass 2 gives each a block), so
+# one pass is taken while the longest segment has at most
+# ONE_PASS_ROWS + S // ONE_PASS_SEGMENTS_PER_ROW rows. Measured with
+# benchmarks/torch_k2_paths.py (NVIDIA H100 80GB HBM3, 700.00 W), one pass
+# against two, µs at K = 54: 32768 rows in segments of 32 / 64 / 128 rows
+# (S = 1024 / 512 / 256) 4.31 / 6.66 / 11.67 against 5.75 / 5.26 / 5.21;
+# one segment of 64 / 128 / 256 / 512 rows among ~8170 of 4 rows 6.25 /
+# 10.84 / 19.66 / 37.53 against 20.23 / 20.33 / 20.18 / 20.24. At every
+# plan it timed, and at every shape chip_smoke.py times, the path taken
+# was the faster (PERF.md §6).
+ONE_PASS_ROWS = 32
+ONE_PASS_SEGMENTS_PER_ROW = 32
+
+
+def one_pass_limit(num_segments):
+    """The most rows a plan of `num_segments` segments may have in one
+    segment and still take the one-pass path."""
+    return ONE_PASS_ROWS + num_segments // ONE_PASS_SEGMENTS_PER_ROW
 
 
 class SegPlan(NamedTuple):
@@ -44,31 +71,53 @@ class SegPlan(NamedTuple):
     order         (N,) int32: the rows whose id lies in [0, S), stably
                   sorted by id (the JAX problem's by-image sort, img_order,
                   plays this part there);
-    seg_offsets   (S + 1,) int32, host only: segment s is order[
-                  seg_offsets[s]:seg_offsets[s + 1]];
+    seg_offsets   (S + 1,) int32: segment s is order[seg_offsets[s]:
+                  seg_offsets[s + 1]] (read by the one-pass kernel, so
+                  moved to the device for one-pass plans only);
     piece_starts  (n_pieces + 1,) int32: piece p is order[piece_starts[p]:
                   piece_starts[p + 1]], at most PIECE_ROWS rows, never
                   across two segments;
     seg_pieces    (S + 1,) int32: segment s is pieces seg_pieces[s]:
                   seg_pieces[s + 1] (none for an empty segment);
+    filled        (Z,) int32: the non-empty segments, ascending;
+    filled_offsets (Z + 1,) int32: their CSR offsets into order (a
+                  gapless view of seg_offsets); these two are what the
+                  one-pass kernel reads on a `sparse` plan;
     num_rows      rows of the id array, which the contributions must have;
-    max_pieces    the most pieces of one segment (sizes pass 2's blocks).
+    max_pieces    the most pieces of one segment (sizes pass 2's blocks);
+    one_pass      the kernel's path: True when no segment has more than
+                  one_pass_limit(S) rows (one launch of the gathering
+                  seg_rows_kernel), else the two passes.
+
+    A one-pass plan is `sparse` when more than half its segments are empty:
+    then the output is zeroed and the kernel runs over the filled segments
+    alone (csrc/ba_accum.cu: a thread of an empty segment would wait for
+    its offsets only to write a zero). Both follow from the plan alone.
     """
 
     order: object
     seg_offsets: object
     piece_starts: object
     seg_pieces: object
+    filled: object
+    filled_offsets: object
     num_rows: int
     max_pieces: int
+    one_pass: bool
 
     @property
     def num_segments(self):
         return self.seg_pieces.shape[0] - 1
 
+    @property
+    def sparse(self):
+        return self.one_pass and 2 * self.filled.shape[0] < self.num_segments
+
     def to(self, device):
+        fields = ("order", "piece_starts", "seg_pieces") + (
+            ("seg_offsets", "filled", "filled_offsets") if self.one_pass else ())
         return self._replace(**{f: torch.as_tensor(getattr(self, f), device=device)
-                                for f in ("order", "piece_starts", "seg_pieces")})
+                                for f in fields})
 
 
 def make_plan(seg_ids, num_segments):
@@ -87,10 +136,14 @@ def make_plan(seg_ids, num_segments):
     piece_seg = np.repeat(np.arange(num_segments), n_pieces)
     rank = np.arange(len(piece_seg)) - seg_pieces[piece_seg]  # piece's rank in its segment
     piece_starts = np.append(seg_offsets[piece_seg] + rank * PIECE_ROWS, len(order))
+    filled = np.flatnonzero(counts)
     return SegPlan(order=order.astype(np.int32), seg_offsets=seg_offsets.astype(np.int32),
                    piece_starts=piece_starts.astype(np.int32),
-                   seg_pieces=seg_pieces.astype(np.int32), num_rows=len(ids),
-                   max_pieces=int(n_pieces.max(initial=0)))
+                   seg_pieces=seg_pieces.astype(np.int32), filled=filled.astype(np.int32),
+                   filled_offsets=np.append(seg_offsets[filled], len(order)).astype(np.int32),
+                   num_rows=len(ids),
+                   max_pieces=int(n_pieces.max(initial=0)),
+                   one_pass=bool(counts.max(initial=0) <= one_pass_limit(num_segments)))
 
 
 def offsets_from_sorted_ids(seg_ids, num_segments, num_rows=None):
@@ -132,7 +185,37 @@ def seg_accum_planned_plain(contrib, plan):
     return out.index_add_(0, row_seg, contrib[plan.order.long()].float())
 
 
+def _seg_accum_one_pass_cuda(contrib, plan):
+    dev = contrib.device
+    build.require(contrib, "contrib", torch.float32, 2, dev)
+    K = contrib.shape[1]
+    S = plan.num_segments
+    sparse = plan.sparse
+    names = ("order", "filled", "filled_offsets") if sparse else ("order", "seg_offsets")
+    for name in names:
+        build.require(getattr(plan, name), f"plan.{name}", torch.int32, 1, dev)
+    rows, offsets = (plan.filled, plan.filled_offsets) if sparse else (None, plan.seg_offsets)
+    n = plan.filled.shape[0] if sparse else S
+    if offsets.shape[0] != n + 1:
+        raise ValueError(f"seg_accum_full: {offsets.shape[0]} segment offsets for {n} "
+                         f"segments")
+    if S * K >= 1 << 31:
+        raise ValueError(f"seg_accum_full: {S} x {K} sums, the one-pass kernel indexes "
+                         f"fewer than 2^31")
+    out = torch.empty((S, K), dtype=torch.float32, device=dev)
+    build.check(build.library().mavmap_seg_accum_one_pass(
+        contrib.data_ptr(), plan.order.data_ptr(), offsets.data_ptr(),
+        rows.data_ptr() if sparse else None, int(sparse), n, S, K, out.data_ptr(),
+        build.stream_ptr(dev)),
+        "mavmap_seg_accum_one_pass")
+    build.launches["seg_accum_full"] += 1
+    build.launches["seg_accum_full_one_pass"] += 1
+    return out
+
+
 def _seg_accum_full_cuda(contrib, plan):
+    if plan.one_pass:
+        return _seg_accum_one_pass_cuda(contrib, plan)
     dev = contrib.device
     build.require(contrib, "contrib", torch.float32, 2, dev)
     for name in ("order", "piece_starts", "seg_pieces"):

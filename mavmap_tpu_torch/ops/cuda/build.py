@@ -90,7 +90,9 @@ def library():
                                  P, P, P, P, P, P, P, P, P]
     lib.mavmap_seg_accum_full.argtypes = [P, P, P, I, P, I, I, I, P, P, P]
     lib.mavmap_seg_accum_sorted.argtypes = [P, P, I, I, P, P]
-    for fn in (lib.mavmap_match, lib.mavmap_seg_accum_full, lib.mavmap_seg_accum_sorted):
+    lib.mavmap_seg_accum_one_pass.argtypes = [P, P, P, P, I, I, I, I, P, P]
+    for fn in (lib.mavmap_match, lib.mavmap_seg_accum_full, lib.mavmap_seg_accum_sorted,
+               lib.mavmap_seg_accum_one_pass):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -113,7 +115,10 @@ def stream_ptr(device):
 # path and reads them after, to show the path went through the kernels.
 # "match" counts every K1 launch; "match_batched" the ones with a slot axis,
 # and slots["match_batched"] the slots those launches ran.
-launches = {"match": 0, "match_batched": 0, "seg_accum_full": 0, "seg_accum_sorted": 0}
+# "seg_accum_full" counts every K2 launch, "seg_accum_full_one_pass" the
+# ones that took the one-pass path (a plan's one_pass).
+launches = {"match": 0, "match_batched": 0, "seg_accum_full": 0,
+            "seg_accum_full_one_pass": 0, "seg_accum_sorted": 0}
 slots = {"match_batched": 0}
 
 

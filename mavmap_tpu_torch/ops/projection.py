@@ -39,6 +39,13 @@ def camera_center(rvec, tvec):
     return -(R.transpose(-1, -2) @ tvec[..., :, None])[..., 0]
 
 
+def world_pose_from_proj(proj):
+    """Cam->world (rvec, tvec) of a world->cam [R|t], for output
+    (projection.cc:90-104)."""
+    inv = invert_proj_matrix(proj)
+    return rvec_from_rotmat(inv[..., :3, :3]), inv[..., :3, 3]
+
+
 def transform_points(proj, points3D):
     """Apply [R|t] to (..., N, 3) world points -> camera-frame points."""
     R = proj[..., :3, :3]

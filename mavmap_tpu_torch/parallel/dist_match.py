@@ -13,14 +13,15 @@ import torch
 from ..ops.matching import match_features_batched
 
 
-def dist_match_pairs(mesh, d1, d2, mask1, mask2, ratio=0.9):
-    """d1, d2: (B, F, D) descriptor batches; masks: (B, F). Returns
-    (matches (B, F) int32, valid (B, F) bool) on every rank."""
+def dist_match_pairs(mesh, d1, d2, mask1, mask2, ratio=0.9, matcher="pallas"):
+    """d1, d2: (B, F, D) descriptor batches; masks: (B, F); matcher: the
+    matcher backend (ops/matching.py). Returns (matches (B, F) int32,
+    valid (B, F) bool) on every rank."""
     B, F = d1.shape[0], d1.shape[1]
     lo, hi = mesh.block(B)
     if hi > lo:
         matches, valid = match_features_batched(d1[lo:hi], d2[lo:hi], mask1[lo:hi],
-                                                mask2[lo:hi], ratio=ratio)
+                                                mask2[lo:hi], ratio=ratio, backend=matcher)
     else:
         matches = torch.zeros((0, F), dtype=torch.int32, device=d1.device)
         valid = torch.zeros((0, F), dtype=torch.bool, device=d1.device)

@@ -37,7 +37,7 @@ SLOT_ARGS = {
 
 
 def dist_step(mesh, step, generator, *args, p3p_trials=500, hom_trials=128, refine_iters=30,
-              samples=None):
+              samples=None, matcher="pallas"):
     """`step` (register_view_pairs or register_view_batch) with its n slots
     split over `mesh`'s ranks: the arguments are given whole, each rank runs
     its block of the slot-axis ones (SLOT_ARGS) and of `samples`. A rank
@@ -52,7 +52,7 @@ def dist_step(mesh, step, generator, *args, p3p_trials=500, hom_trials=128, refi
         rows, scalars = step(generator, *block, p3p_trials=p3p_trials, hom_trials=hom_trials,
                              refine_iters=refine_iters,
                              samples=None if samples is None else [s[lo:hi] for s in samples],
-                             draw_block=(lo, n))
+                             draw_block=(lo, n), matcher=matcher)
     else:
         if samples is None:
             none = torch.zeros((0, F), dtype=torch.bool, device=kpp.device)
@@ -74,7 +74,7 @@ def dist_register_view_batch(mesh, generator, *args, **kw):
     return dist_step(mesh, register_view_batch, generator, *args, **kw)
 
 
-def dist_match_counts(mesh, dq, mq, dstack, mstack, ratio):
+def dist_match_counts(mesh, dq, mq, dstack, mstack, ratio, matcher="pallas"):
     """The loop-closure pre-gate's match counts of one query (dq (F, D), mq
     (F,)) against B candidates (dstack (B, F, D), mstack (B, F)), the
     candidates split over `mesh`'s ranks. Returns (B,) counts on every
@@ -82,7 +82,8 @@ def dist_match_counts(mesh, dq, mq, dstack, mstack, ratio):
     n = dstack.shape[0]
     lo, hi = mesh.block(n)
     if hi > lo:
-        _, ok = match_features_batched(dq, dstack[lo:hi], mq, mstack[lo:hi], ratio=ratio)
+        _, ok = match_features_batched(dq, dstack[lo:hi], mq, mstack[lo:hi], ratio=ratio,
+                                       backend=matcher)
         counts = torch.sum(ok, dim=-1)
     else:
         counts = torch.zeros(0, dtype=torch.int64, device=dstack.device)

@@ -60,16 +60,18 @@ class TwoViewResult(NamedTuple):
 
 def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
                   ratio, max_distance, norm_threshold, essential_trials=512,
-                  hom_trials=128, max_depth=100.0, samples=None):
+                  hom_trials=128, max_depth=100.0, samples=None, matcher="pallas"):
     """Match + disparity + homography + 5pt-RANSAC + pose + triangulate.
 
     Device side of reference process_initial (sequential_mapper.cc:46-386).
     kp/desc/mask are capacity-F padded; n1/n2 are normalized coords of the
     same rows. samples: optional (homography (T_h, 4), essential (T_e, 5))
-    sample indices. Returns (rows (F, 9), scalars (21,)).
+    sample indices; matcher: the matcher backend (ops/matching.py
+    MATCHER_BACKENDS). Returns (rows (F, 9), scalars (21,)).
     """
     matches, valid = matching.match_features(
-        desc1, desc2, mask1, mask2, kp1, kp2, ratio=ratio, max_distance=max_distance)
+        desc1, desc2, mask1, mask2, kp1, kp2, ratio=ratio, max_distance=max_distance,
+        backend=matcher)
     rows, scalars = _two_view_geometry(
         generator, matches[None], valid[None], kp1[None], n1[None], kp2[None], n2[None],
         _slot_thresholds(norm_threshold, 1, kp1.device), essential_trials, hom_trials,
@@ -79,7 +81,7 @@ def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
 
 def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, n2s,
                         ratio, max_distance, norm_thresholds, essential_trials=512,
-                        hom_trials=128, max_depth=100.0, samples=None):
+                        hom_trials=128, max_depth=100.0, samples=None, matcher="pallas"):
     """two_view_init of one first image against B candidate second images
     (the JAX package's jax.vmap over the candidates, mapper.cc:1027-1036):
     the first image is shared, the candidates' inputs carry a leading B,
@@ -88,7 +90,8 @@ def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, 
     optional (homography (B, T_h, 4), essential (B, T_e, 5)). Returns
     (rows (B, F, 9), scalars (B, 21))."""
     matches, valid = matching.match_features_batched(
-        desc1, desc2s, mask1, mask2s, kp1, kp2s, ratio=ratio, max_distance=max_distance)
+        desc1, desc2s, mask1, mask2s, kp1, kp2s, ratio=ratio, max_distance=max_distance,
+        backend=matcher)
     B = matches.shape[0]
     return _two_view_geometry(generator, matches, valid, kp1.expand(B, -1, -1),
                               n1.expand(B, -1, -1), kp2s, n2s,
@@ -228,7 +231,8 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
                   kp_curr, desc_curr, mask_curr, n_curr,
                   prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
                   cam_params, cam_model, ratio, max_distance, norm_threshold,
-                  p3p_trials=512, hom_trials=128, refine_iters=30, samples=None):
+                  p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
+                  matcher="pallas"):
     """Match + gates + P3P RANSAC + LM pose refinement + track continuation
     checks + new-point triangulation (device side of reference `process`,
     sequential_mapper.cc:389-934).
@@ -240,7 +244,7 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
     """
     matches, valid = matching.match_features(
         desc_prev, desc_curr, mask_prev, mask_curr, kp_prev, kp_curr,
-        ratio=ratio, max_distance=max_distance)
+        ratio=ratio, max_distance=max_distance, backend=matcher)
     one = [a[None] for a in (matches, valid, kp_prev, n_prev, kp_curr, n_curr, prev_p3d_xyz,
                              prev_has_tri, prev_stable, prev_rvec, prev_tvec, cam_params)]
     rows, scalars = _register_geometry(
@@ -353,7 +357,7 @@ def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
 
 def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials, hom_trials, refine_iters,
-                         samples):
+                         samples, matcher):
     """K consecutive frame registrations: frame k anchors on track state
     derived on the device from frame k-1's results (`_derive_chain_state`),
     so the host pulls once per K frames instead of once per frame.
@@ -410,7 +414,7 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
             generator, *prev, *feats_k[k], xyz, has_tri, stable, rvec, tvec,
             per_d[k, 3:12], int(per[k, 2]), ratio, max_distance, float(per[k, 0]),
             p3p_trials=p3p_trials, hom_trials=hom_trials, refine_iters=refine_iters,
-            samples=None if samples is None else samples[k])
+            samples=None if samples is None else samples[k], matcher=matcher)
         has_tri_in.append(has_tri)
         rows_all.append(rows)
         scalars_all.append(scalars)
@@ -422,28 +426,29 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
 
 
 def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
-                   p3p_trials=512, hom_trials=128, refine_iters=30, samples=None):
+                   p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
+                   matcher="pallas"):
     """Chain registration from host-staged anchor state (no window BA to
     read from; see _register_chain_impl's packed calling convention)."""
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
                                 scal, None, None, p3p_trials, hom_trials, refine_iters,
-                                samples)
+                                samples, matcher)
 
 
 def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials=512, hom_trials=128,
-                         refine_iters=30, samples=None):
+                         refine_iters=30, samples=None, matcher="pallas"):
     """Chain registration anchored on the latest window-BA solve's output
     (see _register_chain_impl's packed calling convention)."""
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
                                 scal, ba_poses, ba_points, p3p_trials, hom_trials,
-                                refine_iters, samples)
+                                refine_iters, samples, matcher)
 
 
 def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
                         ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None, draw_block=None):
+                        refine_iters=30, samples=None, draw_block=None, matcher="pallas"):
     """register_view of one current image against B processed candidates
     (the JAX package's jax.vmap over loop-closure candidates,
     sequential_mapper.cc:1182-1211): the candidates' features, track state
@@ -454,7 +459,8 @@ def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, ma
     in a step sharded over ranks (see draw_samples). Returns (rows
     (B, F, 12), scalars (B, 13))."""
     matches, valid = matching.match_features_batched(
-        desc_p, desc_c, mask_p, mask_c, kpp, kp_curr, ratio=ratio, max_distance=max_distance)
+        desc_p, desc_c, mask_p, mask_c, kpp, kp_curr, ratio=ratio, max_distance=max_distance,
+        backend=matcher)
     B = matches.shape[0]
     return _register_geometry(generator, matches, valid, kpp, np_, kp_curr.expand(B, -1, -1),
                               nc_.expand(B, -1, -1), xyz, has_tri, stable, prev_rvec,
@@ -466,7 +472,7 @@ def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, ma
 def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
                         ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None, draw_block=None):
+                        refine_iters=30, samples=None, draw_block=None, matcher="pallas"):
     """register_view over B full (current, previous) pairs: both sides carry
     a leading B, as do kparams (B, 9); model_code and norm_threshold are
     one value per slot (the back-fill and closure-sweep pairs,
@@ -475,7 +481,8 @@ def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c
     refine their poses under their own model; draw_block as in
     register_view_batch. Returns (rows (B, F, 12), scalars (B, 13))."""
     matches, valid = matching.match_features_batched(
-        desc_p, desc_c, mask_p, mask_c, kpp, kpc, ratio=ratio, max_distance=max_distance)
+        desc_p, desc_c, mask_p, mask_c, kpp, kpc, ratio=ratio, max_distance=max_distance,
+        backend=matcher)
     B = matches.shape[0]
     codes = [int(c) for c in model_code]
     # One host->device copy carries the thresholds and, where the slots mix

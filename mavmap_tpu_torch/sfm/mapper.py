@@ -58,7 +58,7 @@ from ..ba import (BA_POSE_FIXED, BA_POSE_FIXED_X, BAOptions, build_problem, bund
 from ..fm.native_map_store import create_map_store
 from ..interop import features_to_device
 from ..models import camera as cam
-from ..ops.matching import match_features_batched
+from ..ops.matching import MATCHER_BACKENDS, match_features_batched
 from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
 from ..utils.mathx import rel2abs_threshold
 from .kernels import (register_chain, register_chain_fresh, register_view,
@@ -135,6 +135,9 @@ class SequentialMapper:
         # Optional sfm.debug.DebugDumper: with it, steps called with
         # debug=True write the reference's debug dumps.
         self.debug_dumper = None
+        # The matcher backend the last step ran ('pallas' or 'xla'; see
+        # _matcher_backend), None before any match.
+        self.matcher_backend_resolved = None
 
     def _count(self, name, n=1):
         if n:
@@ -153,6 +156,21 @@ class SequentialMapper:
         return rep
 
     # ------------------------------------------------------------- helpers
+
+    def _matcher_backend(self, options):
+        """Resolve options.matcher_backend, the JAX package's names:
+        'auto' and 'pallas' = kernel K1 (CUDA kernel on the card, its plain
+        version on the CPU), 'xla' = the plain PyTorch matcher
+        (ops/matching.py match_brute_force) on the mapper's device, on the
+        card too. The resolved name is recorded in
+        `matcher_backend_resolved`, so a run can show which matcher it
+        took; an unknown name raises, and nothing falls back."""
+        b = getattr(options, "matcher_backend", "auto")
+        if b not in MATCHER_BACKENDS:
+            raise ValueError(f"matcher_backend {b!r}: expected one of {MATCHER_BACKENDS}")
+        b = "pallas" if b == "auto" else b
+        self.matcher_backend_resolved = b
+        return b
 
     def _features(self, image_idx):
         return self._feat_cache.get_or(image_idx, lambda: self.provider.get(image_idx))
@@ -307,7 +325,8 @@ class SequentialMapper:
             options.match_max_ratio, self._max_distance(options),
             self._norm_threshold(options.ransac_max_reproj_error, first_idx),
             essential_trials=options.essential_ransac_trials,
-            max_depth=options.max_depth, samples=samples)
+            max_depth=options.max_depth, samples=samples,
+            matcher=self._matcher_backend(options))
         r = unpack_two_view(rows.cpu().numpy(), scalars.cpu().numpy())
         return self._two_view_gates_and_commit(first_idx, second_idx, r, options, debug=debug)
 
@@ -330,7 +349,8 @@ class SequentialMapper:
             self._gen, kp1, d1, m1, n1, kp2s, d2s, m2s, n2s, options.match_max_ratio,
             self._max_distance(options),
             [self._norm_threshold(options.ransac_max_reproj_error, j) for j in candidate_idxs],
-            essential_trials=options.essential_ransac_trials, max_depth=options.max_depth)
+            essential_trials=options.essential_ransac_trials, max_depth=options.max_depth,
+            matcher=self._matcher_backend(options))
         rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
         self._count_batch(t0, len(candidate_idxs))
         for k, j in enumerate(candidate_idxs):
@@ -450,7 +470,8 @@ class SequentialMapper:
             t(self.cam_params[ci]), int(self.cam_models[ci]),
             options.match_max_ratio, self._max_distance(options),
             self._norm_threshold(options.ransac_max_reproj_error, image_idx),
-            p3p_trials=options.p3p_ransac_trials, samples=samples)
+            p3p_trials=options.p3p_ransac_trials, samples=samples,
+            matcher=self._matcher_backend(options))
         # The JAX package's schedule: register first, then dispatch the
         # previous frame's deferred window solve, pull the outputs with
         # the results of the solve dispatched a step earlier. (Its early
@@ -647,7 +668,8 @@ class SequentialMapper:
                 scal[11] = anchor_row
                 ba_args = (h.fut[0], h.fut[1])
 
-        common = dict(p3p_trials=options.p3p_ransac_trials)
+        common = dict(p3p_trials=options.p3p_ransac_trials,
+                      matcher=self._matcher_backend(options))
         if ba_args is not None:
             out = register_chain_fresh(self._gen, kpp, dp_, mp_, npn, feats, track_state,
                                        scal, *ba_args, **common)
@@ -707,10 +729,12 @@ class SequentialMapper:
             from ..parallel.dist_register import dist_match_counts
 
             counts = dist_match_counts(self.mesh, dq, mq, dstack, mstack,
-                                       options.match_max_ratio).cpu().numpy()
+                                       options.match_max_ratio,
+                                       self._matcher_backend(options)).cpu().numpy()
             self._check_replicated("the match-count pre-gate", counts)
             return counts
-        _, ok = match_features_batched(dq, dstack, mq, mstack, ratio=options.match_max_ratio)
+        _, ok = match_features_batched(dq, dstack, mq, mstack, ratio=options.match_max_ratio,
+                                       backend=self._matcher_backend(options))
         return torch.sum(ok, dim=-1).cpu().numpy()
 
     @staticmethod
@@ -799,7 +823,7 @@ class SequentialMapper:
             tvecs, self._tensor(self.cam_params[ci]), int(self.cam_models[ci]),
             options.match_max_ratio, self._max_distance(options),
             self._norm_threshold(options.ransac_max_reproj_error, image_idx),
-            p3p_trials=options.p3p_ransac_trials)
+            p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
         rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
         self._count_batch(t0, n)
         self._check_replicated("a batched candidate registration", scalars)
@@ -841,7 +865,7 @@ class SequentialMapper:
             tvecs, self._tensor(self.cam_params[cis]), [int(self.cam_models[c]) for c in cis],
             options.match_max_ratio, self._max_distance(options),
             [self._norm_threshold(options.ransac_max_reproj_error, c) for c, _ in pairs],
-            p3p_trials=options.p3p_ransac_trials)
+            p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
         rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
         self._count_batch(t0, n)
         out = []
@@ -887,7 +911,8 @@ class SequentialMapper:
             ai = self._tensor([row[a] for a, _ in chunk], torch.int64)
             bi = self._tensor([row[b] for _, b in chunk], torch.int64)
             _, ok = match_features_batched(dstack[ai], dstack[bi], mstack[ai], mstack[bi],
-                                           ratio=options.match_max_ratio)
+                                           ratio=options.match_max_ratio,
+                                           backend=self._matcher_backend(options))
             counts.append(torch.sum(ok, dim=-1))
         return torch.cat(counts).cpu().numpy()
 

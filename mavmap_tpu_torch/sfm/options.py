@@ -28,3 +28,7 @@ class SequentialMapperOptions:
     p3p_ransac_trials: int = 512
     loop_detection_num_images: int = 30
     max_depth: float = 100.0                # cheirality depth bound
+    # Matcher backend, the JAX package's names: 'auto' and 'pallas' run
+    # kernel K1 (its plain version on the CPU), 'xla' the plain PyTorch
+    # matcher (SequentialMapper._matcher_backend).
+    matcher_backend: str = "auto"

@@ -17,9 +17,10 @@ batched fan-outs split their slots over the ranks, the global bundle
 adjustment is sharded by 3-D point, and rank 0 alone writes checkpoints
 and debug dumps.
 
-Options of the JAX pipeline that this package does not carry yet raise
-NotImplementedError at entry (see _refuse_unported), naming the ROADMAP
-queue item that ports them; none falls back silently.
+The one option of the JAX pipeline that this package does not carry,
+pipeline_chains (on the ROADMAP's do-not-port list), raises
+NotImplementedError at entry (see _refuse_unported); it never falls back
+silently.
 """
 
 import time as _time
@@ -87,7 +88,7 @@ class PipelineOptions:
     # (mapper.cc:1059).
     refine_camera_params: bool = True
     local_ba_refine_camera_params: bool = True
-    matcher_backend: str = "auto"  # the port has one matcher, K1: "auto" only
+    matcher_backend: str = "auto"  # auto | xla | pallas (SequentialMapper._matcher_backend)
     # Register `chain_len` consecutive frames per device step, frame k
     # anchored on the state derived on the device from frame k-1: one pull
     # per chain; the host gates still veto each frame and failures fall back
@@ -124,17 +125,12 @@ class PipelineOptions:
 
 
 def _refuse_unported(opts):
-    """Raise NotImplementedError for every option of the JAX pipeline whose
-    code this package does not carry, naming its ROADMAP queue item."""
-    refused = [
-        (opts.pipeline_chains, "pipeline_chains (speculative chain pipelining): on the "
-                               "ROADMAP's do-not-port list"),
-        (opts.matcher_backend != "auto", f"matcher_backend={opts.matcher_backend!r}: the port "
-                                         f"has one matcher, kernel K1 ('auto')"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise NotImplementedError(f"run_pipeline: {what} is not ported")
+    """Raise NotImplementedError for the option of the JAX pipeline whose
+    code this package does not carry."""
+    if opts.pipeline_chains:
+        raise NotImplementedError("run_pipeline: pipeline_chains (speculative chain "
+                                  "pipelining): on the ROADMAP's do-not-port list is not "
+                                  "ported")
 
 
 def _pipeline_mesh(opts: PipelineOptions, device):
@@ -181,6 +177,7 @@ def _mapper_options(opts: PipelineOptions, initial=False, num_proc=1000000):
         essential_ransac_trials=opts.essential_ransac_trials,
         p3p_ransac_trials=opts.p3p_ransac_trials,
         loop_detection_num_images=opts.loop_detection_num_images,
+        matcher_backend=opts.matcher_backend,
         min_track_len=mtl,
     )
 

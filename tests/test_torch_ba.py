@@ -128,6 +128,10 @@ def test_make_plan_against_numpy(rng, long_rows):
             assert plan.piece_starts[p0] == plan.seg_offsets[s]
             assert plan.piece_starts[p1] == plan.seg_offsets[s + 1]
     assert plan.max_pieces == -(-counts.max() // piece_rows) > 1
+    # The filled segments and their gapless CSR offsets into order.
+    np.testing.assert_array_equal(plan.filled, np.flatnonzero(counts))
+    np.testing.assert_array_equal(np.diff(plan.filled_offsets), counts[counts > 0])
+    assert plan.filled_offsets[0] == 0 and plan.filled_offsets[-1] == len(plan.order)
 
 
 def _emulate_planned_sum(c, plan):
@@ -141,30 +145,102 @@ def _emulate_planned_sum(c, plan):
     return torch.stack([partial[a:b].sum(0) for a, b in zip(sp[:-1], sp[1:])])
 
 
+def _emulate_one_pass(c, plan):
+    """The one-pass kernel in plain torch: each segment's rows, gathered
+    through order, added one after another from 0.0 (the j-th row of every
+    segment at step j; an f32 add of two tensors rounds each element
+    alone, so this is each thread's sequence of adds)."""
+    off = torch.as_tensor(plan.seg_offsets).long()
+    lens = off.diff()
+    order = torch.as_tensor(plan.order).long()
+    out = torch.zeros((plan.num_segments, c.shape[1]), dtype=torch.float32)
+    for j in range(int(lens.max()) if len(lens) else 0):
+        segs = torch.nonzero(lens > j)[:, 0]
+        out[segs] = out[segs] + c[order[off[segs] + j]]
+    return out
+
+
 def test_problem_plans_emulated_two_passes_match_plain(rng):
-    """The three plans of a bucketed self-calibrating problem (image ids,
-    both block entries, the four Hessian entry pairs), padding rows
-    included, give through the kernel's two passes, and through the
-    planned plain version, what the plain version gives on those ids."""
-    poses, X, K, models, oi, op, oc, uv, states = _scene(rng)
+    """The six plans of a bucketed self-calibrating problem whose images
+    hold more than ONE_PASS_ROWS observations each: the image, block and
+    Hessian plans (image ids, both block entries, the four Hessian entry
+    pairs) take two passes, and give through the kernel's two passes, and
+    through the planned plain version, what the plain version gives on
+    the real observations' ids; the per-(point, image), per-(point, block)
+    and per-point plans take one pass, and its emulation equals the
+    planned plain version bit for bit. Padding rows are in no segment,
+    whatever their values."""
+    poses, X, K, models, oi, op, oc, uv, states = _scene(
+        rng, P=ka.ONE_PASS_ROWS + 100, per_image=ka.ONE_PASS_ROWS + 44)
     prob = problem_to_device(with_plans(build_problem(poses, X, K, models, oi, op, oc, uv,
                                                       pose_states=states, bucket=True)), CPU)
     I, C = prob.poses.shape[0], prob.cam_params.shape[0]
     B = I + C
     O = prob.obs_image.shape[0]
     assert O > len(oi)  # padding rows
+    real = prob.obs_mask
+    drop = torch.full_like(prob.obs_image, -1)
     blk = torch.stack([prob.obs_image, I + prob.obs_cam], dim=1)
-    ids2 = torch.cat([blk[:, 0], blk[:, 1]])
-    hess = torch.cat([blk[:, a] * B + blk[:, b] for a in range(2) for b in range(2)])
-    for plan, ids, S, Kc in ((prob.plan_img, prob.obs_image, I, 42),
+    ids2 = torch.cat([torch.where(real, blk[:, a], drop) for a in range(2)])
+    hess = torch.cat([torch.where(real, blk[:, a] * B + blk[:, b], drop)
+                      for a in range(2) for b in range(2)])
+    for plan, ids, S, Kc in ((prob.plan_img, torch.where(real, prob.obs_image, drop), I, 42),
                              (prob.plan_blk, ids2, B, 9), (prob.plan_hess, hess, B * B, 81)):
         assert plan.num_rows == ids.shape[0] and plan.num_segments == S
+        assert not plan.one_pass and torch.is_tensor(plan.order)
+        assert not torch.is_tensor(plan.seg_offsets)  # host only on the two-pass path
         c = torch.as_tensor(rng.normal(size=(ids.shape[0], Kc)).astype(np.float32))
         ref = ka.seg_accum_full_plain(c, ids.to(torch.int32), S)
         scale = ka.seg_accum_full_plain(c.abs(), ids.to(torch.int32), S)
         for got in (_emulate_planned_sum(c, plan), ka.seg_accum_full(c, None, S, plan)):
             assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
     assert prob.plan_blk.max_pieces > 1  # the camera block spans many pieces
+    assert prob.plan_ptblk.sparse and prob.plan_ptimg.sparse  # mostly empty segments
+    for name, Kc in (("plan_ptimg", 36), ("plan_ptblk", 54), ("plan_pt", 2)):
+        plan = getattr(prob, name)
+        assert plan.one_pass and torch.is_tensor(plan.seg_offsets)
+        assert torch.is_tensor(plan.filled) and torch.is_tensor(plan.filled_offsets)
+        assert int(plan.seg_offsets.diff().max()) <= ka.one_pass_limit(plan.num_segments)
+        c = torch.as_tensor(rng.normal(size=(plan.num_rows, Kc)).astype(np.float32))
+        c[~real.repeat(plan.num_rows // O)] = 1e30  # padding: never added
+        got = ka.seg_accum_full(c, None, plan.num_segments, plan)
+        assert torch.equal(got, _emulate_one_pass(c, plan))
+        assert bool((got.abs() < 1e3).all())
+
+
+@pytest.mark.parametrize("case", ["empty_last", "all_empty", "at_limit", "past_limit"])
+def test_one_pass_order_equals_planned_plain(rng, case):
+    """The one-pass kernel's order of additions (each segment's rows through
+    order, one after another from 0.0) equals the planned plain version bit
+    for bit on the CPU: with the last segment empty, with every segment
+    empty (all ids out of range: zeros), and with a segment of exactly
+    ONE_PASS_ROWS rows (one pass) or one row more (two passes, and then
+    the plan's pieces still sum to the same bits). With fewer than
+    ONE_PASS_SEGMENTS_PER_ROW segments the limit is ONE_PASS_ROWS itself;
+    each that many segments more raise it by a row."""
+    S, K = ka.ONE_PASS_SEGMENTS_PER_ROW - 8, 9
+    L = ka.ONE_PASS_ROWS
+    assert ka.one_pass_limit(S) == L
+    assert ka.one_pass_limit(3 * ka.ONE_PASS_SEGMENTS_PER_ROW + 1) == L + 3
+    if case == "empty_last":
+        ids = rng.integers(0, S - 1, size=8 * S)
+    elif case == "all_empty":
+        ids = rng.integers(S, 2 * S, size=300) * rng.choice([-1, 1], size=300)
+    else:
+        others = rng.integers(0, S, size=8 * S)
+        ids = np.concatenate([others[others != 7], np.full(L + (case == "past_limit"), 7)])
+    ids = rng.permutation(ids).astype(np.int32)
+    c = torch.as_tensor(rng.normal(size=(len(ids), K)).astype(np.float32) * 10.0)
+    plan = ka.make_plan(ids, S)
+    counts = np.diff(plan.seg_offsets)
+    assert plan.one_pass == (case != "past_limit") == (counts.max(initial=0) <= L)
+    dev_plan = plan.to(CPU)
+    got = ka.seg_accum_planned_plain(c, dev_plan)
+    assert torch.equal(got, _emulate_one_pass(c, plan))
+    assert torch.equal(ka.seg_accum_full(c, None, S, dev_plan), got)
+    np.testing.assert_array_equal(got.numpy()[counts == 0], 0.0)
+    if case == "all_empty":
+        assert len(plan.order) == 0 and not got.any()
 
 
 @pytest.mark.parametrize("case", ["tracks", "straddle"])
@@ -299,14 +375,18 @@ def test_build_problem_and_conversion_match_jax(rng):
     n = int(pt.obs_mask.sum())
     ids = np.repeat(np.arange(len(pt.point_rows)), np.diff(pt.pt_offsets))
     np.testing.assert_array_equal(ids, pt.obs_point_dense[:n])
-    # The per-(point, block) plans key each observation's dense point and
-    # block: plan_ptblk entry 0's rows (the image), then entry 1's (the camera).
+    # The per-(point, block) plans key each real observation's dense point
+    # and block: plan_ptblk entry 0's rows (the image), then entry 1's (the
+    # camera); padding rows are in no segment.
     I, B, Pd = len(pt.poses), len(pt.poses) + len(pt.cam_params), len(pt.point_rows)
-    for f, ids, S in (("plan_ptimg", pt.obs_point_dense * I + pt.obs_image, Pd * I),
-                      ("plan_ptblk", np.concatenate([pt.obs_point_dense * B + pt.obs_image,
-                                                     pt.obs_point_dense * B + I + pt.obs_cam]),
-                       Pd * B)):
+    real = np.tile(pt.obs_mask, 2)
+    for f, ids, S in (("plan_ptimg", np.where(pt.obs_mask, pt.obs_point_dense * I
+                                              + pt.obs_image, -1), Pd * I),
+                      ("plan_ptblk", np.where(real, np.concatenate(
+                          [pt.obs_point_dense * B + pt.obs_image,
+                           pt.obs_point_dense * B + I + pt.obs_cam]), -1), Pd * B)):
         ref = ka.make_plan(ids, S)
+        assert len(ref.order) == real[:len(ids)].sum() < len(ids)
         for k, (a, b) in enumerate(zip(getattr(pt, f), ref)):
             np.testing.assert_array_equal(a, b, f"{f}[{k}]")
 

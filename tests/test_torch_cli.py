@@ -15,8 +15,10 @@ JAX package's.
     the JAX package's;
   - --parallel-segments 2 writes its outputs from one merged map;
   - the CLI refuses to run on the CPU unless --device cpu is given, and
-    refuses the options the port does not carry (--mesh runs:
-    tests/test_torch_parallel.py).
+    refuses the option the port does not carry, --pipeline-chains (--mesh
+    runs: tests/test_torch_parallel.py);
+  - --matcher-backend xla (the plain PyTorch matcher) writes the outputs
+    of the default run.
 """
 
 import copy
@@ -275,8 +277,26 @@ def test_cli_parallel_segments_writes_one_map(cli_runs):
     assert len(_rows(out / "points3D.txt")) > 100
 
 
-@pytest.mark.parametrize("flags,item", [(["--pipeline-chains"], "do-not-port"),
-                                        (["--matcher-backend", "xla"], "K1")])
+def test_cli_matcher_backend_xla_writes_the_default_outputs(cli_runs):
+    """--matcher-backend xla runs the plain PyTorch matcher through the
+    whole CLI: the mapper records it, and the outputs name the default
+    run's images with the same poses (1e-5) and as many points."""
+    tmp, _, _, default = cli_runs
+    out = tmp / "xla"
+    run = tcli.run(["--input-path", str(tmp / "data"), "--output-path", str(out),
+                    "--cache-path", str(tmp / "tcache"), "--device", "cpu",
+                    "--matcher-backend", "xla"] + FLAGS)
+    assert run.rc == 0
+    assert run.result.main_mapper.matcher_backend_resolved == "xla"
+    assert default.result.main_mapper.matcher_backend_resolved == "pallas"
+    got, ref = _rows(out / "imagedataout.txt"), _rows(tmp / "tout" / "imagedataout.txt")
+    assert [r[0] for r in got] == [r[0] for r in ref]
+    np.testing.assert_allclose(np.array([r[1:] for r in got], float),
+                               np.array([r[1:] for r in ref], float), rtol=0, atol=1e-5)
+    assert len(_rows(out / "points3D.txt")) == len(_rows(tmp / "tout" / "points3D.txt"))
+
+
+@pytest.mark.parametrize("flags,item", [(["--pipeline-chains"], "do-not-port")])
 def test_cli_refuses_unported_options(cli_runs, capsys, flags, item):
     """A flag whose option the port does not carry reaches run_pipeline's
     NotImplementedError and the CLI exits 1 naming where it is queued; no

@@ -14,6 +14,10 @@ index_add_'s). K2 adds in an order fixed by its plan: repeated calls are
 bitwise equal. K3 adds each segment's rows in row order, as index_add_
 does on the CPU: it equals its plain version run on a CPU copy bit for
 bit, and so does a dense self-calibrating bundle adjustment run twice.
+K2's one-pass path (a plan whose longest segment is within its
+one_pass_limit) adds in plan order from 0.0: it equals the planned plain version run on a
+CPU copy bit for bit, and so does the dense steps' per-(point, block)
+aggregation.
 K1 with a slot axis gives every slot the bits of the single-pair launch on
 that slot's pair. The batched registration steps at 32 slots give every
 slot the bits of register_view on the same pair with the same RANSAC
@@ -486,6 +490,89 @@ def test_seg_accum_full_kernel_needs_a_matching_plan(dev, rng):
         ka.seg_accum_full(c, ids, 4, ka.make_plan(np.zeros(63, np.int32), 4).to(dev))
     with pytest.raises(ValueError):
         ka.seg_accum_full(c, ids, 5, ka.make_plan(np.zeros(64, np.int32), 4).to(dev))
+
+
+def _one_pass_case(rng, case):
+    """(ids, S, K) of the one-pass edge cases (tests/test_torch_ba.py's):
+    the last segment empty, every segment empty, a segment of exactly
+    ONE_PASS_ROWS rows and of one row more (two passes), and plan_ptblk
+    of a bucketed self-calibrating problem (padding rows in no segment)."""
+    if case == "ptblk":
+        ids, S = ba_core.plan_ids(_ba_problem(rng), "plan_ptblk")
+        return ids.astype(np.int32), S, 54
+    S, L = ka.ONE_PASS_SEGMENTS_PER_ROW - 8, ka.ONE_PASS_ROWS
+    if case == "empty_last":
+        ids = rng.integers(0, S - 1, size=8 * S)
+    elif case == "all_empty":
+        ids = rng.integers(S, 2 * S, size=300) * rng.choice([-1, 1], size=300)
+    else:
+        others = rng.integers(0, S, size=8 * S)
+        ids = np.concatenate([others[others != 7], np.full(L + (case == "past_limit"), 7)])
+    return rng.permutation(ids).astype(np.int32), S, 9
+
+
+@pytest.mark.parametrize("case", ["empty_last", "all_empty", "at_limit", "past_limit", "ptblk"])
+def test_seg_accum_one_pass_kernel_equals_cpu_planned_plain(dev, rng, case):
+    """K2's one-pass path gives the bits of the planned plain version run
+    on a CPU copy (each segment's rows in plan order from 0.0), counted as
+    a one-pass launch, whether the plan is sparse (zeroed, then its filled
+    segments summed: plan_ptblk, and a plan whose segments are all empty)
+    or not; a plan with a segment past its one_pass_limit takes the two
+    passes (held at 1e-5), and the one-pass kernel forced on it still
+    gives the CPU's bits."""
+    ids, S, K = _one_pass_case(rng, case)
+    c = rng.normal(size=(len(ids), K)).astype(np.float32) * 10.0
+    host = ka.make_plan(ids, S)
+    assert host.one_pass == (case != "past_limit")
+    assert host.sparse == (case in ("ptblk", "all_empty"))
+    ref = ka.seg_accum_planned_plain(torch.as_tensor(c), host.to(torch.device("cpu")))
+    cd = torch.as_tensor(c, device=dev)
+    before = dict(build.launches)
+    got = ka.seg_accum_full(cd, None, S, host.to(dev))
+    assert build.launches["seg_accum_full"] == before["seg_accum_full"] + 1
+    assert build.launches["seg_accum_full_one_pass"] == \
+        before["seg_accum_full_one_pass"] + host.one_pass
+    if host.one_pass:
+        assert torch.equal(got.cpu(), ref)
+    else:
+        scale = ka.seg_accum_planned_plain(torch.as_tensor(np.abs(c)),
+                                           host.to(torch.device("cpu")))
+        assert bool(((got.cpu() - ref).abs() <= 1e-5 * scale + 1e-6).all())
+        forced = ka.seg_accum_full(cd, None, S, host._replace(one_pass=True).to(dev))
+        assert torch.equal(forced.cpu(), ref)
+    if case == "all_empty":
+        assert not got.any()
+
+
+def test_seg_accum_one_pass_needs_its_offsets_on_the_card(dev):
+    """A one-pass plan whose segment offsets stayed on the host (a two-pass
+    plan moved, then marked one-pass) raises instead of launching."""
+    host = ka.make_plan(np.zeros(64, np.int32), 4)
+    plan = host._replace(one_pass=False).to(dev)._replace(one_pass=True)
+    with pytest.raises(TypeError):
+        ka.seg_accum_full(torch.zeros((64, 9), device=dev), None, 4, plan)
+
+
+def test_ptblk_agg_on_the_card_equals_cpu(dev, rng):
+    """The dense steps' per-(point, block) aggregation (_ptblk_agg by
+    plan_ptblk and plan_ptimg, one one-pass K2 launch each) gives on the
+    card the CPU's bits; padding rows, here given values, add to nothing."""
+    host = ba_core.with_plans(_ba_problem(rng), ("plan_ptblk", "plan_ptimg"))
+    gpu, cpu = (ba_core.problem_to_device(host, d) for d in (dev, torch.device("cpu")))
+    O = host.obs_image.shape[0]
+    for name, k, n in (("plan_ptblk", 27, 2), ("plan_ptimg", 18, 1)):
+        assert getattr(host, name).one_pass
+        T, G = ([rng.normal(size=(O, k)).astype(np.float32) for _ in range(n)]
+                for _ in range(2))
+        before = build.launches["seg_accum_full_one_pass"]
+        got = ba_core._ptblk_agg(gpu, getattr(gpu, name),
+                                 [torch.as_tensor(t, device=dev) for t in T],
+                                 [torch.as_tensor(g, device=dev) for g in G])
+        assert build.launches["seg_accum_full_one_pass"] == before + 1
+        ref = ba_core._ptblk_agg(cpu, getattr(cpu, name), [torch.as_tensor(t) for t in T],
+                                 [torch.as_tensor(g) for g in G])
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
 
 
 def _sorted_call(dev, c, off):

@@ -131,7 +131,7 @@ def test_kernel_build_is_keyed_by_source_hash():
     d1 = build._digest()
     assert d1 == build._digest() and len(d1) == 16
     assert set(build.launches) == {"match", "match_batched", "seg_accum_full",
-                                   "seg_accum_sorted"}
+                                   "seg_accum_full_one_pass", "seg_accum_sorted"}
     build.launches["match"] += 1
     build.slots["match_batched"] += 3
     build.reset_launches()

@@ -237,3 +237,48 @@ def test_batched_matcher_equals_single_per_slot(rng, shared, max_distance):
         np.testing.assert_array_equal(mb[b].numpy(), ms.numpy())
         np.testing.assert_array_equal(okb[b].numpy(), oks.numpy())
     assert int(okb.sum()) > 30 * B
+
+
+@pytest.mark.parametrize("shared", ["first", "second", "none"])
+@pytest.mark.parametrize("max_distance", [None, 60.0])
+def test_xla_batched_matcher_equals_vmapped_jax(rng, shared, max_distance):
+    """The 'xla' backend over a slot axis (the port's match_brute_force on
+    (B, N, D) sides) equals jax.vmap of the JAX package's plain matcher,
+    the shared side at in_axes None, exactly."""
+    import jax
+
+    B = 3
+    arrays = _slots(rng, B, shared != "none", False)
+    if shared == "second":
+        arrays = [arrays[k] for k in (1, 0, 3, 2, 5, 4)]
+    axes = tuple(0 if a.ndim == (3 if k in (0, 1, 4, 5) else 2) else None
+                 for k, a in enumerate(arrays))
+    mt, okt = match_features_batched(*_t(*arrays), ratio=0.9, max_distance=max_distance,
+                                     backend="xla")
+    mj, okj = jax.vmap(lambda *a: j_match(*a, ratio=0.9, max_distance=max_distance),
+                       in_axes=axes)(*_j(*arrays))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert int(okt.sum()) > 30 * B
+
+
+@pytest.mark.parametrize("max_distance", [None, 60.0])
+def test_matcher_backends_agree(rng, max_distance):
+    """The JAX package's backend names: 'auto' and 'pallas' run the fused
+    path (K1's plain version on CPU tensors), 'xla' the plain matcher; all
+    three match the same rows to the same columns, single and batched. An
+    unknown name raises instead of falling back."""
+    d1, d2, m1, m2, kp1, kp2 = _pair(rng, 200, 180)
+    single = [match_features(*_t(d1, d2, m1, m2, kp1, kp2), ratio=0.9,
+                             max_distance=max_distance, backend=b)
+              for b in ("auto", "pallas", "xla")]
+    for m, ok in single[1:]:
+        np.testing.assert_array_equal(m.numpy(), single[0][0].numpy())
+        np.testing.assert_array_equal(ok.numpy(), single[0][1].numpy())
+    arrays = _slots(rng, 2, True, False)
+    batched = [match_features_batched(*_t(*arrays), ratio=0.9, max_distance=max_distance,
+                                      backend=b) for b in ("pallas", "xla")]
+    np.testing.assert_array_equal(batched[0][0].numpy(), batched[1][0].numpy())
+    for bad in ("cuda", "XLA", None):
+        with pytest.raises(ValueError, match="matcher backend"):
+            match_features(*_t(d1, d2), backend=bad)

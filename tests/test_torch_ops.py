@@ -89,6 +89,17 @@ def test_camera_models_match_jax(code, params, rng):
     close(tcam.world2image(T(pts), code, pt), jcam.world2image(J(pts), code, pj))
 
 
+def test_camera_model_names_match_jax():
+    """camera_model_name inverts camera_model_code for every model, as the
+    JAX package's does, and raises on an unknown code."""
+    for code in jcam.CAMERA_MODEL_NAMES:
+        assert tcam.camera_model_name(code) == jcam.camera_model_name(code)
+        assert tcam.camera_model_code(tcam.camera_model_name(code)) == code
+    assert tcam.camera_model_name(np.int64(2)) == "OPENCV"
+    with pytest.raises(KeyError):
+        tcam.camera_model_name(99)
+
+
 def test_image2normalized_np_guards_zero_focal():
     """Deliberate divergence: a zero-padded camera row (f = 0) divides by
     1 in the port instead of producing inf/nan like the JAX version."""
@@ -138,6 +149,22 @@ def test_projection_matches_jax(rng):
     close(tproj.calc_reproj_errors(T(x2), T(X), Pt), jproj.calc_reproj_errors(J(x2), J(X), Pj))
     for a, b in zip(tproj.invert_pose(T(rv), T(tv)), jproj.invert_pose(J(rv), J(tv))):
         close(a, b, rtol=1e-4)
+
+
+def test_world_pose_from_proj_matches_jax(rng):
+    """The cam->world pose of a world->cam [R|t], batched and single, and
+    at the identity: 1e-5 (rvec 1e-4, through the log map as above)."""
+    rv = np.concatenate([_rvecs(rng, 6, 0.6), np.zeros((1, 3), np.float32)])
+    tv = rng.normal(size=(7, 3)).astype(np.float32)
+    Pt = tproj.compose_proj_matrix(T(rv), T(tv))
+    Pj = jproj.compose_proj_matrix(J(rv), J(tv))
+    for pt, pj in ((Pt, Pj), (Pt[2], Pj[2])):
+        (rt, tt), (rj, tj) = tproj.world_pose_from_proj(pt), jproj.world_pose_from_proj(pj)
+        close(rt, rj, rtol=1e-4)
+        close(tt, tj)
+    # Its pose composes back to the inverse of the projection.
+    rt, tt = tproj.world_pose_from_proj(Pt)
+    close(tproj.compose_proj_matrix(rt, tt), tproj.invert_proj_matrix(Pt), rtol=1e-4)
 
 
 # --------------------------------------------------------------- polynomial

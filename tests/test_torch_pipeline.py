@@ -14,8 +14,11 @@ leaves no doubt:
     closure pairs committed (pair_graph);
   - process_remaining_images over a map of every other frame: the same
     frames filled;
-  - every option the port does not carry raises NotImplementedError
-    (mesh_devices runs: tests/test_torch_parallel.py).
+  - run_pipeline with matcher_backend "xla" (the plain PyTorch matcher)
+    and "pallas" (kernel K1's plain version on the CPU, as "auto") maps
+    the "auto" run's frames to the same poses, and records the backend;
+  - the option the port does not carry, pipeline_chains, raises
+    NotImplementedError (mesh_devices runs: tests/test_torch_parallel.py).
 Sub-map merging and segment-parallel mapping are held in
 tests/test_torch_merge.py and tests/test_torch_segments.py.
 """
@@ -165,16 +168,46 @@ def test_process_remaining_images_fills_same_frames(survey):
     assert set(ft) >= {1, 3, 5, 7, 9}
 
 
+def _store_poses(m):
+    """{image index: (rvec, tvec)} of a mapper's registered images."""
+    st = m.store
+    return {m.image_id_to_idx[i]: (st.image_rvecs[i].copy(), st.image_tvecs[i].copy())
+            for i in range(st.num_images) if st.image_registered[i]}
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_run_pipeline_matcher_backends(survey, runs, backend):
+    """The JAX package's matcher_backend values run: "pallas" takes the same
+    matcher as "auto" (kernel K1; its plain version on CPU tensors), "xla"
+    the plain PyTorch matcher, which matches the same rows to the same
+    columns. Both map the "auto" run's frames to the same poses, and the
+    mapper records which backend ran."""
+    (ts, tp, tt), _ = survey
+    auto = runs[0].main_mapper
+    assert auto.matcher_backend_resolved == "pallas"
+    r = tpipe.run_pipeline(ts.image_cameras, ts.cam_models, ts.cam_params, tp,
+                           tpipe.PipelineOptions(**OPTS, matcher_backend=backend), voc_tree=tt,
+                           device=CPU)
+    m = r.main_mapper
+    assert m.matcher_backend_resolved == backend
+    assert sorted(m.image_idx_to_id) == sorted(auto.image_idx_to_id) == list(range(N))
+    got, ref = _store_poses(m), _store_poses(auto)
+    assert got.keys() == ref.keys()
+    for i in ref:
+        for a, b in zip(got[i], ref[i]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert m.report()["loop_closures"] == auto.report()["loop_closures"]
+
+
 @pytest.mark.parametrize("option,value,item", [
     ("pipeline_chains", True, "do-not-port"),
-    ("matcher_backend", "pallas", "K1"),
-    ("matcher_backend", "xla", "K1"),
 ])
 def test_unported_options_raise(option, value, item):
-    """Every option of the JAX pipeline that the port does not carry raises
-    at entry, before any work, naming where it is queued; none falls back.
-    (The options ported with the CLI slice run in tests/test_torch_options.py,
-    mesh_devices in tests/test_torch_parallel.py.)"""
+    """The option of the JAX pipeline that the port does not carry raises
+    at entry, before any work, naming where it is queued; it never falls
+    back. (The options ported with the CLI slice run in
+    tests/test_torch_options.py, mesh_devices in
+    tests/test_torch_parallel.py, matcher_backend above.)"""
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_pipeline(np.zeros(4, np.int32), np.ones(1, np.int32),
                            np.zeros((1, 9), np.float32), None,
