@@ -99,14 +99,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     the JAX package's CLI on the same files (benchmarks/jax_cli_yardstick.py)
     and to absolute limits; then the detector's device and host time per
     frame at 800x600 and at one 4000x3000 frame;
-15. prints the kernels' JSON line, the card line, and last the result line.
+15. photo: the command-line mapper over real photographs: the 40-image
+    survey of tests/test_pipeline.py's real-photograph scene (2 rows),
+    rendered by render_photo_survey over the committed photographs
+    (mavmap_tpu_torch/data/photos) on the CPU, whose frames are the PNG
+    files, and on the card, held to the CPU's frames (at most 1 gray level
+    on at most 0.1 % of a frame's pixels); a vocabulary tree trained on the
+    port's detections; one CLI run with that test's flags plus loop
+    detection. Held to the JAX package's CLI on the same files
+    (benchmarks/jax_photo_yardstick.py): at least its registered count, an
+    ATE under 2x its ATE and under 1.0 m, every output file parsed, K1-K3
+    launched; then the render's time on the card, the kept keypoints and
+    the detector's host time per frame on real texture;
+16. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping run (5-7, 9, 11-13) and read
+counters are zeroed just before each mapping run (5-7, 9, 11-15) and read
 just after it (12: each rank's counts of its pipeline run, summed over the
-ranks; 13: the sum of its two runs; 14: the counts span both CLI runs). The smoke's total seconds are printed last but two, against its
+ranks; 13: the sum of its two runs; 14: the counts span both CLI runs; 15:
+its one CLI run). The smoke's total seconds are printed last but two, against its
 1200 s limit. Imports
 nothing of JAX or of the JAX package.
 """
@@ -154,6 +167,19 @@ CLI_FILTER_MAX_ERROR = 2.0
 JAX_CPU_CLI_REGISTERED = 21
 JAX_CPU_CLI_ABS_RMSE_M = 0.20769685080775652
 JAX_CPU_CLI_GCP_ERR_M = {"cp4": 0.00948342847402626, "cp5": 0.0025753420202657084}
+# The photo phase: tests/test_pipeline.py's real-photograph scene grown to
+# the cli phase's 40 images in 2 rows, and the JAX package's CLI on the CPU
+# over the same files (benchmarks/jax_photo_yardstick.py, recorded in
+# PERF.md): its registered count and its ATE after a similarity fit (40/40:
+# on real texture the second row registers, unlike the cli phase's). The
+# card's render is held to the CPU's: at most 1 gray level on at most
+# PHOTO_RENDER_MAX_SHARE of each frame's pixels (tests/test_torch_gpu.py).
+PHOTO_IMAGES = 40
+PHOTO_HESSIAN = 600.0
+JAX_CPU_PHOTO_REGISTERED = 40
+JAX_CPU_PHOTO_ATE_M = 0.04458887502551079
+PHOTO_ATE_LIMIT_M = 1.0
+PHOTO_RENDER_MAX_SHARE = 1e-3
 # The submaps phase: two run_pipeline runs that end in sub-maps and merge
 # them (the scenes, options and the JAX package's numbers on the CPU:
 # benchmarks/jax_submaps_yardstick.py, recorded in PERF.md). Each run must
@@ -1976,15 +2002,17 @@ def cli_args(root, out, extra=()):
             "--filter-max-error", str(CLI_FILTER_MAX_ERROR), "--quiet", *extra]
 
 
-def cli_outputs(out):
+def cli_outputs(out, control_points=True):
     """Read back what the CLI wrote: every output file of a one-map run must
-    exist and parse. Returns {name: (rx, ry, rz, C)} from imagedataout.txt,
-    the control points' estimates {name: xyz}, and the point counts."""
+    exist and parse (control_points_out.txt where the run had control
+    points). Returns {name: (rx, ry, rz, C)} from imagedataout.txt, the
+    control points' estimates {name: xyz}, and the point counts."""
     import numpy as np
 
     names = ["imagedataout.txt", "points3D.txt", "points3D.ply", "cameras.wrl",
              "points3D-min-track-len-2.wrl", "points3D-min-track-len-3.wrl", "points3D.wrl",
-             "points3D-all.wrl", "connections.wrl", "control_points_out.txt"]
+             "points3D-all.wrl", "connections.wrl"] + (
+                 ["control_points_out.txt"] if control_points else [])
     for n in names:
         if not os.path.exists(os.path.join(out, n)):
             raise AssertionError(f"cli: {n} was not written")
@@ -2005,7 +2033,7 @@ def cli_outputs(out):
         if not txt.startswith("#VRML V2.0 utf8") or txt.count("[") != txt.count("]"):
             raise AssertionError(f"cli: {n} is not a VRML file")
     cps = {}
-    for line in open(os.path.join(out, "control_points_out.txt")):
+    for line in open(os.path.join(out, "control_points_out.txt")) if control_points else ():
         if not line.startswith("#"):
             f = [v.strip() for v in line.split(",")]
             cps[f[0]] = np.array([float(v) for v in f[1:4]])
@@ -2031,7 +2059,7 @@ def cli_metrics(out, scene, priors, cps):
             "gcp_err_m": gcp, "points": n_points, "centers": dict(zip(poses, C.tolist()))}
 
 
-def _timed_detect(torch, dev, img, **kw):
+def _timed_detect(torch, dev, img, hessian=1000.0, **kw):
     """One detect_and_describe call: (kept keypoints, ms between two CUDA
     events around it on the stream, host ms to the synchronised result).
     Where the host launches slower than the card runs, the event span is
@@ -2044,14 +2072,14 @@ def _timed_detect(torch, dev, img, **kw):
     b = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     a.record()
-    mask = detect_and_describe(x, hessian_threshold=1000.0, **kw)[3]
+    mask = detect_and_describe(x, hessian_threshold=hessian, **kw)[3]
     b.record()
     torch.cuda.synchronize(dev)
     host_ms = 1000 * (time.perf_counter() - t0)
     return int(mask.sum()), a.elapsed_time(b), host_ms
 
 
-def _detect_kernel_ms(torch, dev, img, calls=3, **kw):
+def _detect_kernel_ms(torch, dev, img, calls=3, hessian=1000.0, **kw):
     """(device ms of all kernels per detect_and_describe call, kernel
     launches per call) as torch.profiler (CUPTI) reports them; (None, None)
     where the trace holds no device time."""
@@ -2060,11 +2088,11 @@ def _detect_kernel_ms(torch, dev, img, calls=3, **kw):
     from mavmap_tpu_torch.features.detector import detect_and_describe
 
     x = torch.as_tensor(img.astype("float32"), device=dev)
-    detect_and_describe(x, hessian_threshold=1000.0, **kw)
+    detect_and_describe(x, hessian_threshold=hessian, **kw)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            detect_and_describe(x, hessian_threshold=1000.0, **kw)
+            detect_and_describe(x, hessian_threshold=hessian, **kw)
         torch.cuda.synchronize(dev)
     us, n = 0.0, 0
     for e in prof.key_averages():
@@ -2075,30 +2103,40 @@ def _detect_kernel_ms(torch, dev, img, calls=3, **kw):
     return (us / calls / 1000, n / calls) if us > 0 else (None, None)
 
 
+def _detect_frames(torch, dev, root, n, hessian):
+    """The detector per frame on the card over a phase's n 800x600 PNGs
+    under `root`/data (decoded again, max_features 1024, as the phase ran):
+    kept keypoints, event and host ms, the kernels' ms and launches per
+    call, peak memory. The first call warms up and is not counted."""
+    import numpy as np
+    from mavmap_tpu_torch.utils.imageio import read_gray
+
+    frames = [read_gray(os.path.join(root, "data", f"img{i}.png")) for i in range(n)]
+    _timed_detect(torch, dev, frames[0], hessian=hessian, max_features=1024)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = [_timed_detect(torch, dev, f, hessian=hessian, max_features=1024) for f in frames]
+    peak = torch.cuda.max_memory_allocated(dev)
+    kept, dev_ms, host_ms = (np.array(c) for c in zip(*rows))
+    kernel_ms, kernels = _detect_kernel_ms(torch, dev, frames[0], hessian=hessian,
+                                           max_features=1024)
+    return {"frames": len(rows), "size": [800, 600], "hessian": hessian, "kernel_ms": kernel_ms,
+            "kernels_per_call": kernels, "event_ms_median": float(np.median(dev_ms)),
+            "event_ms_range": [float(dev_ms.min()), float(dev_ms.max())],
+            "host_ms_median": float(np.median(host_ms)),
+            "host_ms_range": [float(host_ms.min()), float(host_ms.max())],
+            "kept": kept.tolist(), "peak_mib": peak / 2**20}
+
+
 def detector_timing(torch, dev, root):
     """The detector's time per frame on the card: the cli phase's frames at
     800x600 (their PNGs decoded again, max_features 1024, as the phase ran)
     and one 4000x3000 frame, a 12 MP survey photo (render_images of a scene
     at that size, focal 3500; the CLI's default max_features 2048). Each
     first call warms up and is not counted."""
-    import numpy as np
-    from mavmap_tpu_torch.utils.imageio import read_gray
     from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_images
 
     _phase("detector timing")
-    frames = [read_gray(os.path.join(root, "data", f"img{i}.png")) for i in range(CLI_IMAGES)]
-    _timed_detect(torch, dev, frames[0], max_features=1024)
-    torch.cuda.reset_peak_memory_stats(dev)
-    rows = [_timed_detect(torch, dev, f, max_features=1024) for f in frames]
-    peak = torch.cuda.max_memory_allocated(dev)
-    kept, dev_ms, host_ms = (np.array(c) for c in zip(*rows))
-    kernel_ms, kernels = _detect_kernel_ms(torch, dev, frames[0], max_features=1024)
-    small = {"frames": len(rows), "size": [800, 600], "kernel_ms": kernel_ms,
-             "kernels_per_call": kernels, "event_ms_median": float(np.median(dev_ms)),
-             "event_ms_range": [float(dev_ms.min()), float(dev_ms.max())],
-             "host_ms_median": float(np.median(host_ms)),
-             "host_ms_range": [float(host_ms.min()), float(host_ms.max())],
-             "kept": kept.tolist(), "peak_mib": peak / 2**20}
+    small = _detect_frames(torch, dev, root, CLI_IMAGES, 1000.0)
     print("detector 800x600: " + json.dumps(small), flush=True)
 
     t0 = time.perf_counter()
@@ -2202,6 +2240,177 @@ def cli_phase(torch, dev):
     return dict(launches, match_batched_slots=slots["match_batched"]), timing
 
 
+# ------------------------------------------------------------------ photo
+
+
+def photo_scene():
+    """The photo phase's survey: tests/test_pipeline.py's real-photograph
+    scene (seed 23, relief 10 m, 10 points: the texture is the content) at
+    40 images in 2 rows, at its own 800x600 and focal 700."""
+    from mavmap_tpu_torch.utils.synthetic import make_uav_scene
+
+    return make_uav_scene(num_images=PHOTO_IMAGES, num_points=10, relief=10.0, rows=2, seed=23)
+
+
+def write_photo_dataset(root, device):
+    """Write the photo phase's files under `root`: data/img<i>.png (the
+    survey rendered on the CPU over the committed photographs,
+    render_photo_survey(relief_amp=4.0, seed=23), written by
+    utils/imageio.py), data/imagedata.txt (one PINHOLE camera, no IMU
+    angles, as tests/test_pipeline.py writes it) and tree.npz (a
+    vocabulary tree trained on the descriptors the port detects, on
+    `device`, in every 10th image, at the phase's Hessian threshold).
+    Returns (scene, images, render seconds on the CPU)."""
+    import numpy as np
+    import torch
+    from mavmap_tpu_torch.features.detector import detect_image
+    from mavmap_tpu_torch.loop import train_voc_tree
+    from mavmap_tpu_torch.utils.imageio import write_png
+    from mavmap_tpu_torch.utils.synthetic import load_sample_photos, render_photo_survey
+
+    scene = photo_scene()
+    data = os.path.join(root, "data")
+    os.makedirs(data, exist_ok=True)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    imgs = render_photo_survey(scene, relief_amp=4.0, seed=23, photos=load_sample_photos(cpu),
+                               device=cpu)
+    render_s = time.perf_counter() - t0
+    lines = ["# imagedata"]
+    for i, im in enumerate(imgs):
+        write_png(os.path.join(data, f"img{i}.png"), im)
+        cam_def = ", 1, PINHOLE, 700.0, 700.0, 400.0, 300.0" if i == 0 else ""
+        lines.append(f"img{i}, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0{cam_def}")
+    with open(os.path.join(data, "imagedata.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    desc = np.concatenate([detect_image(imgs[i].astype(np.float32),
+                                        hessian_threshold=PHOTO_HESSIAN, max_features=1024,
+                                        device=device)[1]
+                           for i in range(0, len(imgs), 10)])
+    tree = train_voc_tree(desc, branching=8, depth=2, iters=3, device=device)
+    tree.save(os.path.join(root, "tree.npz"))
+    return scene, imgs, render_s
+
+
+def photo_args(root, out, extra=()):
+    """The photo phase's flags: tests/test_pipeline.py's real-photograph
+    settings (its Hessian threshold 600 kept), plus loop detection every 20
+    frames with the phase's tree over 10 candidates, as in the cli phase."""
+    return ["--input-path", os.path.join(root, "data"), "--output-path", out,
+            "--max-features", "1024", "--min-track-len", "2", "--tri-min-angle", "1.0",
+            "--init-tri-min-angle", "2.0", "--ransac-min-inlier-threshold", "15",
+            "--surf-hessian-threshold", str(int(PHOTO_HESSIAN)),
+            "--voc-tree-path", os.path.join(root, "tree.npz"), "--loop-detection-period", "20",
+            "--loop-detection-num-images", "10", "--quiet", *extra]
+
+
+def photo_metrics(out, scene):
+    """The photo phase's numbers from the CLI's own output files (every one
+    parsed): the registered images, their ATE after a similarity fit
+    (tests/test_pipeline.py's measure) and the point count."""
+    import numpy as np
+    from mavmap_tpu_torch.utils.synthetic import ate_rmse
+
+    poses, _, n_points = cli_outputs(out, control_points=False)
+    idx = [int(n[3:]) for n in poses]
+    C = np.stack([p[3] for p in poses.values()])
+    return {"registered": len(poses), "ate_m": ate_rmse(C, scene.camera_centers()[idx]),
+            "points": n_points, "images": sorted(idx)}
+
+
+def _render_counts(got, ref):
+    """(largest gray-level difference, pixels that differ) per frame."""
+    import numpy as np
+
+    out = []
+    for a, b in zip(got, ref):
+        if a.shape != b.shape or a.dtype != np.uint8:
+            raise AssertionError(f"photo: a card frame of {a.dtype} {a.shape}, not {b.shape}")
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        out.append((int(d.max()), int((d > 0).sum())))
+    return out
+
+
+def photo_phase(torch, dev):
+    """The CLI over a real-photograph survey (see the module docstring,
+    15): the survey rendered on the CPU (the phase's PNGs) and on the card,
+    the card's frames held to the CPU's; one CLI run with detection on the
+    card and loop detection; then the detector's numbers on these frames.
+    Checks: the render within its tolerance, the registered count at least
+    the JAX package's on the same files, the ATE under 2x JAX's and under
+    1.0 m, every output file written and parsed, and K1-K3 launched in the
+    phase."""
+    import tempfile
+
+    from mavmap_tpu_torch import cli
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.utils.synthetic import load_sample_photos, render_photo_survey
+
+    _phase("photo")
+    tmp = tempfile.mkdtemp(prefix="mavmap_photo_")
+    t0 = time.perf_counter()
+    scene, imgs, cpu_s = write_photo_dataset(tmp, dev)
+    print(f"photo: {PHOTO_IMAGES} PNG images rendered on the CPU in {cpu_s:.3f} s, "
+          f"imagedata.txt and a vocabulary tree written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    photos = load_sample_photos(dev)
+    render_photo_survey(scene, 4.0, 23, photos=photos, device=dev)  # warm-up
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    card = render_photo_survey(scene, 4.0, 23, photos=photos, device=dev)
+    _sync(torch, dev)
+    card_s = time.perf_counter() - t0
+    counts = _render_counts(card, imgs)
+    worst = max(n for _, n in counts) / (imgs[0].size)
+    print(f"photo render on the card: {card_s:.4f} s for {PHOTO_IMAGES} frames "
+          f"({1000 * card_s / PHOTO_IMAGES:.2f} ms per frame, the copy to the host included); "
+          f"against the CPU: largest difference {max(m for m, _ in counts)} gray level(s), "
+          f"pixels differing per frame {min(n for _, n in counts)}-{max(n for _, n in counts)} "
+          f"of {imgs[0].size} (largest share {worst!r}; limit 1 level on "
+          f"{PHOTO_RENDER_MAX_SHARE})", flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    r = cli.run(photo_args(tmp, os.path.join(tmp, "out"), ["--device", str(dev)]))
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches, slots = dict(build.launches), dict(build.slots)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if r.rc != 0:
+        raise AssertionError(f"photo: return code {r.rc}")
+    m = photo_metrics(os.path.join(tmp, "out"), scene)
+    stages = dict(detection=r.detection_s, **r.result.timings)
+    print(f"photo cli: registered {m['registered']}/{PHOTO_IMAGES} in {wall:.3f} s (JAX on the "
+          f"CPU {JAX_CPU_PHOTO_REGISTERED}); ATE {m['ate_m']!r} m (JAX {JAX_CPU_PHOTO_ATE_M!r}); "
+          f"{m['points']} points; images {m['images']}", flush=True)
+    print("photo cli stages_s " + json.dumps({k: round(v, 4) for k, v in stages.items()}),
+          flush=True)
+    print("photo cli counters " + json.dumps(r.result.main_mapper.report()), flush=True)
+    print(f"photo cli: launches {json.dumps(launches)}, batched K1 slots "
+          f"{slots['match_batched']}; peak device memory {peak / 2**20:.1f} MiB", flush=True)
+
+    det = _detect_frames(torch, dev, tmp, PHOTO_IMAGES, PHOTO_HESSIAN)
+    print("photo detector 800x600: " + json.dumps(det), flush=True)
+
+    if not all(mx <= 1 and n <= PHOTO_RENDER_MAX_SHARE * imgs[0].size for mx, n in counts):
+        raise AssertionError(f"photo: the card's render differs from the CPU's: {counts}")
+    if m["registered"] < JAX_CPU_PHOTO_REGISTERED:
+        raise AssertionError(f"photo: registered {m['registered']} < the JAX package's "
+                             f"{JAX_CPU_PHOTO_REGISTERED}")
+    limit = min(2 * JAX_CPU_PHOTO_ATE_M, PHOTO_ATE_LIMIT_M)
+    if not m["ate_m"] < limit:
+        raise AssertionError(f"photo: ATE {m['ate_m']} m >= {limit} m (2x the JAX package's "
+                             f"{JAX_CPU_PHOTO_ATE_M} m, at most {PHOTO_ATE_LIMIT_M} m)")
+    if launches["match"] < m["registered"] - 1:
+        raise AssertionError(f"photo: match kernel launched {launches['match']} times")
+    for k in ("seg_accum_full", "seg_accum_sorted"):
+        if launches[k] <= 0:
+            raise AssertionError(f"photo: {k} never launched")
+    return dict(launches, match_batched_slots=slots["match_batched"])
+
+
 def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
@@ -2285,6 +2494,7 @@ def main():
     del scene, feats, gt, survey_raw
     phases["submaps"] = submaps_phase(torch, dev)
     phases["cli"], _ = cli_phase(torch, dev)
+    phases["photo"] = photo_phase(torch, dev)
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s of its {SMOKE_LIMIT_S} s limit",
           flush=True)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))

@@ -67,12 +67,22 @@ class BAOptions:
     max_num_iterations: int = 50
     function_tolerance: float = 1e-4
     loss_scale_factor: float = 1.0  # Cauchy scale, pixels
+    # Accepted for the JAX package's callers and read nowhere, as there:
+    # rotation priors reach the BA through the problem's rot_prior and
+    # rot_prior_weight (build_problem's rot_prior arguments).
+    constrain_rotation: bool = False
+    constrain_rotation_weight: float = 0.0
     refine_camera_params: bool = False
     update_point3D_errors: bool = False
     min_track_len: int = 2
     lambda_init: float = 1e-4
     lambda_up: float = 10.0
     lambda_down: float = 0.5
+    # Segment sums of the assembly and the CG matvec (_check_backend):
+    # "auto" and "pallas" run kernels K2/K3 on CUDA tensors and their plain
+    # versions on CPU tensors; "xla" and "pallas_interpret" mean the plain
+    # versions, which are the CPU's path and raise on the card.
+    backend: str = "auto"
     # Reduced-camera-system solver: "dense" (exact), "cg" (matrix-free
     # preconditioned CG) or "auto" (dense below DENSE_SOLVER_MAX_CAMERAS).
     solver: str = "auto"
@@ -363,6 +373,12 @@ def _total_cost_selfcal_d(prob: BAProblem, poses, points_d, cam_params, scale):
 def total_cost(prob: BAProblem, poses, points, scale):
     """Robust total cost 0.5 sum rho(||r||^2) over the FULL points array."""
     return _total_cost_d(prob, poses, _gather_dense_points(prob, points), scale)
+
+
+def total_cost_selfcal(prob: BAProblem, poses, points, cam_params, scale):
+    """Robust total cost with explicit intrinsics over the FULL points array."""
+    return _total_cost_selfcal_d(prob, poses, _gather_dense_points(prob, points), cam_params,
+                                 scale)
 
 
 # ------------------------------------------------------------ normal eqs
@@ -886,6 +902,29 @@ def _resolve_solver(prob: BAProblem, options: BAOptions) -> str:
     return options.solver
 
 
+BACKENDS = ("auto", "pallas", "xla", "pallas_interpret")
+
+
+def _check_backend(options: BAOptions, device):
+    """Check options.backend for a solve on `device`. "auto" and "pallas"
+    run K2/K3 on a CUDA device and their plain versions on the CPU (the
+    JAX package's "auto" likewise picks its kernels on the accelerator
+    alone). "xla" and "pallas_interpret" ask for the plain sums: those are
+    the CPU's path, and on a CUDA device they raise, since the plain K2
+    sums with index_add_, whose atomic adds break the port's fixed-order
+    rule (every sum on the card adds in a fixed order, so a solve repeats
+    bit for bit); neither runs the kernels or the CPU in their place."""
+    b = options.backend
+    if b not in BACKENDS:
+        raise ValueError(f"unknown BA backend {b!r} (one of {', '.join(BACKENDS)})")
+    if b in ("xla", "pallas_interpret") and torch.device(device).type == "cuda":
+        raise ValueError(
+            f"BA backend {b!r} asks for the plain segment sums, which add with "
+            "index_add_'s atomics on a CUDA device and break the fixed-order rule (every "
+            "sum on the card adds in a fixed order, so a solve repeats bit for bit): use "
+            "'auto' or 'pallas' there, or a CPU device")
+
+
 def _selfcal_cam_free(prob: BAProblem):
     """Per-camera free mask over the 9 padded intrinsics slots."""
     models = np.asarray(prob.cam_models.cpu() if torch.is_tensor(prob.cam_models)
@@ -910,6 +949,7 @@ def bundle_adjust_async(prob: BAProblem, options: BAOptions, device, num_obs=Non
     solver that runs are built here, on the host, and no others (plan_pt
     too where the point errors are asked for)."""
     selfcal = options.refine_camera_params
+    _check_backend(options, device)
     solver = _resolve_solver(prob, options)
     names = solver_plans(selfcal, solver) + (
         ("plan_pt",) if options.update_point3D_errors else ())

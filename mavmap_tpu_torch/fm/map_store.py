@@ -128,6 +128,11 @@ class MapStore:
             self._b_p3d = grow(self._b_p3d, np.int64, fill=-1)
             self._p2d_cap = new_cap
 
+    def sync(self):
+        """Nothing to do: every read of a mirror refreshes it (the native
+        store's too). Kept for callers written for the JAX package, which
+        sync before they read the arrays."""
+
     # ------------------------------------------------------------------ ids
 
     @property

@@ -7,8 +7,8 @@ extend / merge / dedup) runs in native code (native/mapstore.cc). Readers
 see the Python store's arrays: point2D_point3D, point3D_valid, point3D_tri
 and point3D_track_len are mirrors of the core, exported again (one bulk
 copy) on the first read after a write. The JAX version leaves that refresh
-to its callers (sync()); here every read gets it, and the stores have no
-sync().
+to its callers (sync()); here every read gets it, and sync() is a no-op
+kept for those callers.
 
 Select with create_map_store("native" | "auto" | "python").
 """

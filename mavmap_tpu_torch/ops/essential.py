@@ -215,11 +215,15 @@ def _conv(p, q):
     return out
 
 
-def solve_essential_5pt(points1, points2, num_dk_iters=60):
+def solve_essential_5pt(points1, points2, num_dk_iters=60, imag_tol=1e-2):
     """5-point minimal solver, batched: points1/2 (T, S>=5, 2) normalized.
 
     Returns (models (T, 10, 3, 3), mask (T, 10)): up to 10 candidates with
     x2^T E x1 = 0 and unit Frobenius norm, masked where non-finite.
+    `imag_tol` is accepted and unused: the JAX version computes a
+    real-root mask from it and deletes it unread
+    (mavmap_tpu/ops/essential.py:394), keeping every candidate for the
+    polish and RANSAC's scoring, as this one does.
     """
     from .polynomial import roots_durand_kerner
 

@@ -23,7 +23,7 @@ so kernels K2 and K3 run at about 1/N of the problem's rows per rank.
 import numpy as np
 import torch
 
-from ..ba.core import (_lm_loop, _resolve_solver, build_problem, problem_to_device,
+from ..ba.core import (_lm_loop, _check_backend, _resolve_solver, build_problem, problem_to_device,
                        solver_plans, with_plans)
 
 
@@ -106,6 +106,7 @@ def dist_bundle_adjust(mesh, prob, options, per_shard):
     if options.refine_camera_params:
         raise ValueError("dist_bundle_adjust holds the intrinsics fixed: refine them first "
                          "(the mapper's stage 1 on one device)")
+    _check_backend(options, mesh.device)
     solver = _resolve_solver(prob, options)
     dprob = problem_to_device(with_plans(prob, solver_plans(False, solver)), mesh.device)
     stats = {}

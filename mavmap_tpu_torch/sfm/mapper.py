@@ -568,18 +568,19 @@ class SequentialMapper:
     # ---------------------------------------------------------------- chains
 
     def process_chain(self, idxA, idxB, prev_image_idx,
-                      options: SequentialMapperOptions = None):
+                      options: SequentialMapperOptions = None, debug=False):
         """Register two consecutive frames in one device step. Returns
         (okA, okB); okB is None when frame A failed its gates (B was
         registered against a rejected anchor and must go through the
-        normal path)."""
-        oks = self.process_chain_k([idxA, idxB], prev_image_idx, options)
+        normal path). `debug` prints each frame's gate decisions, as in
+        process_chain_k."""
+        oks = self.process_chain_k([idxA, idxB], prev_image_idx, options, debug=debug)
         if not oks[0]:
             return False, None
         return True, len(oks) > 1 and oks[1]
 
     def process_chain_k(self, idxs, prev_image_idx,
-                        options: SequentialMapperOptions = None, pad_to=None, debug=False):
+                        options: SequentialMapperOptions = None, debug=False, pad_to=None):
         """Register K consecutive frames in one device step
         (kernels.register_chain): frame k anchors on the track state derived
         on the device from frame k-1's results, and the results are pulled

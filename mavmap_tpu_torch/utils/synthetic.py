@@ -2,14 +2,24 @@
 
 Port of mavmap_tpu/utils/synthetic.py (`make_uav_scene`,
 `make_multi_camera_scene`, `imu_priors`, `render_features`, `render_images`,
-`mapper_ate`, `mapper_ate_profile`, `ate_rmse`): a terrain point cloud with
-per-point descriptors, a serpentine aerial camera trajectory, projected
-per-image features with pixel noise, descriptor noise, clutter and
-dropout, and rendered grayscale images of the ground for the detector. Scenes are host data (numpy, made from a seed); the few rotation
-and projection calls run in float32 PyTorch on the CPU, as the JAX version
+`sample_photo_paths`, `render_photo_survey`, `mapper_ate`,
+`mapper_ate_profile`, `ate_rmse`): a terrain point cloud with per-point
+descriptors, a serpentine aerial camera trajectory, projected per-image
+features with pixel noise, descriptor noise, clutter and dropout, and
+rendered grayscale images of the ground for the detector: a blob texture
+with painted splats (`render_images`), or a collage of real photographs
+draped on a height field (`render_photo_survey`, on a chosen device).
+Scenes are host data (numpy, made from a seed); the few rotation and
+projection calls run in float32 PyTorch on the CPU, as the JAX version
 runs them in float32 JAX, so both packages build the same scene.
+
+The photographs' gray pixels are committed under mavmap_tpu_torch/data/
+photos/ (`load_sample_photos`; licences in NOTICE.txt there), so a machine
+without Pillow or the packages that ship them renders the same survey.
 """
 
+import glob
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -18,8 +28,15 @@ import torch
 from ..models import camera as cam
 from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
 from ..ops.similarity import solve_umeyama, transform_points
+from .imageio import read_gray
 
 _CPU = torch.device("cpu")
+PHOTO_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "data", "photos")
+# The committed photographs in sample_photo_paths()'s order where both
+# packages that ship them are installed (matplotlib's path sorts before
+# scikit-learn's); the collage, and so every rendered pixel, depends on it.
+SAMPLE_PHOTOS = ("grace_hopper", "china", "flower")
 
 
 def _rot_x(a):
@@ -296,4 +313,125 @@ def render_images(scene: SyntheticScene, texture_size=2048, texture_contrast=1.0
                     -((xx + ui - du) ** 2 + (yy + vi - dv) ** 2) / (2 * splat_sig[pid, l] ** 2))
                 img[vi - 7: vi + 8, ui - 7: ui + 8] += g
         images.append(np.clip(img, 0, 255).astype(np.uint8))
+    return images
+
+
+def sample_photo_paths():
+    """Real photographs bundled with installed packages (no download):
+    scikit-learn's china/flower and matplotlib's grace_hopper, sorted by
+    path; [] where neither package is installed."""
+    cands = []
+    try:
+        import sklearn
+
+        root = os.path.dirname(sklearn.__file__)
+        cands += glob.glob(os.path.join(root, "datasets", "images", "*.jpg"))
+    except Exception:
+        pass
+    try:
+        import matplotlib
+
+        root = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data", "sample_data")
+        cands += glob.glob(os.path.join(root, "grace_hopper.jpg"))
+    except Exception:
+        pass
+    return sorted(p for p in cands if os.path.getsize(p) > 30_000)
+
+
+def load_sample_photos(device=_CPU):
+    """The committed gray pixels of sample_photo_paths()'s photographs
+    (data/photos/<name>.png: Pillow's convert("L") of each JPEG), read
+    without Pillow, in SAMPLE_PHOTOS order: a list of (H, W) float32
+    tensors on `device`."""
+    return [torch.as_tensor(read_gray(os.path.join(PHOTO_DIR, f"{n}.png")),
+                            device=device).float() for n in SAMPLE_PHOTOS]
+
+
+def render_photo_survey(scene: SyntheticScene, relief_amp=4.0, seed=0, *, photos=None,
+                        device="cuda"):
+    """Render the survey over real photographic terrain texture, on `device`.
+
+    The ground is a mirror-tiled collage of real photographs draped over a
+    smooth height field: every feature the detector finds is real image
+    content, and the relief's parallax keeps the scene off the homography
+    gate. Each pixel's ray meets the terrain after 4 fixed-point steps from
+    the flat ground (relief << altitude). `photos`: a list of (H, W) gray
+    arrays or tensors (load_sample_photos()), or None to read
+    sample_photo_paths() with Pillow, as the JAX version does; RuntimeError
+    where that finds none. `seed` is unused, as there. Returns a list of
+    (H, W) uint8 numpy images; the poses are the scene's ground truth.
+
+    The arithmetic is the JAX version's numpy arithmetic: the geometry in
+    float32 and the bilinear weights, and so the texture value, in float64
+    (numpy promotes u - int(u) to float64). Scalars enter as 0-d tensors on
+    the device, so no division by one turns into a product with its
+    reciprocal. Where sin/cos or the rays @ R product round differently
+    (numpy against PyTorch, CPU against GPU), the truncation to uint8 turns
+    the ulps into single gray levels on a few pixels."""
+    dev = torch.device(device)
+    if photos is None:
+        paths = sample_photo_paths()
+        if not paths:
+            raise RuntimeError("no bundled sample photographs found")
+        from PIL import Image
+
+        photos = [np.asarray(Image.open(p).convert("L"), np.float32) for p in paths]
+    if not len(photos):
+        raise RuntimeError("render_photo_survey: no photographs given")
+    photos = [torch.as_tensor(p).to(dev, torch.float32) for p in photos]
+    # Equal-height collage strip, then mirror-tile it into 6 rows.
+    hmin = min(p.shape[0] for p in photos)
+    strip = torch.cat([p[:hmin] for p in photos] + [p[:hmin].flip(1) for p in photos], 1)
+    tex = torch.cat([strip if k % 2 == 0 else strip.flip(0) for k in range(6)], 0)
+    th, tw = tex.shape
+    flat = tex.reshape(-1)
+
+    w, h = scene.image_size
+    C = scene.camera_centers()
+    half = 1.2 * np.max(C[:, 2]) * max(w, h) / 2.0 / float(scene.cam_params[0][0])
+    x0, x1 = C[:, 0].min() - half, C[:, 0].max() + half
+    y0, y1 = C[:, 1].min() - half, C[:, 1].max() + half
+
+    def s32(v):
+        return torch.tensor(np.float32(v), device=dev)
+
+    X0, Y0, XS, YS = s32(x0), s32(y0), s32(x1 - x0), s32(y1 - y0)
+
+    def height(gx, gy):
+        return relief_amp * (torch.sin(0.37 * gx) * torch.cos(0.41 * gy)
+                             + 0.6 * torch.sin(0.73 * gx + 1.3) * torch.sin(0.53 * gy + 0.7))
+
+    def sample(gx, gy):
+        u = torch.clamp((gx - X0) / XS * (tw - 2), 0, tw - 2)
+        v = torch.clamp((gy - Y0) / YS * (th - 2), 0, th - 2)
+        ui, vi = u.long(), v.long()
+        fu, fv = u.double() - ui, v.double() - vi
+        at = vi * tw + ui
+        val = (flat[at] * (1 - fu) * (1 - fv) + flat[at + 1] * fu * (1 - fv)
+               + flat[at + tw] * (1 - fu) * fv + flat[at + tw + 1] * fu * fv)
+        # Slow world-anchored brightness modulation breaks the tiling
+        # periodicity (mirror-tiled repeats would die in the ratio test).
+        return val * (0.82 + 0.18 * torch.sin(0.11 * gx + 0.07 * gy))
+
+    fx, fy, cx, cy = (float(v) for v in scene.cam_params[0][:4])
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    rays = torch.as_tensor(np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], -1),
+                           device=dev)
+    tiny = s32(1e-6)
+
+    images = []
+    for i in range(len(scene.rvecs)):
+        R = _rotmats(scene.rvecs[i])
+        Ci = -R.T @ scene.tvecs[i]
+        d = rays @ torch.as_tensor(R, device=dev)
+        dz = torch.where(d[..., 2].abs() < tiny, tiny, d[..., 2])
+        cx_, cy_, cz = s32(Ci[0]), s32(Ci[1]), s32(Ci[2])
+        t = -cz / dz  # flat-ground start
+        for _ in range(4):  # fixed point on the height field
+            gx = cx_ + t * d[..., 0]
+            gy = cy_ + t * d[..., 1]
+            t = (height(gx, gy) - cz) / dz
+        gx = cx_ + t * d[..., 0]
+        gy = cy_ + t * d[..., 1]
+        images.append(torch.clamp(sample(gx, gy), 0, 255).to(torch.uint8).cpu().numpy())
     return images

@@ -18,8 +18,16 @@
     deliberate divergence for cg_tol > 3e-2. The problems carry IMU
     rotation priors on some images, so the prior terms of the matvec are
     held too;
-  - pose refinement: 1e-4.
+  - pose refinement: 1e-4;
+  - the JAX package's BAOptions fields and defaults: every one in the
+    port; `backend` "auto", "xla", "pallas" and "pallas_interpret"
+    through bundle_adjust on both packages within
+    tests/test_pallas_ba.py's bounds for its backends (final cost within
+    1.05x, poses at rtol 5e-3 / atol 1e-3), an unknown backend raising;
+    total_cost_selfcal against the JAX function at 1e-5 relative.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -27,13 +35,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from mavmap_tpu.ba import build_problem as j_build
+from mavmap_tpu.ba import BAOptions as JBAOptions, build_problem as j_build
+from mavmap_tpu.ba import bundle_adjust as j_bundle_adjust
 from mavmap_tpu.ba.core import (
     _gather_dense_points as j_gather, _lm_loop as j_lm_loop,
     _lm_loop_selfcal as j_lm_loop_selfcal, _lm_step_cg as j_lm_step_cg,
     _lm_step_selfcal_cg as j_lm_step_selfcal_cg, _ptblk_agg as j_ptblk_agg,
     _selfcal_backsub as j_selfcal_backsub, _selfcal_cam_free as j_cam_free,
-    pose_refinement as j_pose_refinement)
+    pose_refinement as j_pose_refinement, total_cost_selfcal as j_total_cost_selfcal)
 from mavmap_tpu.ops.pallas.ba_accum import seg_accum_full as j_full, seg_accum_sorted as j_sorted
 from mavmap_tpu.ops.rotation import rotmat_from_rvec as j_rot
 
@@ -41,7 +50,7 @@ from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
 from mavmap_tpu_torch.ba.core import (
     PLANS, _cg_tolerance, _gather_dense_points, _lm_loop, _lm_loop_selfcal, _lm_step_cg,
     _lm_step_selfcal_cg, _ptblk_agg, _resolve_solver, _selfcal_backsub, _selfcal_cam_free,
-    pose_refinement, problem_to_device, solver_plans, with_plans)
+    pose_refinement, problem_to_device, solver_plans, total_cost_selfcal, with_plans)
 from mavmap_tpu_torch.interop import problem_from_jax
 from mavmap_tpu_torch.ops.cuda import ba_accum as ka
 
@@ -528,6 +537,59 @@ def test_bundle_adjust_entry(rng):
     assert info["cam_params"].shape == (1, 9)
     err = info["point_errors"][: len(X)]
     assert np.all(err[np.isin(np.arange(len(X)), op)] >= 0) and np.median(err) < 2.0
+
+
+def test_ba_options_carry_every_jax_field():
+    """Every BAOptions field of the JAX package is one of the port's, with
+    its default; constrain_rotation and its weight are read nowhere in
+    either package (priors reach the BA through rot_prior)."""
+    port = {f.name: f.default for f in dataclasses.fields(BAOptions)}
+    for f in dataclasses.fields(JBAOptions):
+        assert f.name in port, f.name
+        assert port[f.name] == f.default, f.name
+    assert BAOptions(constrain_rotation=True, constrain_rotation_weight=20.0).backend == "auto"
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas", "pallas_interpret"])
+def test_bundle_adjust_backends_match_jax(rng, backend):
+    """bundle_adjust with each JAX backend name on the same problem in both
+    packages, held to tests/test_pallas_ba.py:112's bounds between backends
+    (final cost within 1.05x, poses at rtol 5e-3 / atol 1e-3). On the CPU
+    the JAX package runs "pallas" only in interpret mode, so its
+    "pallas_interpret" stands in for it; the port's four names are one
+    path on the CPU (the plain sums), so they give the same bits."""
+    pj, _ = _jax_problem(rng)
+    jb = "pallas_interpret" if backend == "pallas" else backend
+    pj_poses, _, info_j = j_bundle_adjust(jax.tree.map(jnp.asarray, pj),
+                                          JBAOptions(max_num_iterations=15, backend=jb))
+    host = problem_from_jax(pj)
+    poses, points, info = bundle_adjust(host, BAOptions(max_num_iterations=15,
+                                                        backend=backend), CPU)
+    assert info["final_cost"] <= info_j["final_cost"] * 1.05
+    np.testing.assert_allclose(poses, np.asarray(pj_poses), rtol=5e-3, atol=1e-3)
+    p0, x0, _ = bundle_adjust(host, BAOptions(max_num_iterations=15), CPU)
+    np.testing.assert_array_equal(poses, p0)
+    np.testing.assert_array_equal(points, x0)
+
+
+def test_bundle_adjust_unknown_backend_raises(rng):
+    poses, X, K, models, oi, op, oc, uv, states = _scene(rng)
+    prob = build_problem(poses, X, K, models, oi, op, oc, uv, pose_states=states, bucket=True)
+    with pytest.raises(ValueError, match="unknown BA backend 'tpu'"):
+        bundle_adjust(prob, BAOptions(max_num_iterations=2, backend="tpu"), CPU)
+
+
+def test_total_cost_selfcal_matches_jax(rng):
+    """The public self-calibrating cost over the FULL points array, at
+    perturbed intrinsics, against the JAX function on the same problem:
+    1e-5 relative (f32 sums in another order)."""
+    pj, pt = _jax_problem(rng, focal_err=0.01, priors=True)
+    jpj = jax.tree.map(jnp.asarray, pj)
+    cams = np.asarray(pj.cam_params) * np.float32(1.003)
+    ref = float(j_total_cost_selfcal(jpj, jpj.poses, jpj.points, jnp.asarray(cams), 1.0))
+    got = float(total_cost_selfcal(pt, pt.poses, pt.points, torch.as_tensor(cams), 1.0))
+    assert ref > 0
+    _rel_close(got, ref, 1e-5)
 
 
 # ------------------------------------------------------------------ CG solver

@@ -37,6 +37,14 @@ store as on the native one. Two ranks sharing the card (parallel.launch,
 gloo) solve a point-sharded bundle adjustment twice with the same bits on
 both ranks, and split the 32-slot registration steps with every slot
 equal to the unsharded step's bits.
+BAOptions(backend=...): "auto" and "pallas" run K2/K3 and give the same
+bits; "xla" and "pallas_interpret" (the plain sums, whose K2 version adds
+with index_add_'s atomics) raise on the card, naming the fixed-order rule,
+and launch nothing. render_photo_survey on the card against the CPU on
+tests/test_pipeline.py's real-photo scene: at most 1 gray level on at most
+0.1 % of each frame's pixels (sin/cos and the rays @ R product round
+differently on the card; truncation to uint8 turns that into single gray
+levels).
 """
 
 
@@ -789,6 +797,52 @@ def test_point_mean_errors_is_bitwise_repeatable(dev, rng):
     cpu = problem_to_device(host, torch.device("cpu"))
     c = point_mean_errors(cpu, cpu.poses, cpu.points)
     assert float((a.cpu() - c).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+def test_bundle_adjust_plain_backends_raise_on_the_card(dev, rng, backend):
+    """The plain sums on a CUDA device would add by index_add_'s atomics:
+    the solve raises naming the fixed-order rule before any launch, and
+    neither runs K2/K3 nor falls back to the CPU."""
+    prob = _ba_problem(rng)
+    before = dict(build.launches)
+    with pytest.raises(ValueError, match="fixed-order rule"):
+        bundle_adjust(prob, BAOptions(max_num_iterations=2, backend=backend), dev)
+    assert build.launches == before
+
+
+def test_bundle_adjust_pallas_backend_launches_the_kernels(dev, rng):
+    """backend "pallas" runs K2 and K3 on the card and gives the bits of
+    "auto"."""
+    prob = _ba_problem(rng)
+    runs = []
+    for backend in ("pallas", "auto"):
+        before = dict(build.launches)
+        runs.append(bundle_adjust(prob, BAOptions(max_num_iterations=4, backend=backend,
+                                                  refine_camera_params=True), dev))
+        for k in ("seg_accum_full", "seg_accum_sorted"):
+            assert build.launches[k] > before[k], (backend, k)
+    (p0, x0, i0), (p1, x1, i1) = runs
+    assert np.array_equal(p0, p1) and np.array_equal(x0, x1)
+    assert np.array_equal(i0["cam_params"], i1["cam_params"])
+
+
+def test_render_photo_survey_on_the_card_matches_cpu(dev):
+    """The real-photo renderer on the card against the CPU, on
+    tests/test_pipeline.py's scene from the committed photographs: at most
+    1 gray level on at most 0.1 % of each frame's pixels."""
+    from mavmap_tpu_torch.utils.synthetic import load_sample_photos, render_photo_survey
+
+    scene = make_uav_scene(num_images=6, num_points=10, relief=10.0, rows=1, seed=23)
+    photos = load_sample_photos(torch.device("cpu"))
+    cpu = render_photo_survey(scene, 4.0, 23, photos=photos, device="cpu")
+    card = render_photo_survey(scene, 4.0, 23, photos=photos, device=dev)
+    counts = []
+    for a, b in zip(card, cpu):
+        assert a.dtype == np.uint8 and a.shape == b.shape == (600, 800)
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        counts.append((int(d.max()), int((d > 0).sum())))
+    assert all(m <= 1 and n <= 1e-3 * 600 * 800 for m, n in counts), counts
 
 
 def test_detector_on_the_card_matches_cpu(dev):

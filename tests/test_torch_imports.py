@@ -33,6 +33,7 @@ def test_port_imports_without_jax():
             "mavmap_tpu_torch.sfm.outputs", "mavmap_tpu_torch.sfm.debug",
             "mavmap_tpu_torch.utils.io", "mavmap_tpu_torch.utils.imageio",
             "mavmap_tpu_torch.utils.timer", "mavmap_tpu_torch.utils.checkpoint",
+            "mavmap_tpu_torch.utils.synthetic",
             "mavmap_tpu_torch.parallel", "mavmap_tpu_torch.parallel.multihost",
             "mavmap_tpu_torch.parallel.dist_ba", "mavmap_tpu_torch.parallel.dist_match",
             "mavmap_tpu_torch.parallel.dist_register"} <= set(mods)

@@ -187,6 +187,18 @@ def test_native_map_store_matches_python_store(rng):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("backend", ["native", "python"])
+def test_store_sync_is_a_no_op_for_jax_callers(rng, backend):
+    """A caller written for the JAX package calls sync() before it reads
+    the mirrors: both stores take it, and it changes no array (every read
+    already refreshes them)."""
+    seed = int(rng.integers(1 << 30))
+    store = _fill(create_map_store(backend), np.random.default_rng(seed))
+    ref = _fill(MapStore(), np.random.default_rng(seed))
+    assert store.sync() is None
+    _same_state(store, ref)
+
+
 @pytest.mark.parametrize("target", ["native", "python"])
 def test_native_load_state_round_trip(rng, target):
     """A native store's state loaded into a fresh store of either backend

@@ -295,6 +295,25 @@ def test_essential_solvers_match_jax(rng):
     _up_to_sign(tt_.numpy(), tj_, 1e-3)
 
 
+@pytest.mark.parametrize("imag_tol", [1e-2, 1e-6, 10.0])
+def test_essential_5pt_accepts_imag_tol_like_jax(rng, imag_tol):
+    """imag_tol is accepted and changes nothing, in either package: the JAX
+    function deletes the real-root mask it makes from it
+    (mavmap_tpu/ops/essential.py:394). Models and masks equal the call
+    without it, bit for bit, on both sides."""
+    x1, x2, _, _, _ = _two_view(rng, n=5 * 8)
+    p1, p2 = x1.reshape(8, 5, 2), x2.reshape(8, 5, 2)
+    Et, mt = tess.solve_essential_5pt(T(p1), T(p2), imag_tol=imag_tol)
+    E0, m0 = tess.solve_essential_5pt(T(p1), T(p2))
+    np.testing.assert_array_equal(Et.numpy(), E0.numpy())
+    np.testing.assert_array_equal(mt.numpy(), m0.numpy())
+    Ej, mj = jax.vmap(lambda a, b: jess.solve_essential_5pt(a, b, imag_tol=imag_tol))(
+        J(p1), J(p2))
+    Ej0, mj0 = jax.vmap(jess.solve_essential_5pt)(J(p1), J(p2))
+    np.testing.assert_array_equal(np.asarray(Ej), np.asarray(Ej0))
+    np.testing.assert_array_equal(np.asarray(mj), np.asarray(mj0))
+
+
 def test_essential_8pt_refit_solves_in_f64(rng):
     """Deliberate divergence: the 8-point refit's smallest eigenvector of
     D^T D is taken in f64 (the JAX package takes it in f32). On a nadir

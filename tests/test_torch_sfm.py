@@ -486,6 +486,32 @@ def test_sequential_mapping_slice_matches_jax():
     assert mt.report()["ba_iters"] > 0
 
 
+def test_process_chain_debug_matches_jax(capsys):
+    """process_chain(..., debug=True) on both mappers: both register the two
+    frames and print one gate line for each, the same frames in the same
+    order."""
+    kw = dict(tri_min_angle=1.0, final_cost_threshold=2.0,
+              essential_ransac_trials=TRIALS, p3p_ransac_trials=TRIALS)
+    ikw = dict(kw, tri_min_angle=4.0)
+    scene = make_uav_scene(num_images=4, num_points=1200, relief=10.0, seed=1)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=30, seed=1)
+    cap = int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
+    js = j_scene(num_images=4, num_points=1200, relief=10.0, seed=1)
+    jf, _ = j_render(js, pixel_noise=0.3, clutter=30, seed=1)
+    heads = []
+    for m, O in ((SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                                   ArrayFeatureProvider(feats, capacity=cap), CPU, seed=0),
+                  SequentialMapperOptions),
+                 (JMapper(js.image_cameras, js.cam_models, js.cam_params,
+                          JProvider(jf, capacity=cap), seed=0, store_backend="python"), JOpts)):
+        assert m.process_initial(0, 1, O(**ikw))
+        capsys.readouterr()
+        assert m.process_chain(2, 3, 1, O(**kw), debug=True) == (True, True)
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("DEBUG")]
+        heads.append([ln.split(":")[0] for ln in lines])
+    assert heads[0] == heads[1] == ["DEBUG process(2,1)", "DEBUG process(3,2)"]
+
+
 def test_count_time_rounds_only_on_report():
     """Deliberate divergence: the JAX mapper rounds accumulated seconds on
     every add (sfm/mapper.py:147-149), so 1000 solves of 4 ms count as 0;
