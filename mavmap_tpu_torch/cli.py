@@ -14,9 +14,9 @@ global bundle adjustment is sharded by 3-D point and the batched fan-outs
 split their slots over the ranks; rank 0 writes the outputs, and the exit
 code is rank 0's once every rank has finished (a rank that fails makes it
 non-zero). --matcher-backend takes the JAX CLI's values: auto and pallas
-run CUDA kernel K1, xla the plain PyTorch matcher. The option the port does
-not carry (--pipeline-chains) is refused by run_pipeline's
-NotImplementedError, and the CLI exits with 1.
+run CUDA kernel K1, xla the plain PyTorch matcher. --pipeline-chains
+keeps one speculative continuation chain in flight in the sequential loop
+(PipelineOptions.pipeline_chains), off by default as in the JAX CLI.
 
 Usage:
     python -m mavmap_tpu_torch.cli --input-path DATA/ --output-path OUT/ \
@@ -150,8 +150,8 @@ def build_parser():
     p.add_argument("--pipeline-chains", action="store_true",
                    help="speculative chain pipelining: dispatch the next "
                         "chain on the in-flight chain's device state "
-                        "(headline-bench win; off by default in the full "
-                        "pipeline, see PipelineOptions.pipeline_chains)")
+                        "before pulling it (off by default, see "
+                        "PipelineOptions.pipeline_chains)")
     p.add_argument("--parallel-segments", type=int, default=1,
                    help="map N overlapping sequence segments, one mapper "
                         "each, their chains dispatched in turn, then merge "
@@ -313,7 +313,7 @@ def run(argv=None):
     from .features import FeatureCache
     from .loop import VocTree
     from .sfm import outputs
-    from .sfm.pipeline import _pipeline_mesh, _refuse_unported, run_pipeline
+    from .sfm.pipeline import _pipeline_mesh, run_pipeline
     from .utils.imageio import read_image
     from .utils.io import (cameras_from_records, read_control_point_data, read_image_data,
                            write_control_point_data)
@@ -355,11 +355,6 @@ def run(argv=None):
         else:
             voc_tree = VocTree.load_reference_binary(args.voc_tree_path, device=device)
     opts = pipeline_options(args, loop_detection=voc_tree is not None)
-    try:
-        _refuse_unported(opts)  # before any detection work
-    except NotImplementedError as e:
-        print(f"mavmap_tpu_torch: {e}", file=sys.stderr)
-        return CliRun(1)
 
     def image_path(image_idx):
         name = args.image_prefix + records[image_idx].name + args.image_suffix

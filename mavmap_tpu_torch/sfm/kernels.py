@@ -1,8 +1,9 @@
 """Device steps of the sequential mapper.
 
 Port of mavmap_tpu/sfm/kernels.py (`two_view_init`, `register_view`, the
-chained `register_chain` / `register_chain_fresh` with their device copy
-of the commit's track rules `_derive_chain_state`, the batched
+chained `register_chain` / `register_chain_fresh` / `register_chain_cont`
+with their device copy of the commit's track rules `_derive_chain_state`,
+the batched
 `two_view_init_batch` / `register_view_batch` / `register_view_pairs`, and
 the host unpacking). Each step runs on the device of its input tensors and
 returns packed buffers, `rows` (F, 9|12) and `scalars` (21|13) per frame
@@ -345,19 +346,23 @@ def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
 
     # Scatter prev-row state into the new frame's rows. Matches are
     # injective on valid rows (mutual cross-check); invalid rows and
-    # out-of-range targets are dropped, as mode="drop" does in JAX.
+    # out-of-range targets go to a spare row F that is dropped, as
+    # mode="drop" does in JAX, with no host sync (a boolean index would
+    # read its count back).
     keep = valid & (matches >= 0) & (matches < F)
-    tgt = matches[keep]
-    xyz = torch.zeros_like(prev_xyz).index_put_((tgt,), src_xyz[keep])
-    has_tri = torch.zeros_like(prev_has_tri).index_put_((tgt,), got[keep])
-    lens = torch.zeros_like(prev_len).index_put_((tgt,), src_len[keep])
+    tgt = (torch.where(keep, matches, F),)
+
+    def scatter(src):
+        return src.new_zeros((F + 1,) + src.shape[1:]).index_put_(tgt, src)[:F]
+
+    xyz, has_tri, lens = scatter(src_xyz), scatter(got), scatter(src_len)
     stable = has_tri & (lens >= min_track_len)
     return xyz, has_tri, stable, lens, scalars[7:10], scalars[10:13]
 
 
 def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials, hom_trials, refine_iters,
-                         samples, matcher):
+                         samples, matcher, cont_state=None, cont_pose=None):
     """K consecutive frame registrations: frame k anchors on track state
     derived on the device from frame k-1's results (`_derive_chain_state`),
     so the host pulls once per K frames instead of once per frame.
@@ -376,34 +381,43 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
         anchor_row] + per frame [nt | tri_nt | cam_model | cam_params(9)].
         The key counter is unused (the generator carries the RNG state);
       ba_poses/ba_points (fresh variant): the window-BA solve's output
-        tensors; the anchor's pose and 3-D points are read from them.
+        tensors; the anchor's pose and 3-D points are read from them;
+      cont_state (F, 6) / cont_pose (6,) (continuation variant): a previous
+        chain's end_state / end_pose on the device; the anchor's track
+        state and pose come from them, and track_state and scal[0:6] are
+        ignored.
     The K register_view steps run as a Python loop with no host pull
     between frames (the JAX package scans them in one program). samples:
     optional list of K per-frame sample tuples (see register_view).
-    Returns (rows (K, F, 12), scalars (K, 13), has_tri_in (K, F)), where
-    has_tri_in[k] is the anchor has_tri state frame k registered against.
+    Returns (rows (K, F, 12), scalars (K, 13), has_tri_in (K, F),
+    end_state (F, 6), end_pose (6,)): has_tri_in[k] is the anchor has_tri
+    state frame k registered against; end_state is the last frame's
+    derived [xyz(3) | has_tri | stable | track_len] and end_pose its
+    [rvec | tvec], which a continuation chain anchors on.
     """
     dev = kp_p.device
     K = len(feats_k)
     scal_h = np.asarray(scal, np.float32)
     scal_d = torch.as_tensor(scal_h, device=dev)
-    track_state = torch.as_tensor(track_state, device=dev)
-    rvec, tvec = scal_d[0:3], scal_d[3:6]
     ratio, max_distance = float(scal_h[6]), float(scal_h[7])
     min_tri_angle = float(scal_h[8])
     min_track_len = int(scal_h[9])
     per = scal_h[12:].reshape(K, 12)
     per_d = scal_d[12:].reshape(K, 12)
 
-    xyz = track_state[:, :3]
-    has_tri = track_state[:, 3] > 0.5
-    stable = track_state[:, 4] > 0.5
-    lens = track_state[:, 5].long()
+    if cont_state is not None:
+        state, rvec, tvec = cont_state, cont_pose[:3], cont_pose[3:]
+    else:
+        state, rvec, tvec = torch.as_tensor(track_state, device=dev), scal_d[0:3], scal_d[3:6]
+    xyz = state[:, :3]
+    has_tri = state[:, 3] > 0.5
+    stable = state[:, 4] > 0.5
+    lens = state[:, 5].long()
     if ba_poses is not None:
         anchor_row = int(scal_h[11])
         if anchor_row >= 0:
             rvec, tvec = ba_poses[anchor_row, :3], ba_poses[anchor_row, 3:]
-        xyz_rows = track_state[:, 6].long()
+        xyz_rows = state[:, 6].long()
         xyz = torch.where((xyz_rows >= 0)[:, None],
                           ba_points[torch.clamp(xyz_rows, min=0)], xyz)
 
@@ -422,7 +436,10 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
             rows, scalars, xyz, has_tri, lens, float(per[k, 1]), min_tri_angle,
             min_track_len)
         prev = feats_k[k]
-    return torch.stack(rows_all), torch.stack(scalars_all), torch.stack(has_tri_in)
+    end_state = torch.cat([xyz] + [v[:, None].to(xyz.dtype) for v in (has_tri, stable, lens)],
+                          dim=1)
+    return (torch.stack(rows_all), torch.stack(scalars_all), torch.stack(has_tri_in),
+            end_state, torch.cat([rvec, tvec]))
 
 
 def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
@@ -443,6 +460,20 @@ def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
                                 scal, ba_poses, ba_points, p3p_trials, hom_trials,
                                 refine_iters, samples, matcher)
+
+
+def register_chain_cont(generator, kp_a, d_a, m_a, n_a, feats_k, cont_state, cont_pose, scal,
+                        p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
+                        matcher="pallas"):
+    """Chain registration anchored on a previous chain's end state on the
+    device (speculative pipelining): cont_state (F, 6) and cont_pose (6,)
+    are that chain's end_state / end_pose outputs, and kp_a / d_a / m_a /
+    n_a its last frame's features. The mapper dispatches it before that
+    chain's results reach the host. scal[0:6] (the anchor pose) is
+    ignored."""
+    return _register_chain_impl(generator, kp_a, d_a, m_a, n_a, feats_k, None, scal, None,
+                                None, p3p_trials, hom_trials, refine_iters, samples, matcher,
+                                cont_state=cont_state, cont_pose=cont_pose)
 
 
 def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,

@@ -15,6 +15,9 @@ scalars:
   process_chain_k (chain_dispatch + chain_complete): K frames registered
   in one step, each anchored on the state derived on the device from the
   frame before, pulled once, then gated and committed frame by frame;
+  chain_dispatch_cont / chain_abandon: speculative chain pipelining, the
+  next chain dispatched on the in-flight chain's end state on the device
+  before that chain is pulled, and dropped where it does not commit whole;
   process_initial_batch, detect_loop (_batch_register_candidates),
   batch_register_pairs and batch_detect_closures: many pairs registered in
   one batched step (one batched K1 launch), committed in order with the
@@ -49,6 +52,7 @@ difference raises.
 import time as _time
 from collections import OrderedDict
 from dataclasses import replace as _dc_replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,9 +65,10 @@ from ..models import camera as cam
 from ..ops.matching import MATCHER_BACKENDS, match_features_batched
 from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
 from ..utils.mathx import rel2abs_threshold
-from .kernels import (register_chain, register_chain_fresh, register_view,
-                      register_view_batch, register_view_pairs, two_view_init,
-                      two_view_init_batch, unpack_register, unpack_two_view)
+from .kernels import (register_chain, register_chain_cont, register_chain_fresh,
+                      register_view, register_view_batch, register_view_pairs,
+                      two_view_init, two_view_init_batch, unpack_register,
+                      unpack_two_view)
 from .options import SequentialMapperOptions
 
 
@@ -83,6 +88,27 @@ class _LRUCache(OrderedDict):
         if len(self) > self.capacity:
             self.popitem(last=False)
         return val
+
+
+class _ChainToken(NamedTuple):
+    """A dispatched chain, for chain_complete / chain_abandon /
+    chain_dispatch_cont: its device outputs (rows, scalars, has_tri_in,
+    end_state, end_pose), the host copies of the first three issued at
+    dispatch with the CUDA event recorded behind them (None on the CPU),
+    its frames (padded to K) and the real count, its anchor image, and the
+    anchor's point2D ids and has_tri (None for a continuation chain: they
+    are read at completion, once the anchor has committed)."""
+
+    out: tuple
+    host: tuple
+    ready: object
+    idxs: list
+    n_real: int
+    anchor_idx: int
+    anchor_p2d: object
+    has_tri: object
+    tri_nts: list
+    options: SequentialMapperOptions
 
 
 class SequentialMapper:
@@ -474,9 +500,10 @@ class SequentialMapper:
             matcher=self._matcher_backend(options))
         # The JAX package's schedule: register first, then dispatch the
         # previous frame's deferred window solve, pull the outputs with
-        # the results of the solve dispatched a step earlier. (Its early
-        # non-blocking device->host copy, _copy_async, has no counterpart:
-        # the solve runs when dispatched, so nothing queues behind it.)
+        # the results of the solve dispatched a step earlier. (Unlike a
+        # chain, this step needs no early copy, _copy_early: the solve runs
+        # when dispatched and no speculative step follows, so nothing
+        # queues behind its outputs.)
         r = unpack_register(*self._pull_with_pending(out))
         if not self._register_gates(image_idx, r, options, prev_image_idx, debug=debug):
             return False
@@ -599,11 +626,51 @@ class SequentialMapper:
         return self.chain_complete(self.chain_dispatch(idxs, prev_image_idx, options,
                                                        pad_to=pad_to), debug=debug)
 
+    def _chain_scal(self, idxs, options):
+        """The packed scalars of a chain over `idxs` (see
+        kernels._register_chain_impl) without the anchor pose, and each
+        frame's triangulation threshold."""
+        K = len(idxs)
+        cis = [self.image_cameras[i] for i in idxs]
+        tri_nts = [self._norm_threshold(options.tri_max_reproj_error, i) for i in idxs]
+        scal = np.zeros(12 + 12 * K, np.float32)
+        scal[6] = options.match_max_ratio
+        scal[7] = self._max_distance(options)
+        scal[8] = options.tri_min_angle * np.pi / 180.0
+        scal[9] = options.min_track_len
+        scal[10] = 0.0  # the JAX package's PRNG key counter; the generator holds the state
+        scal[11] = -1.0  # anchor_row
+        per = scal[12:].reshape(K, 12)
+        per[:, 0] = [self._norm_threshold(options.ransac_max_reproj_error, i) for i in idxs]
+        per[:, 1] = tri_nts
+        per[:, 2] = self.cam_models[cis]
+        per[:, 3:12] = self.cam_params[cis]
+        return tri_nts, scal
+
+    @staticmethod
+    def _copy_early(out):
+        """Issue the host copies of a chain's rows, scalars and has_tri_in
+        right behind the chain, into pinned host tensors, and record a
+        CUDA event behind them (the JAX package's _copy_async). On the one
+        in-order stream a copy runs after everything enqueued before it:
+        issued at completion, it would wait behind a continuation chain
+        dispatched in between. Returns (host tensors, event); on the CPU
+        the outputs are host tensors already and the event is None."""
+        if out[0].device.type != "cuda":
+            return tuple(out[:3]), None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out[:3])
+        for h, t in zip(host, out[:3]):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(out[0].device))
+        return host, ready
+
     def chain_dispatch(self, idxs, prev_image_idx,
                        options: SequentialMapperOptions = None, pad_to=None):
         """First half of process_chain_k: dispatch the deferred window
-        solves, then register the chain, without pulling its results.
-        Returns a token for chain_complete."""
+        solves, then register the chain and issue the host copies of its
+        outputs, without waiting for them. Returns a token for
+        chain_complete (or chain_dispatch_cont)."""
         options = options or SequentialMapperOptions()
         if not self.is_image_processed(prev_image_idx):
             raise ValueError("chain needs a processed previous image")
@@ -618,7 +685,6 @@ class SequentialMapper:
         feats = tuple(self._device_features(i) for i in idxs)
         prev_p2d, has_tri, stable, xyz, prev_rvec, prev_tvec, lens = \
             self._prev_track_state(prev_image_idx, options)
-        cis = [self.image_cameras[i] for i in idxs]
 
         # Unlike process(), the previous chain's deferred window solves go
         # BEFORE this chain and land WITH it: one chain of anchor staleness
@@ -633,22 +699,9 @@ class SequentialMapper:
         track_state[:, 4] = stable
         track_state[:, 5] = lens
         track_state[:, 6] = -1.0
-
-        tri_nts = [self._norm_threshold(options.tri_max_reproj_error, i) for i in idxs]
-        scal = np.zeros(12 + 12 * K, np.float32)
+        tri_nts, scal = self._chain_scal(idxs, options)
         scal[0:3] = prev_rvec
         scal[3:6] = prev_tvec
-        scal[6] = options.match_max_ratio
-        scal[7] = self._max_distance(options)
-        scal[8] = options.tri_min_angle * np.pi / 180.0
-        scal[9] = options.min_track_len
-        scal[10] = 0.0  # the JAX package's PRNG key counter; the generator holds the state
-        scal[11] = -1.0  # anchor_row
-        per = scal[12:].reshape(K, 12)
-        per[:, 0] = [self._norm_threshold(options.ransac_max_reproj_error, i) for i in idxs]
-        per[:, 1] = tri_nts
-        per[:, 2] = self.cam_models[cis]
-        per[:, 3:12] = self.cam_params[cis]
 
         # Anchor freshness: the solve just dispatched refines the anchor's
         # pose and most of its 3-D points, but its results reach the store
@@ -678,30 +731,87 @@ class SequentialMapper:
             out = register_chain(self._gen, kpp, dp_, mp_, npn, feats, track_state, scal,
                                  **common)
         self._count("chains")
-        return (out, idxs, n_real, prev_image_idx, prev_p2d, has_tri, tri_nts, options)
+        return _ChainToken(out, *self._copy_early(out), idxs, n_real, prev_image_idx, prev_p2d,
+                           has_tri, tri_nts, options)
+
+    def chain_dispatch_cont(self, idxs, prev_token,
+                            options: SequentialMapperOptions = None, pad_to=None):
+        """Speculative chain dispatch: register `idxs` anchored on the
+        in-flight previous chain's end state on the device
+        (kernels.register_chain_cont), before that chain is pulled, so its
+        pull and host commit overlap this chain's device work.
+
+        The speculation assumes the previous chain commits all its frames;
+        where it does not, this chain anchored on a pose that never
+        committed and the caller must chain_abandon its token (then go on
+        from the committed frames). The deferred window solves stashed
+        since the last dispatch run ahead of this chain, so a solve still
+        runs once per chain; they refine the store, while this chain's
+        anchor comes from the device state. Returns a token for
+        chain_complete."""
+        options = options or SequentialMapperOptions()
+        if prev_token.n_real != len(prev_token.idxs):
+            # A padded chain registers its last frame against itself in the
+            # padding steps, so its end state no longer describes the last
+            # real frame.
+            raise ValueError("a continuation chain needs a full (unpadded) previous chain")
+        anchor_idx = prev_token.idxs[-1]
+        for i in idxs:
+            if self.is_image_processed(i):
+                raise ValueError("chain frames must be unprocessed")
+
+        n_real = len(idxs)
+        K = max(pad_to or n_real, n_real)
+        idxs = list(idxs) + [idxs[-1]] * (K - n_real)
+        kp_a, d_a, m_a, n_a = self._device_features(anchor_idx)
+        feats = tuple(self._device_features(i) for i in idxs)
+        self._pending_ba += self._dispatch_deferred_ba()
+        tri_nts, scal = self._chain_scal(idxs, options)
+        out = register_chain_cont(self._gen, kp_a, d_a, m_a, n_a, feats, prev_token.out[3],
+                                  prev_token.out[4], scal, p3p_trials=options.p3p_ransac_trials,
+                                  matcher=self._matcher_backend(options))
+        self._count("chains")
+        self._count("cont_chains")
+        return _ChainToken(out, *self._copy_early(out), idxs, n_real, anchor_idx, None, None,
+                           tri_nts, options)
+
+    def chain_abandon(self, token):
+        """Drop a speculative chain whose anchor never committed: wait for
+        its host copies, land the pending window solves in dispatch order
+        (as its pull would) and discard its outputs. Its RANSAC draws stay
+        spent."""
+        self._pull_with_pending(token.host, token.ready)
+        self._count("cont_abandoned")
 
     def chain_complete(self, token, debug=False):
-        """Second half of process_chain_k: pull the chain's results with
-        the pending window solves (applied first, in dispatch order), run
-        the host gates and commit frame by frame. Returns the per-frame oks
-        (see process_chain_k)."""
-        out, idxs, n_real, prev_image_idx, prev_p2d, has_tri, tri_nts, options = token
-        rows_all, scalars_all, has_tri_in = self._pull_with_pending(out)
+        """Second half of process_chain_k: wait for the chain's host copies,
+        land the pending window solves (in dispatch order), run the host
+        gates and commit frame by frame. Returns the per-frame oks (see
+        process_chain_k)."""
+        rows_all, scalars_all, has_tri_in = self._pull_with_pending(token.host, token.ready)
+        anchor_idx, anchor_p2d, anchor_has_tri = token.anchor_idx, token.anchor_p2d, token.has_tri
+        if anchor_p2d is None:
+            # A continuation chain: its anchor must have committed by now
+            # (the caller abandons the token otherwise).
+            if not self.is_image_processed(anchor_idx):
+                raise ValueError("continuation chain completed before its anchor committed: "
+                                 "chain_abandon it when the previous chain fails")
+            anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[anchor_idx])
+            anchor_has_tri = has_tri_in[0]
 
         oks = []
-        anchor_idx, anchor_p2d, anchor_has_tri = prev_image_idx, prev_p2d, has_tri
-        for k, idx in enumerate(idxs[:n_real]):
+        for k, idx in enumerate(token.idxs[:token.n_real]):
             r = unpack_register(rows_all[k], scalars_all[k])
-            ok = self._register_gates(idx, r, options, anchor_idx, debug=debug)
+            ok = self._register_gates(idx, r, token.options, anchor_idx, debug=debug)
             if ok:
                 # The commit classifies rows with the same derived has_tri
                 # the device registered against.
-                ok = self._register_commit(idx, anchor_idx, r, options, anchor_p2d,
-                                           anchor_has_tri, tri_nts[k], debug=debug)
+                ok = self._register_commit(idx, anchor_idx, r, token.options, anchor_p2d,
+                                           anchor_has_tri, token.tri_nts[k], debug=debug)
             oks.append(bool(ok))
             if not ok:
                 break
-            if k + 1 < n_real:
+            if k + 1 < token.n_real:
                 anchor_idx = idx
                 anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[idx])
                 anchor_has_tri = has_tri_in[k + 1]
@@ -1121,12 +1231,18 @@ class SequentialMapper:
             self._count_time("ba_solve_s", _time.perf_counter() - t0)
         return handles
 
-    def _pull_with_pending(self, out):
+    def _pull_with_pending(self, out, ready=None):
         """Dispatch the deferred solves, bring the step's output tensors to
         the host, then apply the solves pending from earlier dispatches in
-        dispatch order; the ones just dispatched become pending. Returns
+        dispatch order; the ones just dispatched become pending. `out` may
+        be host copies issued earlier (_copy_early), with the CUDA event
+        `ready` behind them: then only that event is waited for. Returns
         the outputs as numpy arrays."""
         newly = self._dispatch_deferred_ba()
+        if ready is not None:
+            t0 = _time.perf_counter()
+            ready.synchronize()
+            self._count_time("pull_wait_s", _time.perf_counter() - t0)
         vals = tuple(t.cpu().numpy() for t in out)
         self._count("pulls")
         pending, self._pending_ba = self._pending_ba, []

@@ -14,9 +14,10 @@ JAX package's.
   - the debug dumps' names and formats, as tests/test_pipeline.py checks
     the JAX package's;
   - --parallel-segments 2 writes its outputs from one merged map;
-  - the CLI refuses to run on the CPU unless --device cpu is given, and
-    refuses the option the port does not carry, --pipeline-chains (--mesh
+  - the CLI refuses to run on the CPU unless --device cpu is given (--mesh
     runs: tests/test_torch_parallel.py);
+  - --pipeline-chains (speculative chain pipelining) writes the outputs
+    and registers the default run's images;
   - --matcher-backend xla (the plain PyTorch matcher) writes the outputs
     of the default run.
 """
@@ -296,17 +297,21 @@ def test_cli_matcher_backend_xla_writes_the_default_outputs(cli_runs):
     assert len(_rows(out / "points3D.txt")) == len(_rows(tmp / "tout" / "points3D.txt"))
 
 
-@pytest.mark.parametrize("flags,item", [(["--pipeline-chains"], "do-not-port")])
-def test_cli_refuses_unported_options(cli_runs, capsys, flags, item):
-    """A flag whose option the port does not carry reaches run_pipeline's
-    NotImplementedError and the CLI exits 1 naming where it is queued; no
-    output is written."""
-    tmp = cli_runs[0]
-    out = tmp / f"refused-{flags[0][2:]}"
-    rc = tcli.main(["--input-path", str(tmp / "data"), "--output-path", str(out),
-                    "--cache-path", str(tmp / "tcache"), "--device", "cpu"] + FLAGS + flags)
-    assert rc == 1 and item in capsys.readouterr().err
-    assert not (out / "imagedataout.txt").exists()
+def test_cli_pipeline_chains_maps(cli_runs):
+    """--pipeline-chains reaches run_pipeline and maps (its chain over
+    frames 2-5 takes the pipelined branch; six frames leave no room for a
+    continuation): exit 0, every output file of the default run written,
+    the same images registered."""
+    tmp, _, _, default = cli_runs
+    out = tmp / "pipelined"
+    run = tcli.run(["--input-path", str(tmp / "data"), "--output-path", str(out),
+                    "--cache-path", str(tmp / "tcache"), "--device", "cpu",
+                    "--pipeline-chains"] + FLAGS)
+    assert run.rc == 0
+    assert sorted(os.listdir(out)) == sorted(os.listdir(tmp / "tout"))
+    assert [r[0] for r in _rows(out / "imagedataout.txt")] == \
+        [r[0] for r in _rows(tmp / "tout" / "imagedataout.txt")] == [f"img{i}" for i in range(N)]
+    assert run.result.main_mapper.report()["chains"] == 1
 
 
 def test_fingerprint_holds_every_detector_parameter():

@@ -44,7 +44,9 @@ and launch nothing. render_photo_survey on the card against the CPU on
 tests/test_pipeline.py's real-photo scene: at most 1 gray level on at most
 0.1 % of each frame's pixels (sin/cos and the rays @ R product round
 differently on the card; truncation to uint8 turns that into single gray
-levels).
+levels). A dispatched chain's outputs are copied to pinned host memory
+behind one CUDA event, which chain_complete waits for; a continuation
+chain syncs the host only to upload its packed scalars.
 """
 
 
@@ -958,6 +960,40 @@ def test_restart_and_merge_on_the_python_store(dev):
     assert python.main_mapper.report()["store_backend"] == "python"
     assert len(python.mappers) == len(native.mappers) == 1
     assert _merged_state(python, scene)["frames"] == _merged_state(native, scene)["frames"]
+
+
+def test_chain_complete_reads_the_copies_issued_at_dispatch(dev):
+    """A chain's rows, scalars and has_tri_in are copied to pinned host
+    tensors when it is dispatched, behind one recorded CUDA event, and
+    chain_complete reads those copies: they equal a blocking pull of the
+    same outputs. With its frames' features on the card, a continuation
+    chain dispatched on the chain in flight syncs the host once, in
+    sfm/kernels.py (the upload of its packed scalars): its register_view
+    steps and the end state it reads add none. Both chains commit."""
+    from mavmap_tpu_torch.features import ArrayFeatureProvider
+    from mavmap_tpu_torch.sfm import SequentialMapper, SequentialMapperOptions
+
+    scene = make_uav_scene(num_images=8, num_points=1300, relief=10.0, seed=2)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=20, seed=2, max_features=256)
+    m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                         ArrayFeatureProvider(feats, capacity=256), dev, seed=0)
+    opts = SequentialMapperOptions(tri_min_angle=1.0, essential_ransac_trials=128,
+                                   p3p_ransac_trials=128)
+    assert m.process_initial(0, 1, opts)
+    tok = m.chain_dispatch([2, 3], 1, opts)
+    assert isinstance(tok.ready, torch.cuda.Event)
+    assert all(h.device.type == "cpu" and h.is_pinned() for h in tok.host)
+    for i in (4, 5):
+        m._device_features(i)
+    sites = []
+    syncs, cont = count_syncs(lambda: m.chain_dispatch_cont([4, 5], tok, opts), sites)
+    assert syncs == 1 and sites[0].startswith("mavmap_tpu_torch/sfm/kernels.py"), sites
+    tok.ready.synchronize()
+    for h, t in zip(tok.host, tok.out[:3]):
+        assert torch.equal(h, t.cpu())
+    assert m.chain_complete(tok) == [True, True]
+    assert m.chain_complete(cont) == [True, True]
+    assert m.report()["cont_chains"] == 1 and m.report()["pulls"] == 2
 
 
 def test_pose_refinement_rejects_non_finite_steps(dev, rng):

@@ -16,11 +16,11 @@ leaves no doubt:
     frames filled;
   - run_pipeline with matcher_backend "xla" (the plain PyTorch matcher)
     and "pallas" (kernel K1's plain version on the CPU, as "auto") maps
-    the "auto" run's frames to the same poses, and records the backend;
-  - the option the port does not carry, pipeline_chains, raises
-    NotImplementedError (mesh_devices runs: tests/test_torch_parallel.py).
+    the "auto" run's frames to the same poses, and records the backend.
 Sub-map merging and segment-parallel mapping are held in
-tests/test_torch_merge.py and tests/test_torch_segments.py.
+tests/test_torch_merge.py and tests/test_torch_segments.py, pipeline_chains
+in tests/test_torch_pipelined.py, mesh_devices in
+tests/test_torch_parallel.py.
 """
 
 import numpy as np
@@ -197,21 +197,6 @@ def test_run_pipeline_matcher_backends(survey, runs, backend):
         for a, b in zip(got[i], ref[i]):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
     assert m.report()["loop_closures"] == auto.report()["loop_closures"]
-
-
-@pytest.mark.parametrize("option,value,item", [
-    ("pipeline_chains", True, "do-not-port"),
-])
-def test_unported_options_raise(option, value, item):
-    """The option of the JAX pipeline that the port does not carry raises
-    at entry, before any work, naming where it is queued; it never falls
-    back. (The options ported with the CLI slice run in
-    tests/test_torch_options.py, mesh_devices in
-    tests/test_torch_parallel.py, matcher_backend above.)"""
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.run_pipeline(np.zeros(4, np.int32), np.ones(1, np.int32),
-                           np.zeros((1, 9), np.float32), None,
-                           tpipe.PipelineOptions(**{option: value}), device=CPU)
 
 
 def test_run_pipeline_needs_a_card_by_default():

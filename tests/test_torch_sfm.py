@@ -13,7 +13,8 @@ JAX package.
   - chained registration: _derive_chain_state exactly equal on the same
     rows; register_chain (K=3) with every frame's RANSAC samples derived
     from the JAX package's in-program keys: match rows and counts exactly
-    equal, refined poses at 1e-4; the chained loop with deferred window BA
+    equal, refined poses at 1e-4, and the end state a continuation chain
+    anchors on (tests/test_torch_pipelined.py holds those chains); the chained loop with deferred window BA
     of tests/test_sfm.py through both mappers (outcome-based, as above:
     14/14 each, the port's ATE at most max(2 x JAX's, 0.02 m)); and the
     deferred/asynchronous BA schedule itself;
@@ -572,7 +573,8 @@ def test_register_chain_matches_jax(chain_scene, rng):
     RANSAC samples derived from the JAX package's in-program keys
     (fold_in(base_key, counter), split(K), then register_view's split),
     with the masks from JAX's per-frame outputs: match rows exactly equal,
-    counts equal, anchor has_tri states equal, refined poses at 1e-4."""
+    counts equal, anchor has_tri states equal, refined poses at 1e-4; the
+    end state's flags and track lengths exactly equal, its pose at 1e-4."""
     scene, feats, gt = chain_scene
     K = 3
     ids = np.full(F, -1)
@@ -596,11 +598,10 @@ def test_register_chain_matches_jax(chain_scene, rng):
     per[:, 3:12] = scene.cam_params[0]
     imgs = [_image(scene, feats, i) for i in range(1, K + 2)]
     base_key = jax.random.PRNGKey(7)
-    rows_j, sc_j, ht_j, _, _ = j_register_chain(
+    rows_j, sc_j, ht_j, es_j, ep_j = map(np.asarray, j_register_chain(
         base_key, *map(jnp.asarray, imgs[0]), tuple(tuple(map(jnp.asarray, im))
                                                      for im in imgs[1:]),
-        jnp.asarray(track_state), jnp.asarray(scal), p3p_trials=TRIALS)
-    rows_j, sc_j, ht_j = np.asarray(rows_j), np.asarray(sc_j), np.asarray(ht_j)
+        jnp.asarray(track_state), jnp.asarray(scal), p3p_trials=TRIALS))
 
     # Each frame's samples from JAX's keys; its stable mask by replaying the
     # JAX derivation over JAX's own outputs.
@@ -618,10 +619,9 @@ def test_register_chain_matches_jax(chain_scene, rng):
                                          ht, ln, jnp.float32(per[k, 1]),
                                          jnp.float32(scal[8]), 2)
 
-    rows_t, sc_t, ht_t = register_chain(
+    rows_t, sc_t, ht_t, es_t, ep_t = (o.numpy() for o in register_chain(
         None, *_t(*imgs[0]), tuple(tuple(_t(*im)) for im in imgs[1:]), track_state, scal,
-        p3p_trials=TRIALS, samples=samples)
-    rows_t, sc_t, ht_t = rows_t.numpy(), sc_t.numpy(), ht_t.numpy()
+        p3p_trials=TRIALS, samples=samples))
     assert rows_t.shape == rows_j.shape and sc_t.shape == sc_j.shape
     np.testing.assert_array_equal(ht_t, ht_j)
     for k in range(K):
@@ -629,6 +629,15 @@ def test_register_chain_matches_jax(chain_scene, rng):
         np.testing.assert_array_equal(sc_t[k, [0, 2, 3, 4, 5]], sc_j[k, [0, 2, 3, 4, 5]])
         assert sc_t[k, 5] == 1.0 and sc_t[k, 4] > 20
         np.testing.assert_allclose(sc_t[k, 7:13], sc_j[k, 7:13], rtol=0, atol=1e-4)
+    # The end state continuation chains anchor on: the last frame's track
+    # flags and lengths exactly, its pose at 1e-4, its 3-D points at 1e-4
+    # of the map's extent (new points triangulate from those poses).
+    assert es_t.shape == es_j.shape == (F, 6) and ep_t.shape == ep_j.shape == (6,)
+    np.testing.assert_array_equal(es_t[:, 3:], es_j[:, 3:])
+    assert es_t[:, 3].sum() > 20
+    np.testing.assert_allclose(ep_t, ep_j, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(es_t[:, :3], es_j[:, :3], rtol=0,
+                               atol=1e-4 * np.abs(es_j[:, :3]).max())
 
 
 def _run_chained(mapper, opts, init_opts, ba_options_cls):
