@@ -59,7 +59,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     host syncs per step (CUDA's sync debug mode; they must not grow with B)
     and K1 launches per step; then the 32-slot step slot by slot against
     register_view with the same RANSAC draws (counts and masks equal, how
-    many slots give the same bits, the largest float differences);
+    many slots give the same bits, the largest float differences); then
+    one two_view_init_batch step (the survey's first image against its
+    next B images) at B = 1, 8 and 32: host ms per slot, syncs and K1
+    launches per step, and every slot equal to two_view_init's bits;
 11. pipeline: run_pipeline in sequential mode over the survey's scene and
     features with a vocabulary tree, as benchmarks/pipeline_scale.py runs
     it: the batched initial-pair search, chains of 4 with a deferred window
@@ -794,7 +797,7 @@ def main_path_phase(torch, dev):
     global_ba = BAOptions(max_num_iterations=30, refine_camera_params=True)
 
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         prov, dev, seed=0)
+                         prov, device=dev, seed=0)
     stages = {"init_s": 0.0, "register_s": 0.0, "window_ba_s": 0.0, "global_ba_s": 0.0}
     window_iters = 0
     build.reset_launches()
@@ -863,7 +866,7 @@ def xla_matcher_phase(torch, dev):
     opts, init_opts = (dataclasses.replace(o, matcher_backend="xla")
                        for o in _mapper_options())
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         prov, dev, seed=0)
+                         prov, device=dev, seed=0)
     build.reset_launches()
     _sync(torch, dev)
     t0 = time.perf_counter()
@@ -907,7 +910,7 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
     opts, init_opts = _mapper_options()
     window_ba = BAOptions(max_num_iterations=6, refine_camera_params=True)
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         prov, dev, seed=seed)
+                         prov, device=dev, seed=seed)
     st = {"init_s": 0.0, "register_s": 0.0, "window_ba_s": 0.0, "flush_s": 0.0,
           "global_ba_s": 0.0}
 
@@ -1277,9 +1280,9 @@ def cg_vs_dense_phase(torch, dev):
                              np.array(uv, np.float32), pose_states=[1, 2] + [0] * (I - 2))
         o = dict(max_num_iterations=25, refine_camera_params=selfcal)
         t0 = time.perf_counter()
-        pd, xd, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), dev)
+        pd, xd, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), device=dev)
         t1 = time.perf_counter()
-        pc, xc, infoc = bundle_adjust(prob, BAOptions(**o, solver="cg", cg_tol=1e-6), dev)
+        pc, xc, infoc = bundle_adjust(prob, BAOptions(**o, solver="cg", cg_tol=1e-6), device=dev)
         t2 = time.perf_counter()
         dpose = float(np.abs(pc - pd).max())
         dcost = abs(infoc["final_cost"] - infod["final_cost"]) / max(1.0, infod["final_cost"])
@@ -1442,6 +1445,65 @@ def batched_geometry_phase(torch, dev, scene, feats, gt):
     if records[-1]["syncs"] > records[0]["syncs"]:
         raise AssertionError(f"batched geometry: {records[-1]['syncs']} host syncs per step "
                              f"at B={records[-1]['B']} against {records[0]['syncs']} at B=1")
+    return records + two_view_geometry(torch, dev, scene, feats, gt)
+
+
+def two_view_geometry(torch, dev, scene, feats, gt):
+    """One two_view_init_batch step (the mapper's initial-pair step) of the
+    survey's first image against its next B images at B = 1, 8 and 32:
+    host ms per slot from the call to its outputs on the host (median of 3
+    after a warm-up), host syncs per step and K1 launches per step; then
+    each slot against two_view_init on the same pair with generators seeded
+    alike. Fails unless every slot gives two_view_init's bits at every B."""
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm.kernels import two_view_init, two_view_init_batch
+    from mavmap_tpu_torch.utils.timer import count_syncs
+
+    records = []
+    for B in GEOMETRY_SLOTS:
+        args = geometry_inputs(torch, dev, scene, feats, gt, B)
+        first, cands, nts = [a[0] for a in args[:4]], args[4:8], args[17]
+        gen = torch.Generator(device=dev)
+
+        def call():
+            return two_view_init_batch(gen, *first, *cands, 0.9, 1e9, nts, essential_trials=512)
+
+        def step():
+            rows, scalars = call()
+            return rows.cpu(), scalars.cpu()
+
+        gen.manual_seed(B)
+        step()  # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            walls.append(time.perf_counter() - t0)
+        build.reset_launches()
+        syncs, _ = count_syncs(call)
+        k1 = build.launches["match"]
+        g1, g2 = torch.Generator(device=dev), torch.Generator(device=dev)
+        g1.manual_seed(7)
+        g2.manual_seed(7)
+        rows, scalars = two_view_init_batch(g1, *first, *cands, 0.9, 1e9, nts,
+                                            essential_trials=512)
+        same = 0
+        for b in range(B):
+            r, sc = two_view_init(g2, *first, *[c[b] for c in cands], 0.9, 1e9, nts[b],
+                                  essential_trials=512)
+            same += int(torch.equal(rows[b], r) and torch.equal(scalars[b], sc))
+        wall = statistics.median(walls)
+        rec = dict(step="two_view_init_batch", B=B, host_ms_per_step=1000 * wall,
+                   host_ms_per_slot=1000 * wall / B, syncs=syncs, k1_launches=k1,
+                   slots_equal_two_view_init=same, min_inliers=int(scalars[:, 3].min()))
+        records.append(rec)
+        print("batched geometry " + json.dumps(rec), flush=True)
+        if same != B:
+            raise AssertionError(f"batched geometry: {B - same} of {B} slots of the two-view "
+                                 "step differ from two_view_init's bits")
+        if k1 != 1:
+            raise AssertionError(f"batched geometry: {k1} K1 launches in one two-view step")
     return records
 
 
@@ -1767,7 +1829,7 @@ def mesh_phase(torch, dev, scene, feats, gt, raw, pipe_ref):
                          pose_states=_global_states(len(raw["poses"])), bucket=True)
     _sync(torch, dev)
     t0 = time.perf_counter()
-    p1, x1, info1 = bundle_adjust(prob, BAOptions(**MESH_BA), dev)
+    p1, x1, info1 = bundle_adjust(prob, BAOptions(**MESH_BA), device=dev)
     wall1 = time.perf_counter() - t0
 
     t0 = time.perf_counter()

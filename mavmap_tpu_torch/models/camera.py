@@ -21,6 +21,8 @@ functions are differentiable with torch.func.
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 PINHOLE = 1
 OPENCV = 2
 CATA = 3
@@ -49,8 +51,10 @@ def camera_model_name(code: int) -> str:
     return CAMERA_MODEL_NAMES[int(code)]
 
 
-def pad_params(params, device, dtype=torch.float32):
-    """Pad a parameter list/array to MAX_CAM_PARAMS with zeros."""
+def pad_params(params, dtype=torch.float32, device="cuda"):
+    """Pad a parameter list/array to MAX_CAM_PARAMS with zeros, as a tensor
+    on `device` (the CUDA card unless another is named)."""
+    device = resolve_device(device, "pad_params")
     params = torch.as_tensor(np.asarray(params), dtype=dtype, device=device)
     p = torch.zeros((MAX_CAM_PARAMS,), dtype=dtype, device=device)
     p[: params.shape[0]] = params

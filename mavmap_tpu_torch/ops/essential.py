@@ -19,7 +19,7 @@ Residual: first-order Sampson distance, signed like the reference
 import numpy as np
 import torch
 
-from .reduce import matmul_ordered, sum_pairwise
+from .reduce import det3, matmul_ordered, one_by_one, sum_pairwise
 
 # ----------------------------------------------------------------------------
 # Static monomial tables (numpy, built at import time).
@@ -79,23 +79,60 @@ _XY_COLS = [
     (1, 0), (0, 1), (0, 0),
 ]
 _XY_IDX = {c: i for i, c in enumerate(_XY_COLS)}
-_SCATTER = np.zeros((20, 10, 4), np.float32)
+# A(z)'s coefficient of z^k at (row e, column c) is eq[e, _AZ_IDX[k, c]]
+# (20: no monomial, a zero appended).
+_AZ_IDX = np.full((4, 10), 20, np.int64)
 for _i, (_ex, _ey, _ez) in enumerate(_M3):
-    _SCATTER[_i, _XY_IDX[(_ex, _ey)], _ez] = 1.0
+    _AZ_IDX[_ez, _XY_IDX[(_ex, _ey)]] = _i
 
 # Exponent table of the 20 deg-3 monomials for the Gauss-Newton polish.
 _M3_EXP = np.array(_M3, np.float32)  # (20, 3)
+
+
+def _gather_index(T):
+    """A 0/1 product table T (I, J, M), each (i, j) in at most one m, as
+    (M, S) indices into the I*J products a_i b_j (flattened), each m's in
+    ascending order, padded with I*J (a zero appended after the products)."""
+    I, J, M = T.shape
+    rows = [[i * J + j for i in range(I) for j in range(J) if T[i, j, m]] for m in range(M)]
+    S = max(len(r) for r in rows)
+    return np.array([r + [I * J] * (S - len(r)) for r in rows], np.int64)
+
+
+_T11_IDX = _gather_index(_T11_2)  # (10, 2)
+_T21_IDX = _gather_index(_T21_3)  # (20, 3)
 
 _TABLE_CACHE = {}
 
 
 def _table(name, ref):
-    """Device copy of a static numpy table (made once per device/dtype)."""
-    key = (name, ref.device, ref.dtype)
+    """Device copy of a static numpy table (made once per device/dtype;
+    index tables stay int64)."""
+    table = globals()[name]
+    dtype = torch.int64 if table.dtype == np.int64 else ref.dtype
+    key = (name, ref.device, dtype)
     if key not in _TABLE_CACHE:
-        _TABLE_CACHE[key] = torch.as_tensor(globals()[name], dtype=ref.dtype,
-                                            device=ref.device)
+        _TABLE_CACHE[key] = torch.as_tensor(table, dtype=dtype, device=ref.device)
     return _TABLE_CACHE[key]
+
+
+def _with_zero(x):
+    """x with a zero appended along its last axis (the index tables' pad)."""
+    return torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
+
+
+def _table_product(a, b, name):
+    """sum_ij a[..., i] b[..., j] T[i, j, m] for the 0/1 product table
+    whose gather index is `name` (_T11_IDX, _T21_IDX): each m's products
+    added in a fixed order. As an einsum the contraction is a batched GEMM,
+    and on the card cuBLAS picks its kernel by the batch, so a trial's bits
+    would depend on how many trials share the call (ops/reduce.py)."""
+    idx = _table(name, a)
+    prods = _with_zero((a[..., :, None] * b[..., None, :]).flatten(-2))[..., idx]
+    out = prods[..., 0]
+    for k in range(1, idx.shape[1]):
+        out = out + prods[..., k]
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -112,29 +149,24 @@ def _epipolar_design(points1, points2):
 
 def _build_constraints(C):
     """C: (T, 3, 3, 4) linear-form coeffs of E entries -> (T, 10, 20) cubic
-    coeffs of [det(E); 2 E E^T E - tr(E E^T) E]."""
-    T11 = _table("_T11_2", C)
-    T21 = _table("_T21_3", C)
-
-    def poly2(a, b):
-        return torch.einsum("ti,tj,ijm->tm", a, b, T11)
-
-    def poly3(p2, c):
-        return torch.einsum("tp,ti,pim->tm", p2, c, T21)
-
-    Cij = [[C[:, i, j] for j in range(3)] for i in range(3)]
-    tr = sum(poly2(Cij[i][j], Cij[i][j]) for i in range(3) for j in range(3))
-    m01 = poly2(Cij[1][1], Cij[2][2]) - poly2(Cij[1][2], Cij[2][1])
-    m11 = poly2(Cij[1][0], Cij[2][2]) - poly2(Cij[1][2], Cij[2][0])
-    m21 = poly2(Cij[1][0], Cij[2][1]) - poly2(Cij[1][1], Cij[2][0])
-    eqs = [poly3(m01, Cij[0][0]) - poly3(m11, Cij[0][1]) + poly3(m21, Cij[0][2])]
-    EEt = [[sum(poly2(Cij[i][k], Cij[l][k]) for k in range(3)) for l in range(3)]
-           for i in range(3)]
-    for i in range(3):
-        for j in range(3):
-            acc = sum(poly3(EEt[i][l], Cij[l][j]) for l in range(3))
-            eqs.append(2.0 * acc - poly3(tr, Cij[i][j]))
-    return torch.stack(eqs, dim=1)
+    coeffs of [det(E); 2 E E^T E - tr(E E^T) E], every product and sum in
+    an order fixed by one trial's shapes (_table_product)."""
+    T = C.shape[0]
+    Ce = C.reshape(T, 9, 4)
+    Q = _table_product(Ce[:, :, None], Ce[:, None], "_T11_IDX")  # (T, 9, 9, 10): C_e C_f
+    tr = sum_pairwise(Q.diagonal(dim1=1, dim2=2), dim=-1)        # (T, 10)
+    # EEt[i][l] = sum_k C[i][k] C[l][k]: (T, i, l, 10, k).
+    eet = Q.reshape(T, 3, 3, 3, 3, 10).diagonal(dim1=2, dim2=4)
+    eet = eet[..., 0] + eet[..., 1] + eet[..., 2]                 # (T, 3, 3, 10)
+    minors = torch.stack([Q[:, 4, 8] - Q[:, 5, 7], Q[:, 3, 8] - Q[:, 5, 6],
+                          Q[:, 3, 7] - Q[:, 4, 6]], dim=1)        # (T, 3, 10)
+    d = _table_product(minors, C[:, 0], "_T21_IDX")               # (T, 3, 20)
+    det = d[:, 0] - d[:, 1] + d[:, 2]
+    # sum_l EEt[i][l] C[l][j]: (T, i, l, j, 20) summed over l in order.
+    r = _table_product(eet[:, :, :, None], C[:, None], "_T21_IDX")
+    acc = r[:, :, 0] + r[:, :, 1] + r[:, :, 2]                    # (T, 3, 3, 20)
+    trc = _table_product(tr[:, None, None], C, "_T21_IDX")       # (T, 3, 3, 20)
+    return torch.cat([det[:, None], (2.0 * acc - trc).reshape(T, 9, 20)], dim=1)
 
 
 def _monomials3(x, y, z):
@@ -142,7 +174,7 @@ def _monomials3(x, y, z):
     e = _table("_M3_EXP", x)
     v = torch.stack([x, y, z], dim=-1)[..., None, :]  # (..., 1, 3)
     base = torch.where(e == 0, torch.ones_like(v * e), v ** e)
-    return torch.prod(base, dim=-1)
+    return base[..., 0] * base[..., 1] * base[..., 2]
 
 
 def _monomials3_jac(x, y, z):
@@ -155,20 +187,23 @@ def _monomials3_jac(x, y, z):
         ek[:, k] -= 1.0
         ek = torch.clamp(ek, min=0.0)
         base = torch.where(ek == 0, torch.ones_like(v * ek), v ** ek)
-        cols.append(e[:, k] * torch.prod(base, dim=-1))
+        cols.append(e[:, k] * (base[..., 0] * base[..., 1] * base[..., 2]))
     return torch.stack(cols, dim=-1)
 
 
 def _polish_xyz(eq, x, y, z, num_iters=3, damping=1e-10):
     """Gauss-Newton refinement of candidate roots on the 10 cubic
-    constraints; eq (T, 10, 20), x/y/z (T, R)."""
+    constraints; eq (T, 10, 20), x/y/z (T, R). The products are summed in
+    a fixed order (sum_pairwise), not by batched matmuls, whose bits on
+    the card depend on the number of trials."""
     eye = torch.eye(3, dtype=x.dtype, device=x.device)
     eqb = eq[:, None]  # (T, 1, 10, 20)
     for _ in range(num_iters):
-        F = eqb @ _monomials3(x, y, z)[..., :, None]       # (T, R, 10, 1)
-        J = eqb @ _monomials3_jac(x, y, z)                 # (T, R, 10, 3)
-        JtJ = J.transpose(-1, -2) @ J + damping * eye
-        JtF = J.transpose(-1, -2) @ F
+        F = sum_pairwise(eqb * _monomials3(x, y, z)[..., None, :], dim=-1)      # (T, R, 10)
+        J = sum_pairwise(eqb[..., None] * _monomials3_jac(x, y, z)[..., None, :, :],
+                         dim=-2)                                                  # (T, R, 10, 3)
+        JtJ = sum_pairwise(J[..., :, None] * J[..., None, :], dim=-3) + damping * eye
+        JtF = sum_pairwise(J * F[..., None], dim=-2)[..., None]
         delta = solve_or_nan(JtJ, JtF)[..., 0]
         x, y, z = x - delta[..., 0], y - delta[..., 1], z - delta[..., 2]
     return x, y, z
@@ -190,13 +225,18 @@ def inv_or_nan(A):
     return torch.where(bad, torch.full_like(X, float("nan")), X)
 
 
-def _svd_or_nan(A, full_matrices=True):
+def _svd_or_nan(A, full_matrices=True, per_matrix=False):
     """Batched SVD; NaN factors where a matrix holds a non-finite entry
     (XLA's behavior — torch.linalg.svd would raise). Degenerate RANSAC
-    samples give such matrices; their candidates are masked out after."""
+    samples give such matrices; their candidates are masked out after.
+    per_matrix: one matrix per call (reduce.one_by_one), for the per-slot
+    matrices of a batched step."""
     finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
-    U, S, Vh = torch.linalg.svd(torch.where(finite[..., None, None], A, torch.zeros_like(A)),
-                                full_matrices=full_matrices)
+    A = torch.where(finite[..., None, None], A, torch.zeros_like(A))
+    if per_matrix:
+        U, S, Vh = one_by_one(lambda m: torch.linalg.svd(m, full_matrices=full_matrices), A)
+    else:
+        U, S, Vh = torch.linalg.svd(A, full_matrices=full_matrices)
 
     def nan_where_bad(X, k):
         keep = finite.reshape(finite.shape + (1,) * k)
@@ -276,20 +316,21 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60, imag_tol=1e-2):
 
     # (x, y) per root from the nullvector of A(z) over the (x, y) monomials,
     # by degree-consistent ratio least squares (JAX essential.py:365-389).
-    Az = torch.einsum("tem,mcz->tzec", eq, _table("_SCATTER", eq))  # (T, 4, 10, 10)
+    # A(z) = sum_k z^k Az[k], Az[k] gathered from eq, added in order of k.
+    Az = _with_zero(eq)[:, :, _table("_AZ_IDX", eq)].transpose(1, 2)  # (T, 4, 10, 10)
     zpow = torch.stack([torch.ones_like(z), z, z * z, z * z * z], dim=-1)
-    A = torch.einsum("trk,tkij->trij", zpow, Az)  # (T, 10 roots, 10, 10)
+    A = zpow[..., 0, None, None] * Az[:, None, 0]
+    for k in range(1, 4):
+        A = A + zpow[..., k, None, None] * Az[:, None, k]  # (T, 10 roots, 10, 10)
     _, _, VtA = _svd_or_nan(A)
     m = VtA[..., -1, :]  # (T, 10, 10)
 
     x_den = torch.stack([m[..., 4], m[..., 7], m[..., 5], m[..., 8], m[..., 6]], dim=-1)
     x_num = torch.stack([m[..., 0], m[..., 4], m[..., 1], m[..., 5], m[..., 2]], dim=-1)
-    x = torch.sum(x_num * x_den, dim=-1) / torch.clamp(
-        torch.sum(x_den * x_den, dim=-1), min=1e-20)
+    x = sum_pairwise(x_num * x_den) / torch.clamp(sum_pairwise(x_den * x_den), min=1e-20)
     y_den = torch.stack([m[..., 6], m[..., 8], m[..., 5], m[..., 7], m[..., 4]], dim=-1)
     y_num = torch.stack([m[..., 3], m[..., 6], m[..., 2], m[..., 5], m[..., 1]], dim=-1)
-    y = torch.sum(y_num * y_den, dim=-1) / torch.clamp(
-        torch.sum(y_den * y_den, dim=-1), min=1e-20)
+    y = sum_pairwise(y_num * y_den) / torch.clamp(sum_pairwise(y_den * y_den), min=1e-20)
 
     ok = torch.isfinite(x) & torch.isfinite(y)
     x, y, z = _polish_xyz(eq, x, y, z, num_iters=8)
@@ -297,7 +338,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60, imag_tol=1e-2):
 
     E = (x[..., None, None] * basis[:, None, 0] + y[..., None, None] * basis[:, None, 1]
          + z[..., None, None] * basis[:, None, 2] + basis[:, None, 3])
-    norm = torch.linalg.norm(E.reshape(T, 10, 9), dim=-1)
+    norm = torch.sqrt(sum_pairwise(E.reshape(T, 10, 9) ** 2))
     E = E / torch.clamp(norm, min=1e-20)[..., None, None]
     ok = ok & torch.isfinite(E).all(dim=-1).all(dim=-1)
     return E, ok
@@ -318,11 +359,13 @@ def solve_essential_8pt(points1, points2, weights=None):
     D = _epipolar_design(points1.double(), points2.double())
     if weights is not None:
         D = D * weights.double()[..., None]
-    # D^T D summed over the rows in a fixed order: a batched matmul's bits
-    # depend on the batch on the card (ops/reduce.py).
-    _, V = torch.linalg.eigh(sum_pairwise(D[..., :, :, None] * D[..., :, None, :], dim=-3))
+    # D^T D summed over the rows in a fixed order, and its eigenvectors and
+    # E's SVD one slot at a time: a batched matmul's and a batched Jacobi
+    # solver's bits depend on the batch on the card (ops/reduce.py).
+    _, V = one_by_one(torch.linalg.eigh,
+                      sum_pairwise(D[..., :, :, None] * D[..., :, None, :], dim=-3))
     E = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
-    U, s, Vt = _svd_or_nan(E)
+    U, s, Vt = _svd_or_nan(E, per_matrix=True)
     sbar = (s[..., 0] + s[..., 1]) / 2.0
     S = torch.stack([sbar, sbar, torch.zeros_like(sbar)], dim=-1)
     E = matmul_ordered(U * S[..., None, :], Vt)
@@ -335,13 +378,18 @@ def sampson_residuals(points1, points2, E):
     """Signed first-order Sampson distance per correspondence: points
     (..., N, 2), E (..., 3, 3) -> (..., N), leading dims broadcast
     (reference essential_matrix.cc:131-162)."""
-    x1 = torch.cat([points1, torch.ones_like(points1[..., :1])], dim=-1)
-    x2 = torch.cat([points2, torch.ones_like(points2[..., :1])], dim=-1)
-    Ex1 = x1 @ E.transpose(-1, -2)  # (..., N, 3)
-    Etx2 = x2 @ E
-    x2tEx1 = torch.sum(x2 * Ex1, dim=-1)
-    denom = torch.sqrt(Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2
-                       + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2)
+    u1, v1 = points1[..., 0], points1[..., 1]
+    u2, v2 = points2[..., 0], points2[..., 1]
+
+    def e(i, j):
+        return E[..., i, j, None]
+
+    # E x1 and E^T x2 entry by entry, in a fixed order (a batched matmul's
+    # bits depend on the batch on the card).
+    ex1 = [e(i, 0) * u1 + e(i, 1) * v1 + e(i, 2) for i in range(3)]
+    etx2 = [e(0, j) * u2 + e(1, j) * v2 + e(2, j) for j in range(2)]
+    x2tEx1 = u2 * ex1[0] + v2 * ex1[1] + ex1[2]
+    denom = torch.sqrt(ex1[0] ** 2 + ex1[1] ** 2 + etx2[0] ** 2 + etx2[1] ** 2)
     return x2tEx1 / torch.clamp(denom, min=1e-20)
 
 
@@ -355,9 +403,9 @@ _W = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
 def decompose_essential_matrix(E):
     """E (..., 3, 3) -> (R1, R2, t) candidate decomposition (reference
     :165-191)."""
-    U, _, Vt = _svd_or_nan(E)
-    U = U * torch.sign(torch.linalg.det(U))[..., None, None]
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
+    U, _, Vt = _svd_or_nan(E, per_matrix=True)
+    U = U * torch.sign(det3(U))[..., None, None]
+    Vt = Vt * torch.sign(det3(Vt))[..., None, None]
     W = _table("_W", E)
     return (matmul_ordered(matmul_ordered(U, W), Vt), matmul_ordered(matmul_ordered(U, W.T), Vt),
             U[..., :, 2])

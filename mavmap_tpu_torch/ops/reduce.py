@@ -11,7 +11,9 @@ must give each slot the single step's bits, so the sums over a slot's rows
 matrix, the mean triangulation angle) go through `sum_pairwise`, and the
 per-slot 3x3 products (rotations, camera centres, the essential matrix's
 factors) through `matmul_ordered`: elementwise operations in an order
-fixed by the shapes of one slot alone, on both devices.
+fixed by the shapes of one slot alone, on both devices. The linear algebra
+of one matrix per slot (the two-view step's 8-point eigh and SVDs) runs
+`one_by_one`, and a 3x3 determinant is `det3`.
 
 On the CPU, PyTorch evaluates atan2 and pow with SIMD code over whole
 vectors and with the C library's scalar code over what is left of a
@@ -45,6 +47,33 @@ def matmul_ordered(a, b):
     for k in range(1, a.shape[-1]):
         out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
     return out
+
+
+def one_by_one(fn, x):
+    """fn(x) for a batch of matrices x (..., m, n), called on one matrix at
+    a time, its outputs (a tuple of tensors) stacked back to x's leading
+    dims. A cuSOLVER routine's result for a matrix can depend on the other
+    matrices of its call: on an H100 the f64 eigh of one slot's 8-point
+    normal matrix took other bits among 32 slots than alone
+    (tools/torch_two_view_bits.py). For the few per-slot matrices of a
+    step."""
+    lead, flat = x.shape[:-2], x.reshape((-1,) + tuple(x.shape[-2:]))
+    if flat.shape[0] == 1:
+        return tuple(fn(x))
+    parts = zip(*(fn(m[None]) for m in flat)) if flat.shape[0] else zip(*fn(flat))
+    return tuple(torch.cat(p).reshape(lead + p[0].shape[1:]) for p in parts)
+
+
+def det3(m):
+    """The determinant of (..., 3, 3) matrices by cofactors along the first
+    row, in a fixed order (torch.linalg.det's LU runs batched or per matrix
+    by the batch count)."""
+    def c(i, j):
+        return m[..., i, j]
+
+    return (c(0, 0) * (c(1, 1) * c(2, 2) - c(1, 2) * c(2, 1))
+            - c(0, 1) * (c(1, 0) * c(2, 2) - c(1, 2) * c(2, 0))
+            + c(0, 2) * (c(1, 0) * c(2, 1) - c(1, 1) * c(2, 0)))
 
 
 def elementwise_fixed(fn, *args):

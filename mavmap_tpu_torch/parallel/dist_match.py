@@ -13,10 +13,13 @@ import torch
 from ..ops.matching import match_features_batched
 
 
-def dist_match_pairs(mesh, d1, d2, mask1, mask2, ratio=0.9, matcher="pallas"):
-    """d1, d2: (B, F, D) descriptor batches; masks: (B, F); matcher: the
-    matcher backend (ops/matching.py). Returns (matches (B, F) int32,
-    valid (B, F) bool) on every rank."""
+def dist_match_pairs(mesh, d1, d2, mask1, mask2, ratio=0.9, axis="obs", matcher="pallas"):
+    """d1, d2: (B, F, D) descriptor batches; masks: (B, F); axis: the
+    mesh's axis name, as in the JAX package (the pairs split over the
+    ranks); matcher: the matcher backend (ops/matching.py). Returns
+    (matches (B, F) int32, valid (B, F) bool) on every rank."""
+    if axis != mesh.axis:
+        raise ValueError(f"dist_match_pairs: axis {axis!r}, the mesh's is {mesh.axis!r}")
     B, F = d1.shape[0], d1.shape[1]
     lo, hi = mesh.block(B)
     if hi > lo:

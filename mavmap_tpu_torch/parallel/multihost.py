@@ -6,13 +6,16 @@ every rank is a process of its own (torch.distributed), runs the same
 sequential mapper on host state that every rank holds alike, and the
 sharded steps exchange their blocks through the collectives of `Mesh`:
 
-  - `init_multihost`: init_process_group with an explicit address, world
-    size, rank, device and backend (idempotent; nothing to do with one
-    process). The backend follows the layout and is chosen before the
-    group starts: NCCL on device tensors where every rank has a CUDA
-    device of its own, gloo on host copies where ranks share a card or run
-    on the CPU (NCCL refuses two ranks on one device, and gloo has no CUDA
-    all_gather). A backend that fails to start raises.
+  - `init_multihost`: init_process_group under the JAX function's
+    arguments (rank 0's "host:port", the process count, this process's
+    index, its local device ids) plus this rank's device and backend
+    (idempotent; nothing to do with one process). The device is the card
+    unless the caller names another. The backend follows the layout and
+    is chosen before the group starts: NCCL on device tensors where every
+    rank has a CUDA device of its own, gloo on host copies where ranks
+    share a card or run on the CPU (NCCL refuses two ranks on one device,
+    and gloo has no CUDA all_gather). A backend that fails to start
+    raises.
   - `Mesh`: the group, this rank, the rank count and this rank's device.
     `psum` is an all_gather followed by a sum over the rank axis in rank
     order 0..N-1, so every rank gets the same bits and a run repeats bit
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.device import resolve_device
+
 # The process group's collective timeout: a rank that dies or hangs
 # surfaces as an error in the others within this many seconds.
 GROUP_TIMEOUT_S = 120
@@ -61,14 +66,42 @@ def choose_backend(device, local_ranks):
     return "gloo"
 
 
-def init_multihost(init_method=None, world_size=None, rank=None, device="cpu", backend=None,
+def _local_device(device=None, local_device_ids=None):
+    """This rank's device: `device` where given, else the card
+    cuda:local_device_ids[0] (the JAX package's local device ids; a rank
+    here drives one device), else cuda:{LOCAL_RANK % device_count} (the
+    launcher's local rank, or the current card). Raises where a CUDA
+    device is asked for and there is none."""
+    if device is None:
+        if local_device_ids is not None:
+            if len(local_device_ids) != 1:
+                raise ValueError(f"init_multihost: local_device_ids={local_device_ids}: "
+                                 "each rank drives one device")
+            device = torch.device("cuda", int(local_device_ids[0]))
+        else:
+            device = torch.device("cuda")
+    device = resolve_device(device, "parallel")
+    if device.type == "cuda" and device.index is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) % torch.cuda.device_count()
+                              if local is not None else torch.cuda.current_device())
+    return device
+
+
+def init_multihost(coordinator_address=None, num_processes=None, process_id=None,
+                   local_device_ids=None, *, device=None, backend=None,
                    timeout_s=GROUP_TIMEOUT_S):
     """Start the default process group (idempotent; a no-op for one
-    process). init_method: "tcp://localhost:<port>", or None for the
-    environment a launcher such as torchrun sets (MASTER_ADDR, RANK,
-    WORLD_SIZE, LOCAL_WORLD_SIZE). The backend, where not given, follows the
-    layout (choose_backend); it is printed by rank 0. Returns (rank,
-    world_size)."""
+    process), under the JAX package's names: coordinator_address
+    "host:port" of rank 0's rendezvous, or None for the environment a
+    launcher such as torchrun sets (MASTER_ADDR, RANK, WORLD_SIZE,
+    LOCAL_WORLD_SIZE); num_processes and process_id the world size and this
+    rank (None: from that environment); local_device_ids / device this
+    rank's device (_local_device; the card by default). The backend, where
+    not given, follows the layout (choose_backend); it is printed by rank
+    0. Returns (rank, world_size)."""
+    device = _local_device(device, local_device_ids)
+    world_size, rank = num_processes, process_id
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if world_size is None:
@@ -77,12 +110,12 @@ def init_multihost(init_method=None, world_size=None, rank=None, device="cpu", b
         return 0, 1
     if rank is None:
         rank = int(os.environ["RANK"])
-    device = torch.device(device)
     if backend is None:
         local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
         backend = choose_backend(device, local)
     kw = {"device_id": device} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=init_method or "env://",
+    init_method = f"tcp://{coordinator_address}" if coordinator_address else "env://"
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank,
                             timeout=timedelta(seconds=timeout_s), **kw)
     if rank == 0:
@@ -105,7 +138,7 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
-    axis: str = "sfm"
+    axis: str = "obs"
     stats: dict = field(default_factory=lambda: {"collective_s": 0.0, "collectives": 0},
                         compare=False)
 
@@ -195,12 +228,14 @@ def digest(*arrays):
     return out
 
 
-def global_mesh(device="cpu", axis="sfm"):
-    """This rank's Mesh over every rank of the default group, on `device`;
-    with one process (no group), a mesh of one rank."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+def global_mesh(axis="obs", devices=None, *, device=None):
+    """This rank's Mesh over every rank of the default group; with one
+    process (no group), a mesh of one rank. devices: the ranks' devices in
+    rank order (this rank takes its own), or device: this rank's; neither:
+    the card (_local_device)."""
+    if device is None and devices is not None:
+        device = devices[dist.get_rank() if dist.is_initialized() else 0]
+    device = _local_device(device)
     if not dist.is_initialized():
         return Mesh(None, 0, 1, device, axis)
     return Mesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), device, axis)
@@ -215,15 +250,18 @@ def process_shard_bounds(n_items, mesh):
     return mesh.rank * per, (mesh.rank + 1) * per
 
 
-def host_local_to_global(mesh, arr):
-    """This rank's block of a sharded array, on its device. There is no
-    global array object across processes here: each rank keeps its block,
-    and the collectives join blocks where a whole is needed. With one
-    process the block is the whole array (the identity)."""
+def host_local_to_global(mesh, arr, axis="obs"):
+    """This rank's block of a sharded array, on its device; `axis` must
+    name the mesh's axis, as in the JAX package. There is no global array
+    object across processes here: each rank keeps its block, and the
+    collectives join blocks where a whole is needed. With one process the
+    block is the whole array (the identity)."""
+    if axis != mesh.axis:
+        raise ValueError(f"host_local_to_global: axis {axis!r}, the mesh's is {mesh.axis!r}")
     return torch.as_tensor(np.asarray(arr), device=mesh.device)
 
 
-def _rank_main(rank, n, init_method, device_type, threads, fn, args, results):
+def _rank_main(rank, n, coordinator_address, device_type, threads, fn, args, results):
     """One rank of `launch`: start the group, run fn(mesh, *args) and put
     (rank, result) on `results` (a raised exception reaches the launcher
     through torch.multiprocessing's error file, which the launcher reads
@@ -234,8 +272,8 @@ def _rank_main(rank, n, init_method, device_type, threads, fn, args, results):
     else:
         device = torch.device("cpu")
         torch.set_num_threads(threads)
-    init_multihost(init_method, n, rank, device)
-    results.put((rank, fn(global_mesh(device), *args)))
+    init_multihost(coordinator_address, n, rank, device=device)
+    results.put((rank, fn(global_mesh(device=device), *args)))
     dist.destroy_process_group()
 
 
@@ -264,8 +302,8 @@ def launch(fn, n, device="cuda", args=(), timeout=None, threads=None):
     if threads is None:
         threads = max(1, torch.get_num_threads() // n)
     results = mp.get_context("spawn").Queue()
-    init_method = f"tcp://localhost:{free_port()}"
-    ctx = mp.start_processes(_rank_main, (n, init_method, device_type, threads, fn, args,
+    address = f"localhost:{free_port()}"
+    ctx = mp.start_processes(_rank_main, (n, address, device_type, threads, fn, args,
                                           results), nprocs=n, join=False, daemon=True)
     deadline = None if timeout is None else time.monotonic() + timeout
     out = {}

@@ -61,7 +61,7 @@ class TwoViewResult(NamedTuple):
 
 def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
                   ratio, max_distance, norm_threshold, essential_trials=512,
-                  hom_trials=128, max_depth=100.0, samples=None, matcher="pallas"):
+                  hom_trials=128, max_depth=100.0, matcher="pallas", samples=None):
     """Match + disparity + homography + 5pt-RANSAC + pose + triangulate.
 
     Device side of reference process_initial (sequential_mapper.cc:46-386).
@@ -82,7 +82,7 @@ def two_view_init(generator, kp1, desc1, mask1, n1, kp2, desc2, mask2, n2,
 
 def two_view_init_batch(generator, kp1, desc1, mask1, n1, kp2s, desc2s, mask2s, n2s,
                         ratio, max_distance, norm_thresholds, essential_trials=512,
-                        hom_trials=128, max_depth=100.0, samples=None, matcher="pallas"):
+                        max_depth=100.0, matcher="pallas", hom_trials=128, samples=None):
     """two_view_init of one first image against B candidate second images
     (the JAX package's jax.vmap over the candidates, mapper.cc:1027-1036):
     the first image is shared, the candidates' inputs carry a leading B,
@@ -232,8 +232,8 @@ def register_view(generator, kp_prev, desc_prev, mask_prev, n_prev,
                   kp_curr, desc_curr, mask_curr, n_curr,
                   prev_p3d_xyz, prev_has_tri, prev_stable, prev_rvec, prev_tvec,
                   cam_params, cam_model, ratio, max_distance, norm_threshold,
-                  p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
-                  matcher="pallas"):
+                  p3p_trials=512, hom_trials=128, refine_iters=30, matcher="pallas",
+                  samples=None):
     """Match + gates + P3P RANSAC + LM pose refinement + track continuation
     checks + new-point triangulation (device side of reference `process`,
     sequential_mapper.cc:389-934).
@@ -443,8 +443,8 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
 
 
 def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
-                   p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
-                   matcher="pallas"):
+                   p3p_trials=512, hom_trials=128, refine_iters=30, matcher="pallas",
+                   samples=None):
     """Chain registration from host-staged anchor state (no window BA to
     read from; see _register_chain_impl's packed calling convention)."""
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
@@ -454,7 +454,7 @@ def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
 
 def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials=512, hom_trials=128,
-                         refine_iters=30, samples=None, matcher="pallas"):
+                         refine_iters=30, matcher="pallas", samples=None):
     """Chain registration anchored on the latest window-BA solve's output
     (see _register_chain_impl's packed calling convention)."""
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
@@ -463,8 +463,8 @@ def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
 
 
 def register_chain_cont(generator, kp_a, d_a, m_a, n_a, feats_k, cont_state, cont_pose, scal,
-                        p3p_trials=512, hom_trials=128, refine_iters=30, samples=None,
-                        matcher="pallas"):
+                        p3p_trials=512, hom_trials=128, refine_iters=30, matcher="pallas",
+                        samples=None):
     """Chain registration anchored on a previous chain's end state on the
     device (speculative pipelining): cont_state (F, 6) and cont_pose (6,)
     are that chain's end_state / end_pose outputs, and kp_a / d_a / m_a /
@@ -478,8 +478,8 @@ def register_chain_cont(generator, kp_a, d_a, m_a, n_a, feats_k, cont_state, con
 
 def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
-                        ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None, draw_block=None, matcher="pallas"):
+                        ratio, max_distance, norm_threshold, p3p_trials=500, matcher="pallas",
+                        hom_trials=128, refine_iters=30, samples=None, draw_block=None):
     """register_view of one current image against B processed candidates
     (the JAX package's jax.vmap over loop-closure candidates,
     sequential_mapper.cc:1182-1211): the candidates' features, track state
@@ -502,8 +502,8 @@ def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, ma
 
 def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c, nc_,
                         xyz, has_tri, stable, prev_rvec, prev_tvec, kparams, model_code,
-                        ratio, max_distance, norm_threshold, p3p_trials=500, hom_trials=128,
-                        refine_iters=30, samples=None, draw_block=None, matcher="pallas"):
+                        ratio, max_distance, norm_threshold, p3p_trials=500, matcher="pallas",
+                        hom_trials=128, refine_iters=30, samples=None, draw_block=None):
     """register_view over B full (current, previous) pairs: both sides carry
     a leading B, as do kparams (B, 9); model_code and norm_threshold are
     one value per slot (the back-fill and closure-sweep pairs,

@@ -64,6 +64,7 @@ from ..interop import features_to_device
 from ..models import camera as cam
 from ..ops.matching import MATCHER_BACKENDS, match_features_batched
 from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
+from ..utils.device import resolve_device
 from ..utils.mathx import rel2abs_threshold
 from .kernels import (register_chain, register_chain_cont, register_chain_fresh,
                       register_view, register_view_batch, register_view_pairs,
@@ -113,20 +114,21 @@ class _ChainToken(NamedTuple):
 
 class SequentialMapper:
     def __init__(self, image_cameras, cam_models, cam_params, feature_provider,
-                 device, seed=0, cache_capacity=128, loop_detector=None, store_backend="auto",
-                 mesh=None):
+                 loop_detector=None, seed=0, store_backend="auto", cache_capacity=128,
+                 mesh=None, device="cuda"):
         """image_cameras: (num_images,) camera index per dataset image;
         cam_models/cam_params: per-camera model codes and padded params;
-        feature_provider: FeatureProvider with fixed capacity; device: the
-        torch device every step runs on; seed: RANSAC generator seed;
-        cache_capacity: max images kept in the feature caches;
+        feature_provider: FeatureProvider with fixed capacity;
         loop_detector: a loop.LoopDetector every committed image is added
-        to (None: no loop closure); store_backend: 'native' or 'auto' (the
-        C++ track store, fm/native_map_store.py; its build raises where it
-        fails) or 'python' (fm/map_store.py); mesh: a parallel.Mesh whose
-        ranks share the fan-outs and the global bundle adjustment (one rank,
-        or None: this process alone)."""
-        self.device = torch.device(device)
+        to (None: no loop closure); seed: RANSAC generator seed;
+        store_backend: 'native' or 'auto' (the C++ track store,
+        fm/native_map_store.py; its build raises where it fails) or
+        'python' (fm/map_store.py); cache_capacity: max images kept in the
+        feature caches; mesh: a parallel.Mesh whose ranks share the fan-outs
+        and the global bundle adjustment (one rank, or None: this process
+        alone); device: the torch device every step runs on (the CUDA card
+        unless another is named; it raises where there is none)."""
+        self.device = resolve_device(device, "SequentialMapper")
         self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.loop_detector = loop_detector
         self.image_cameras = np.asarray(image_cameras, np.int32)
@@ -335,7 +337,7 @@ class SequentialMapper:
     # ------------------------------------------------------ process_initial
 
     def process_initial(self, first_idx, second_idx,
-                        options: SequentialMapperOptions = None, samples=None, debug=False):
+                        options: SequentialMapperOptions = None, debug=False, samples=None):
         """Two-view initialization (reference sequential_mapper.cc:46-386).
         samples: optional injected RANSAC samples (see two_view_init)."""
         options = options or SequentialMapperOptions()
@@ -466,7 +468,7 @@ class SequentialMapper:
     # --------------------------------------------------------------- process
 
     def process(self, image_idx, prev_image_idx,
-                options: SequentialMapperOptions = None, samples=None, debug=False):
+                options: SequentialMapperOptions = None, debug=False, samples=None):
         """Register `image_idx` against processed `prev_image_idx`
         (reference sequential_mapper.cc:389-934). samples: optional
         injected RANSAC samples (see register_view)."""
@@ -1227,7 +1229,7 @@ class SequentialMapper:
         for sel_ids, pids, prob, ba_options, n_obs in deferred:
             t0 = _time.perf_counter()
             handles.append((sel_ids, pids, bundle_adjust_async(
-                prob, ba_options, self.device, num_obs=n_obs)))
+                prob, ba_options, device=self.device, num_obs=n_obs)))
             self._count_time("ba_solve_s", _time.perf_counter() - t0)
         return handles
 
@@ -1390,7 +1392,7 @@ class SequentialMapper:
             t0 = _time.perf_counter()
             _, _, info_s = bundle_adjust(
                 prob_s, _dc_replace(ba_options, update_point3D_errors=False),
-                self.device, num_obs=len(sub))
+                device=self.device, num_obs=len(sub))
             self._count_time("ba_selfcal_s", _time.perf_counter() - t0)
             self._count("ba_selfcal_iters", int(info_s["iterations"]))
             self._adopt_cam_params(info_s["cam_params"])
@@ -1408,11 +1410,11 @@ class SequentialMapper:
         if async_:
             t0 = _time.perf_counter()
             self._pending_ba.append((sel_ids, pids, bundle_adjust_async(
-                prob, ba_options, self.device, num_obs=n_obs)))
+                prob, ba_options, device=self.device, num_obs=n_obs)))
             self._count_time("ba_solve_s", _time.perf_counter() - t0)
             return None
         t0 = _time.perf_counter()
-        new_poses, new_points, info = bundle_adjust(prob, ba_options, self.device,
+        new_poses, new_points, info = bundle_adjust(prob, ba_options, device=self.device,
                                                     num_obs=n_obs)
         self._count_time("ba_solve_s", _time.perf_counter() - t0)
         self._count("ba_iters", int(info["iterations"]))
@@ -1496,7 +1498,7 @@ class SequentialMapper:
                 rot_prior=rp, rot_prior_weight=rw, bucket=True)
             t0 = _time.perf_counter()
             _, _, info_s = bundle_adjust(
-                prob_s, _dc_replace(ba_options, update_point3D_errors=False), self.device,
+                prob_s, _dc_replace(ba_options, update_point3D_errors=False), device=self.device,
                 num_obs=len(sub))
             self._count_time("ba_selfcal_s", _time.perf_counter() - t0)
             self._count("ba_selfcal_iters", int(info_s["iterations"]))

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ba import BA_POSE_FIXED, BA_POSE_FIXED_X, BAOptions, build_problem, bundle_adjust
+from ..utils.device import resolve_device
 from .mapper import SequentialMapper
 from .options import SequentialMapperOptions
 
@@ -143,7 +144,7 @@ def _pipeline_mesh(opts: PipelineOptions, device):
         raise ValueError(f"run_pipeline: mesh_devices={opts.mesh_devices}")
     if n == 1:
         return None
-    mesh = global_mesh(device)
+    mesh = global_mesh(device=device)
     if mesh.size != n:
         raise RuntimeError(
             f"run_pipeline: mesh_devices={n} needs a torch.distributed group of {n} ranks, "
@@ -437,7 +438,7 @@ def apply_control_points(mapper, control_points, opts: PipelineOptions):
                          pose_states=states, point_fixed=point_fixed, bucket=True)
     new_poses, new_points, info = bundle_adjust(
         prob, BAOptions(max_num_iterations=opts.ba_global_max_iters,
-                        update_point3D_errors=True, min_track_len=2), mapper.device)
+                        update_point3D_errors=True, min_track_len=2), device=mapper.device)
     errors = info["point_errors"]
     mapper.apply_ba_result(image_ids, new_poses, point_ids, new_points[:n_pts], errors[:n_pts])
     return [(cp, None, 0, -1.0) if row is None else
@@ -648,9 +649,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
     from ..loop import LoopDetector
 
     opts = opts or PipelineOptions()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_pipeline: no CUDA device (pass device='cpu' to run on the CPU)")
+    device = resolve_device(device, "run_pipeline")
     mesh = _pipeline_mesh(opts, device)
     if mesh is not None:
         device = mesh.device
@@ -670,7 +669,7 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
 
     def new_mapper(k):
         det = LoopDetector(voc_tree) if (voc_tree is not None and opts.loop_detection) else None
-        m = SequentialMapper(image_cameras, cam_models, cam_params, provider, device,
+        m = SequentialMapper(image_cameras, cam_models, cam_params, provider, device=device,
                              seed=k, loop_detector=det, mesh=mesh)
         m.debug_dumper = dumper
         return m

@@ -520,7 +520,7 @@ def test_bundle_adjust_builds_only_its_solver_plans(rng, selfcal, solver):
     # The dense steps aggregate per (point, block) by their own plan.
     assert (("plan_ptblk" if selfcal else "plan_ptimg") in names) == (solver == "dense")
     _, _, info = bundle_adjust(prob, BAOptions(max_num_iterations=2, solver=solver,
-                                               refine_camera_params=selfcal), CPU)
+                                               refine_camera_params=selfcal), device=CPU)
     assert info["solver"] == solver and info["final_cost"] < info["initial_cost"]
 
 
@@ -530,7 +530,7 @@ def test_bundle_adjust_entry(rng):
                          bucket=True)
     opts = BAOptions(max_num_iterations=10, refine_camera_params=True,
                      update_point3D_errors=True)
-    p, x, info = bundle_adjust(prob, opts, CPU, num_obs=len(oi))
+    p, x, info = bundle_adjust(prob, opts, device=CPU, num_obs=len(oi))
     assert p.shape == prob.poses.shape and x.shape == prob.points.shape
     assert info["final_cost"] < info["initial_cost"]
     assert info["num_residuals"] == 2 * len(oi)
@@ -564,10 +564,10 @@ def test_bundle_adjust_backends_match_jax(rng, backend):
                                           JBAOptions(max_num_iterations=15, backend=jb))
     host = problem_from_jax(pj)
     poses, points, info = bundle_adjust(host, BAOptions(max_num_iterations=15,
-                                                        backend=backend), CPU)
+                                                        backend=backend), device=CPU)
     assert info["final_cost"] <= info_j["final_cost"] * 1.05
     np.testing.assert_allclose(poses, np.asarray(pj_poses), rtol=5e-3, atol=1e-3)
-    p0, x0, _ = bundle_adjust(host, BAOptions(max_num_iterations=15), CPU)
+    p0, x0, _ = bundle_adjust(host, BAOptions(max_num_iterations=15), device=CPU)
     np.testing.assert_array_equal(poses, p0)
     np.testing.assert_array_equal(points, x0)
 
@@ -576,7 +576,7 @@ def test_bundle_adjust_unknown_backend_raises(rng):
     poses, X, K, models, oi, op, oc, uv, states = _scene(rng)
     prob = build_problem(poses, X, K, models, oi, op, oc, uv, pose_states=states, bucket=True)
     with pytest.raises(ValueError, match="unknown BA backend 'tpu'"):
-        bundle_adjust(prob, BAOptions(max_num_iterations=2, backend="tpu"), CPU)
+        bundle_adjust(prob, BAOptions(max_num_iterations=2, backend="tpu"), device=CPU)
 
 
 def test_total_cost_selfcal_matches_jax(rng):
@@ -656,8 +656,8 @@ def test_cg_matches_dense(rng, selfcal):
         rng, noise=0.3, focal_err=0.015 if selfcal else 0.0)
     prob = build_problem(poses, X, K, models, oi, op, oc, uv, pose_states=states)
     o = dict(max_num_iterations=25, refine_camera_params=selfcal)
-    pd, xd, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), CPU)
-    pc, xc, infoc = bundle_adjust(prob, BAOptions(**o, solver="cg", cg_tol=1e-6), CPU)
+    pd, xd, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), device=CPU)
+    pc, xc, infoc = bundle_adjust(prob, BAOptions(**o, solver="cg", cg_tol=1e-6), device=CPU)
     assert infod["solver"] == "dense" and infoc["solver"] == "cg"
     assert len(infoc["cg_iters"]) == infoc["iterations"] and infod["cg_iters"] == []
     assert np.abs(pc - pd).max() < (1e-3 if selfcal else 1e-4)
@@ -683,10 +683,10 @@ def test_bundle_adjust_resolves_cg_from_64_cameras(rng):
     with pytest.raises(ValueError):
         _resolve_solver(prob, BAOptions(solver="sparse"))
     o = dict(max_num_iterations=8)
-    p, x, info = bundle_adjust(prob, BAOptions(**o), CPU, num_obs=len(oi))
+    p, x, info = bundle_adjust(prob, BAOptions(**o), device=CPU, num_obs=len(oi))
     assert info["solver"] == "cg" and len(info["cg_iters"]) == info["iterations"]
     assert info["final_cost"] < 0.1 * info["initial_cost"]
-    _, _, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), CPU)
+    _, _, infod = bundle_adjust(prob, BAOptions(**o, solver="dense"), device=CPU)
     assert abs(info["final_cost"] - infod["final_cost"]) < 1e-3 * infod["final_cost"]
     assert np.isfinite(p).all() and np.isfinite(x).all()
 
@@ -722,7 +722,7 @@ def test_pose_refinement_matches_jax(rng):
     K = np.array([700.0, 700.0, 400.0, 300.0, 0, 0, 0, 0, 0], np.float32)
     r0, t0 = rv + 0.01, tv + 0.05
     jr, jt, jc = j_pose_refinement(r0, t0, X, uv, mask, K, 1)
-    tr, tt, tc = pose_refinement(r0, t0, X, uv, mask, K, 1, CPU)
+    tr, tt, tc = pose_refinement(r0, t0, X, uv, mask, K, 1, device=CPU)
     _rel_close(tr.numpy(), np.asarray(jr), 1e-4)
     _rel_close(tt.numpy(), np.asarray(jt), 1e-4)
     _rel_close(float(tc), float(jc), 1e-4)

@@ -205,7 +205,8 @@ def small_mapper():
     scene = make_uav_scene(num_images=5, num_points=1200, relief=10.0, seed=1)
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=30, seed=1, max_features=F)
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         ArrayFeatureProvider(feats, capacity=F), torch.device("cpu"), seed=0)
+                         ArrayFeatureProvider(feats, capacity=F), device=torch.device("cpu"),
+                         seed=0)
     opts = SequentialMapperOptions(tri_min_angle=1.0, final_cost_threshold=2.0,
                                    essential_ransac_trials=TRIALS, p3p_ransac_trials=TRIALS)
     assert m.process_initial(0, 1, dict_replace(opts, tri_min_angle=4.0))

@@ -109,7 +109,7 @@ def _jax_mapper(feats, path):
 def _port_mapper(feats):
     scene = t_scene(num_images=N, num_points=1500, relief=10.0, rows=1, seed=6)
     return SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                            ArrayFeatureProvider(feats, capacity=1024), CPU)
+                            ArrayFeatureProvider(feats, capacity=1024), device=CPU)
 
 
 _NUM = re.compile(r"-?\d+\.?\d*(?:[eE][-+]?\d+)?")

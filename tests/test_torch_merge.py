@@ -160,7 +160,7 @@ def _copies(path, ts, tf, backend):
     j = jckpt.load_map(JMapper(jm.image_cameras, jm.cam_models, jm.cam_params, jm.provider,
                                seed=0, store_backend="python"), path[0])
     t = tckpt.load_map(SequentialMapper(ts.image_cameras, ts.cam_models, ts.cam_params,
-                                        ArrayFeatureProvider(tf, capacity=CAP), CPU,
+                                        ArrayFeatureProvider(tf, capacity=CAP), device=CPU,
                                         store_backend=backend), path[0])
     return j, t
 

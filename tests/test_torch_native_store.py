@@ -236,7 +236,7 @@ def test_native_load_map_round_trip(tmp_path):
 
     def mapper(backend):
         return SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params, prov,
-                                torch.device("cpu"), store_backend=backend)
+                                device=torch.device("cpu"), store_backend=backend)
 
     m = mapper("auto")
     assert m.process_initial(0, 1, SequentialMapperOptions(**dict(kw, tri_min_angle=4.0)))

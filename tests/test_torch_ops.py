@@ -78,7 +78,7 @@ def _rvecs(rng, n, scale=0.8):
 ])
 def test_camera_models_match_jax(code, params, rng):
     pj = jcam.pad_params(params)
-    pt = tcam.pad_params(params, CPU)
+    pt = tcam.pad_params(params, device=CPU)
     uv = (rng.random((300, 2)) * [780, 1000]).astype(np.float32)
     close(tcam.image2world(T(uv), code, pt), jcam.image2world(J(uv), code, pj))
     close(tcam.image2normalized(T(uv), code, pt),

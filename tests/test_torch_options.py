@@ -145,7 +145,7 @@ def _case_filter_max_error(runs):
 def _load_both(feats, path):
     scene = make_uav_scene(**SCENE)
     mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                          ArrayFeatureProvider(feats, capacity=CAP), CPU)
+                          ArrayFeatureProvider(feats, capacity=CAP), device=CPU)
     mj = JMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
                  JProvider(feats, capacity=CAP), store_backend="python")
     return tckpt.load_map(mt, path), jckpt.load_map(mj, path)

@@ -209,7 +209,7 @@ def _task_dist_ba(mesh, p, options, extra=None, repeat=False):
 
 def _single_ba(p, options, extra=None):
     prob = build_problem(*_args(p), pose_states=p["pose_states"], **(extra or {}))
-    return bundle_adjust(prob, options, CPU)
+    return bundle_adjust(prob, options, device=CPU)
 
 
 def _same_on_every_rank(res):
@@ -477,7 +477,7 @@ def test_process_shard_bounds_matches_jax():
                              for k in range(n)], dtype=object)
             mine = process_shard_bounds(8 * n, SimpleNamespace(rank=r, size=n))
             assert mine == j_bounds(8 * n, SimpleNamespace(devices=devs))
-    one = global_mesh(CPU)
+    one = global_mesh(device=CPU)
     assert (one.rank, one.size, one.group) == (0, 1, None)
     assert process_shard_bounds(24, one) == (0, 24)
     a = np.arange(12, dtype=np.float32).reshape(4, 3)
@@ -614,7 +614,7 @@ def _task_digest(mesh, drift):
     scene = make_uav_scene(num_images=3, num_points=600, relief=10.0, seed=1)
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=20, seed=1, max_features=F_REG)
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         ArrayFeatureProvider(feats, capacity=F_REG), CPU, mesh=mesh)
+                         ArrayFeatureProvider(feats, capacity=F_REG), device=CPU, mesh=mesh)
     assert m.process_initial(0, 1, SequentialMapperOptions(
         tri_min_angle=1.0, min_track_len=2, essential_ransac_trials=TRIALS))
     if drift and mesh.rank == 1:

@@ -120,7 +120,7 @@ def test_detect_loop_and_closure_sweep_commit_same_pairs(survey):
     (ts, tp, tt), (js, jp, jt) = survey
     kw = dict(tri_min_angle=1.0, final_cost_threshold=2.0, essential_ransac_trials=TRIALS,
               p3p_ransac_trials=TRIALS)
-    mt = SequentialMapper(ts.image_cameras, ts.cam_models, ts.cam_params, tp, CPU, seed=0,
+    mt = SequentialMapper(ts.image_cameras, ts.cam_models, ts.cam_params, tp, device=CPU, seed=0,
                           loop_detector=LoopDetector(tt))
     mj = JMapper(js.image_cameras, js.cam_models, js.cam_params, jp, seed=0,
                  store_backend="python", loop_detector=JLoopDetector(jt))
@@ -151,7 +151,7 @@ def test_process_remaining_images_fills_same_frames(survey):
     filled = []
     for pkg, mapper, opts_cls, pipe in (
             ("torch", SequentialMapper(ts.image_cameras, ts.cam_models, ts.cam_params, tp,
-                                       CPU, seed=0), SequentialMapperOptions, tpipe),
+                                       device=CPU, seed=0), SequentialMapperOptions, tpipe),
             ("jax", JMapper(js.image_cameras, js.cam_models, js.cam_params, jp, seed=0,
                             store_backend="python"), JOpts, jpipe)):
         o = opts_cls(tri_min_angle=1.0, min_track_len=2, essential_ransac_trials=TRIALS,

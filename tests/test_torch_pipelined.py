@@ -215,7 +215,7 @@ def _loop_both(blackout=()):
     cap = int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
     n = LOOP_SCENE["num_images"]
     mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                          ArrayFeatureProvider(feats, capacity=cap), CPU, seed=0)
+                          ArrayFeatureProvider(feats, capacity=cap), device=CPU, seed=0)
     js = j_scene(**LOOP_SCENE)
     mj = JMapper(js.image_cameras, js.cam_models, js.cam_params, JProvider(feats, capacity=cap),
                  seed=0, store_backend="python")
@@ -281,7 +281,7 @@ def test_continuation_chain_errors(cont_scene, case):
     anchor has committed (the caller must abandon it)."""
     scene, feats, _ = cont_scene
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         ArrayFeatureProvider(feats, capacity=F), CPU, seed=0)
+                         ArrayFeatureProvider(feats, capacity=F), device=CPU, seed=0)
     opts = SequentialMapperOptions(tri_min_angle=1.0, essential_ransac_trials=TRIALS,
                                    p3p_ransac_trials=TRIALS)
     assert m.process_initial(0, 1, opts)

@@ -75,7 +75,7 @@ def _mappers(survey):
         s.set_point3D(sp, scene.points3D[pid] + rng.normal(size=3) * 0.05)
     mj.pair_graph = {(i, i + 1) for i in range(N - 1)}
     mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                          ArrayFeatureProvider(feats, capacity=cap), CPU)
+                          ArrayFeatureProvider(feats, capacity=cap), device=CPU)
     mt.store = map_store_from_jax(mj.store)
     for k in ("image_idx_to_id", "image_id_to_idx", "pair_graph", "num_proc_images",
               "_store_cam_ids", "min_image_idx", "max_image_idx"):

@@ -423,7 +423,7 @@ def test_mapper_two_stage_selfcal_gcps_and_problem_arrays(scene_feats):
     K = scene.cam_params.copy()
     K[0, :2] *= 1.01
     m = SequentialMapper(scene.image_cameras, scene.cam_models, K,
-                         ArrayFeatureProvider(feats, capacity=F), CPU, seed=0)
+                         ArrayFeatureProvider(feats, capacity=F), device=CPU, seed=0)
     opts = SequentialMapperOptions(tri_min_angle=1.0, final_cost_threshold=2.0,
                                    essential_ransac_trials=TRIALS, p3p_ransac_trials=TRIALS)
     assert m.process_initial(0, 1, opts) and m.process(2, 1, opts)
@@ -469,7 +469,7 @@ def test_sequential_mapping_slice_matches_jax():
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=30, seed=1)
     cap = int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
     mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                          ArrayFeatureProvider(feats, capacity=cap), CPU, seed=0)
+                          ArrayFeatureProvider(feats, capacity=cap), device=CPU, seed=0)
     _run(mt, 8, SequentialMapperOptions(**kw), SequentialMapperOptions(**ikw), BAOptions)
 
     js = j_scene(num_images=8, num_points=1200, relief=10.0, seed=1)
@@ -501,7 +501,7 @@ def test_process_chain_debug_matches_jax(capsys):
     jf, _ = j_render(js, pixel_noise=0.3, clutter=30, seed=1)
     heads = []
     for m, O in ((SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                                   ArrayFeatureProvider(feats, capacity=cap), CPU, seed=0),
+                                   ArrayFeatureProvider(feats, capacity=cap), device=CPU, seed=0),
                   SequentialMapperOptions),
                  (JMapper(js.image_cameras, js.cam_models, js.cam_params,
                           JProvider(jf, capacity=cap), seed=0, store_backend="python"), JOpts)):
@@ -518,7 +518,7 @@ def test_count_time_rounds_only_on_report():
     every add (sfm/mapper.py:147-149), so 1000 solves of 4 ms count as 0;
     the port accumulates exactly and rounds in report()."""
     m = SequentialMapper(np.zeros(1, np.int32), np.ones(1, np.int32),
-                         np.zeros((1, 9), np.float32), ArrayFeatureProvider([]), CPU)
+                         np.zeros((1, 9), np.float32), ArrayFeatureProvider([]), device=CPU)
     for _ in range(1000):
         m._count_time("ba_solve_s", 0.004)
     assert abs(m.counters["ba_solve_s"] - 4.0) < 1e-9
@@ -675,7 +675,7 @@ def test_chained_deferred_loop_matches_jax():
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=20, seed=34)
     cap = int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
     mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                          ArrayFeatureProvider(feats, capacity=cap), CPU, seed=0)
+                          ArrayFeatureProvider(feats, capacity=cap), device=CPU, seed=0)
     _run_chained(mt, SequentialMapperOptions(**opts), SequentialMapperOptions(**ikw),
                  BAOptions)
 
@@ -720,7 +720,7 @@ def test_deferred_ba_schedule(chain_scene, monkeypatch):
     monkeypatch.setattr(mapper_mod, "register_chain_fresh", fresh_chain)
 
     m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
-                         ArrayFeatureProvider(feats, capacity=F), CPU, seed=0)
+                         ArrayFeatureProvider(feats, capacity=F), device=CPU, seed=0)
     opts = SequentialMapperOptions(tri_min_angle=1.0, final_cost_threshold=2.0,
                                    essential_ransac_trials=TRIALS, p3p_ransac_trials=TRIALS)
     ba = BAOptions(max_num_iterations=3)

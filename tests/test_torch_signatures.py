@@ -1,0 +1,281 @@
+"""The port's public functions and methods take the JAX package's arguments
+in the JAX package's order.
+
+A caller written for mavmap_tpu passes its arguments by position; the same
+call to mavmap_tpu_torch must bind each of them to the parameter of the
+same name. The JAX signatures are read from the JAX package's source with
+`ast` (nothing of JAX is imported), the port's with `inspect`. JAX's
+random key (`key`, `keys`, `base_key`) is the port's `generator`.
+Parameters only the port has come after the JAX ones, with defaults, or
+are keyword-only. EXCEPTIONS lists what differs on purpose, one reason
+each; nothing else is exempt, and each listed entry must still differ.
+"""
+
+import ast
+import importlib
+import inspect
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEY_NAMES = ("key", "keys", "base_key")
+
+EXCEPTIONS = {
+    "ba.core:build_problem":
+        "pair_capacity, with_pairs and host build the JAX package's host-transport "
+        "buffers (the do-not-port list); the port builds a host problem always",
+    "parallel.dist_ba:partition_problem":
+        "with_pairs is the JAX package's transport tunnel (the do-not-port list); the "
+        "port takes the rank's shard instead",
+    "parallel.dist_ba:dist_bundle_adjust":
+        "the port solves one rank's shard of a host problem with a BAOptions and returns "
+        "(poses, points, info); the JAX function solves a problem stacked over shards "
+        "with its hyper-parameters as arguments and returns five arrays",
+    "sfm.mapper:SequentialMapper.flush_ba":
+        "prefetched hands over host values of a pending solve that the JAX caller pulled "
+        "in one batched jax.device_get; the port's solve runs when it is dispatched "
+        "(bundle_adjust_async) and leaves no pull to batch",
+    "parallel.dist_register:dist_register_view_batch":
+        "forwards *args and **kw to register_view_batch, whose order this test holds",
+    "parallel.dist_register:dist_register_view_pairs":
+        "forwards *args and **kw to register_view_pairs, whose order this test holds",
+}
+
+
+def _is_setter(node):
+    """A property's setter or deleter (the property is held by its getter)."""
+    return any(isinstance(d, ast.Attribute) and d.attr in ("setter", "deleter")
+               for d in node.decorator_list)
+
+
+def _jax_defs():
+    """{"module:qualname": ast.FunctionDef} of the JAX package's public
+    functions and the public methods (and __init__) of its public classes."""
+    out = {}
+    base = os.path.join(ROOT, "mavmap_tpu")
+    for dirpath, _, files in sorted(os.walk(base)):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            mod = os.path.relpath(path, base)[:-3].replace(os.sep, ".")
+            mod = mod[:-len(".__init__")] if mod.endswith(".__init__") else mod
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in tree.body:
+                if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+                    out[f"{mod}:{node.name}"] = node
+                elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+                    for sub in node.body:
+                        if isinstance(sub, ast.FunctionDef) and (
+                                not sub.name.startswith("_") or sub.name == "__init__") \
+                                and not _is_setter(sub):
+                            out[f"{mod}:{node.name}.{sub.name}"] = sub
+    return out
+
+
+def _port_object(entry):
+    """The port's counterpart of a JAX entry, or None."""
+    mod, qual = entry.split(":")
+    try:
+        obj = importlib.import_module("mavmap_tpu_torch" + ("." + mod if mod != "__init__" else ""))
+    except ImportError:
+        return None
+    for part in qual.split("."):
+        obj = inspect.getattr_static(obj, part, None) if inspect.isclass(obj) else \
+            getattr(obj, part, None)
+        if obj is None:
+            return None
+    return obj
+
+
+def _port_modules():
+    base = os.path.join(ROOT, "mavmap_tpu_torch")
+    out = set()
+    for dirpath, _, files in os.walk(base):
+        for name in files:
+            if name.endswith(".py"):
+                mod = os.path.relpath(os.path.join(dirpath, name), base)[:-3]
+                out.add(mod.replace(os.sep, ".").removesuffix(".__init__"))
+    return out
+
+
+def _port_classes_and_names():
+    """Top-level names the port's modules define or import, read with ast."""
+    base = os.path.join(ROOT, "mavmap_tpu_torch")
+    out = {}
+    for mod in _port_modules():
+        path = os.path.join(base, *mod.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(base, *mod.split("."), "__init__.py")
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = set()
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.ImportFrom):
+                names.update(a.asname or a.name for a in node.names)
+        out[mod] = names
+    return out
+
+
+JAX_DEFS = _jax_defs()
+_PORT_NAMES = _port_classes_and_names()
+SHARED = sorted(e for e in JAX_DEFS
+                if e.split(":")[1].split(".")[0] in _PORT_NAMES.get(e.split(":")[0], ()))
+
+
+def _jax_params(node):
+    """(positional names, keyword-only names) of a JAX def, `self`/`cls`
+    dropped, the random key renamed to the port's generator."""
+    a = node.args
+    pos = [p.arg for p in a.posonlyargs + a.args]
+    decos = {ast.unparse(d) for d in node.decorator_list}
+    if pos and (pos[0] in ("self", "cls")) and "staticmethod" not in decos:
+        pos = pos[1:]
+    rename = {k: "generator" for k in KEY_NAMES}
+    return [rename.get(p, p) for p in pos], [rename.get(p.arg, p.arg) for p in a.kwonlyargs]
+
+
+def _port_signature(obj):
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    if isinstance(obj, property):
+        obj = obj.fget
+    sig = inspect.signature(obj)
+    params = list(sig.parameters.values())
+    if params and params[0].name in ("self", "cls"):
+        sig = sig.replace(parameters=params[1:])
+    return sig
+
+
+def _binds(entry):
+    """Whether a call with the JAX parameters in the JAX order (positional
+    ones by position, keyword-only ones by name) binds each to the port's
+    parameter of the same name; returns (ok, what differs)."""
+    obj = _port_object(entry)
+    assert obj is not None, f"{entry}: the port lacks it"
+    pos, kwo = _jax_params(JAX_DEFS[entry])
+    sig = _port_signature(obj)
+    args = [object() for _ in pos]
+    kwargs = {k: object() for k in kwo}
+    try:
+        bound = sig.bind(*args, **kwargs)
+    except TypeError as e:
+        return False, f"JAX order {pos} + {kwo} does not bind to {sig}: {e}"
+    wrong = [n for n, a in zip(pos, args) if bound.arguments.get(n) is not a]
+    wrong += [n for n in kwo if bound.arguments.get(n) is not kwargs[n]]
+    if wrong:
+        return False, f"{wrong} bind elsewhere in {sig} (JAX order {pos} + {kwo})"
+    return True, ""
+
+
+@pytest.mark.parametrize("entry", SHARED)
+def test_port_takes_the_jax_argument_order(entry):
+    ok, why = _binds(entry)
+    if entry in EXCEPTIONS:
+        assert not ok, f"{entry} now takes the JAX order: drop it from EXCEPTIONS"
+    else:
+        assert ok, why
+
+
+def test_exceptions_name_shared_entries():
+    assert set(EXCEPTIONS) <= set(SHARED)
+    assert len(SHARED) > 200  # the scan found the public API
+
+
+def test_the_reordered_entries_bind_the_jax_call():
+    """A JAX-ordered call of the entries that took other orders before:
+    mapper.process(i, j, options, True) passes debug, not samples."""
+    from mavmap_tpu_torch.sfm.mapper import SequentialMapper
+
+    sig = _port_signature(SequentialMapper.process)
+    bound = sig.bind(3, 2, "options", True)
+    assert bound.arguments["debug"] is True and "samples" not in bound.arguments
+    sig = _port_signature(SequentialMapper.__init__)
+    bound = sig.bind("ic", "cm", "cp", "provider", "detector", 7, "native", 64, "mesh")
+    assert (bound.arguments["loop_detector"], bound.arguments["seed"],
+            bound.arguments["store_backend"], bound.arguments["cache_capacity"],
+            bound.arguments["mesh"]) == ("detector", 7, "native", 64, "mesh")
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a GPU")
+
+
+def _entry_calls():
+    from mavmap_tpu_torch.ba.core import BAOptions, bundle_adjust, pose_refinement
+    from mavmap_tpu_torch.models.camera import pad_params
+    from mavmap_tpu_torch.parallel.multihost import global_mesh, init_multihost
+    from mavmap_tpu_torch.sfm.mapper import SequentialMapper
+    from mavmap_tpu_torch.features.provider import ArrayFeatureProvider
+
+    zeros = np.zeros((4, 3), np.float32)
+    return {
+        "global_mesh": lambda: global_mesh(),
+        "init_multihost": lambda: init_multihost(),
+        "SequentialMapper": lambda: SequentialMapper(
+            np.zeros(1, np.int32), np.ones(1, np.int32), np.zeros((1, 9), np.float32),
+            ArrayFeatureProvider([])),
+        "bundle_adjust": lambda: bundle_adjust(None, BAOptions()),
+        "pose_refinement": lambda: pose_refinement(
+            np.zeros(3), np.zeros(3), zeros, zeros[:, :2], np.ones(4, bool),
+            np.ones(9, np.float32), 1),
+        "pad_params": lambda: pad_params([700.0, 400.0, 300.0]),
+    }
+
+
+@pytest.mark.parametrize("name", ["global_mesh", "init_multihost", "SequentialMapper",
+                                  "bundle_adjust", "pose_refinement", "pad_params"])
+def test_entry_points_run_on_the_card_by_default(name):
+    """Without a device the entry points run on the CUDA card, and raise
+    where there is none, naming device='cpu' (no CPU fallback)."""
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device .*device='cpu'"):
+        _entry_calls()[name]()
+
+
+def test_no_port_parameter_defaults_to_the_cpu():
+    """No parameter named device (or devices) in the port defaults to the
+    CPU."""
+    base = os.path.join(ROOT, "mavmap_tpu_torch")
+    found = []
+    for dirpath, _, files in os.walk(base):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if not isinstance(node, (ast.FunctionDef, ast.Lambda)):
+                    continue
+                a = node.args
+                pos = a.posonlyargs + a.args
+                pairs = list(zip(pos[len(pos) - len(a.defaults):], a.defaults))
+                pairs += [(p, d) for p, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None]
+                for p, d in pairs:
+                    if p.arg.startswith("device") and "cpu" in ast.unparse(d):
+                        found.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}")
+    assert not found, found
+
+
+def test_multihost_takes_the_jax_names():
+    """init_multihost takes the coordinator's "host:port", the process
+    count and index; the axis name of global_mesh and host_local_to_global
+    must be the mesh's."""
+    from mavmap_tpu_torch.parallel.multihost import (global_mesh, host_local_to_global,
+                                                      init_multihost)
+
+    assert init_multihost("localhost:1", 1, 0, device="cpu") == (0, 1)
+    mesh = global_mesh("obs", [torch.device("cpu")])
+    assert (mesh.axis, mesh.device, mesh.size) == ("obs", torch.device("cpu"), 1)
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    np.testing.assert_array_equal(host_local_to_global(mesh, a, "obs").numpy(), a)
+    with pytest.raises(ValueError, match="axis"):
+        host_local_to_global(mesh, a, "other")
