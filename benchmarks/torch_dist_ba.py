@@ -86,10 +86,10 @@ def main():
     dev = torch.device("cuda", 0)
     args, states = problem()
     prob = build_problem(*args, pose_states=states, bucket=True)
-    bundle_adjust(prob, BAOptions(max_num_iterations=1, solver="cg"), dev)  # warm-up
+    bundle_adjust(prob, BAOptions(max_num_iterations=1, solver="cg"), device=dev)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p1, _, info1 = bundle_adjust(prob, BAOptions(**OPTS), dev)
+    p1, _, info1 = bundle_adjust(prob, BAOptions(**OPTS), device=dev)
     wall1 = time.perf_counter() - t0
     it = max(info1["iterations"], 1)
     print(json.dumps(dict(ranks=1, observations=len(args[4]), ms_per_lm_iter=1000 * wall1 / it,

@@ -124,15 +124,28 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     ATE under 2x its ATE and under 1.0 m, every output file parsed, K1-K3
     launched; then the render's time on the card, the kept keypoints and
     the detector's host time per frame on real texture;
-16. prints the kernels' JSON line, the card line, and last the result line.
+16. rig: the command-line mapper over a two-camera rig (BASELINE.json
+    config 2, a mixed CAM_IDX sequence): bench.py's scene with its odd
+    frames on a second, OPENCV camera, written as imagedata.txt (two camera
+    definitions, then lines that give only CAM_IDX) and as the reference
+    mavmap's feature dumps; one CLI run with --reference-cache-path, loop
+    detection every 10 frames with a vocabulary tree trained on the card
+    and the CLI's default self-calibration. Held to the JAX package's CLI on
+    the same files (tools/jax_rig_yardstick.py): 30/30 registered, two
+    cameras in the store, an ATE under min(0.05 m, 2x its ATE), every
+    output file parsed, K1-K3 launched; then K2 at the self-calibrating
+    plans of the run's last two-camera window problem (block, Hessian and
+    per-(point, block) plans, two camera blocks) and at the final map's
+    global per-(point, block) plan, held and timed as in phase 4;
+17. prints the kernels' JSON line, the card line, and last the result line.
 
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping run (5-7, 9, 11-15; each run
+counters are zeroed just before each mapping run (5-7, 9, 11-16; each run
 of 11's pipelined phase on its own) and read just after it (12: each rank's counts of its pipeline run, summed over the
-ranks; 13: the sum of its two runs; 14: the counts span both CLI runs; 15:
-its one CLI run). The smoke's total seconds are printed last but two, against its
+ranks; 13: the sum of its two runs; 14: the counts span both CLI runs; 15
+and 16: the phase's one CLI run). The smoke's total seconds are printed last but two, against its
 1200 s limit. Imports
 nothing of JAX or of the JAX package.
 """
@@ -204,6 +217,15 @@ JAX_CPU_PHOTO_REGISTERED = 40
 JAX_CPU_PHOTO_ATE_M = 0.04458887502551079
 PHOTO_ATE_LIMIT_M = 1.0
 PHOTO_RENDER_MAX_SHARE = 1e-3
+# The rig phase: bench.py's scene as a two-camera OPENCV rig (BASELINE.json
+# config 2), mapped by the CLI from reference feature caches. The JAX
+# package's CLI on the same files on the CPU (tools/jax_rig_yardstick.py):
+RIG_IMAGES = 30
+RIG_CAPACITY = 1024
+RIG_LOOP_PERIOD = 10
+JAX_CPU_RIG_REGISTERED = 30
+JAX_CPU_RIG_ATE_M = 0.006555486936122179
+RIG_ATE_CAP_M = 0.05
 # The submaps phase: two run_pipeline runs that end in sub-maps and merge
 # them (the scenes, options and the JAX package's numbers on the CPU:
 # benchmarks/jax_submaps_yardstick.py, recorded in PERF.md). Each run must
@@ -1086,8 +1108,11 @@ def check_repeat(first, second, name="chained"):
 # The per-(point, ...) K2 plans and their columns: plan_ptblk [That | Ghat]
 # of both block entries (the dense self-calibrating step), plan_ptimg
 # [T | G] of the image entry (the dense pose-only step), plan_pt the
-# per-point error sum and count (point_mean_errors).
-PT_PLAN_COLUMNS = {"plan_ptblk": 54, "plan_ptimg": 36, "plan_pt": 2}
+# per-point error sum and count (point_mean_errors); and the self-calibrating
+# step's block plans at their widest sums: plan_blk the diagonal blocks
+# (9x9 per pose or camera block), plan_hess the B^2 Hessian blocks.
+PT_PLAN_COLUMNS = {"plan_ptblk": 54, "plan_ptimg": 36, "plan_pt": 2, "plan_blk": 81,
+                   "plan_hess": 81}
 
 
 def _check_plan_shape(torch, dev, rng, prob, name, what):
@@ -2646,6 +2671,213 @@ def photo_phase(torch, dev):
     return dict(launches, match_batched_slots=slots["match_batched"])
 
 
+# ------------------------------------------------------------------ rig
+
+
+def rig_scene():
+    """The rig phase's survey: bench.py's scene as a two-camera rig
+    (make_multi_camera_scene: even frames on camera 0, PINHOLE 700 px; odd
+    frames on camera 1, OPENCV 620 px with k1 -0.15, k2 0.03, p1 5e-4,
+    p2 -5e-4), and its rendered features (clutter 64, seed 11)."""
+    from mavmap_tpu_torch.utils.synthetic import make_multi_camera_scene, render_features
+
+    scene = make_multi_camera_scene(num_images=RIG_IMAGES, num_points=4000, relief=10.0,
+                                    rows=2, seed=11)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=64, seed=11)
+    return scene, feats
+
+
+def write_feature_dump(root, name, kp, desc, resp, header_int_bytes=4):
+    """One frame's features as the reference mavmap's cache dumps
+    (feature_cache.cc:125-142): <name>-keypoints.bin, 28-byte cv::KeyPoint
+    structs behind their size_t byte count; <name>-descriptors.bin, the f32
+    matrix behind its size_t byte count, cv::Mat's rows and cols as 4-byte
+    ints and its type (5, CV_32F). header_int_bytes=8 writes rows and cols
+    as 8-byte ints, the layout the JAX package's reader takes."""
+    import numpy as np
+
+    raw = np.zeros(len(kp), dtype=[("x", "<f4"), ("y", "<f4"), ("size", "<f4"),
+                                   ("angle", "<f4"), ("response", "<f4"), ("octave", "<i4"),
+                                   ("class_id", "<i4")])
+    raw["x"], raw["y"], raw["response"] = kp[:, 0], kp[:, 1], resp
+    with open(os.path.join(root, f"{name}-keypoints.bin"), "wb") as f:
+        f.write(np.uint64(raw.nbytes).tobytes() + raw.tobytes())
+    d32 = np.ascontiguousarray(desc, "<f4")
+    dims = np.array(d32.shape, "<i4" if header_int_bytes == 4 else "<u8")
+    with open(os.path.join(root, f"{name}-descriptors.bin"), "wb") as f:
+        f.write(np.uint64(d32.nbytes).tobytes() + dims.tobytes() + np.int32(5).tobytes()
+                + d32.tobytes())
+
+
+def write_rig_files(root, scene, feats, header_int_bytes=4):
+    """A rig's CLI inputs under `root`: data/imagedata.txt (each camera
+    defined by its first frame, every other line giving only its CAM_IDX,
+    the scene's camera c as CAM_IDX c + 1) and ref/img<i>-keypoints.bin and
+    -descriptors.bin (write_feature_dump; every feature, responses falling
+    in file order, so that the reader's strongest-first cut to
+    --max-features keeps the first ones, as an ArrayFeatureProvider's
+    capacity does)."""
+    import numpy as np
+    from mavmap_tpu_torch.models import camera as cam
+
+    data, ref = os.path.join(root, "data"), os.path.join(root, "ref")
+    os.makedirs(data, exist_ok=True)
+    os.makedirs(ref, exist_ok=True)
+    lines = ["# imagedata"]
+    defined = set()
+    for i, (kp, de) in enumerate(feats):
+        c = int(scene.image_cameras[i])
+        line = f"img{i}, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, {c + 1}"
+        if c not in defined:
+            defined.add(c)
+            n = cam.CAMERA_MODEL_NUM_PARAMS[int(scene.cam_models[c])]
+            line += f", {cam.camera_model_name(scene.cam_models[c])}, " + ", ".join(
+                repr(float(p)) for p in scene.cam_params[c, :n])
+        lines.append(line)
+        write_feature_dump(ref, f"img{i}", kp, de,
+                           np.linspace(1.0, 0.5, len(kp)).astype(np.float32), header_int_bytes)
+    with open(os.path.join(data, "imagedata.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_rig_dataset(root, device, header_int_bytes=4):
+    """Write the rig phase's files under `root`: rig_scene() as
+    write_rig_files writes it, and tree.npz (a vocabulary tree trained on
+    `device` by the port on every 10th frame's first RIG_CAPACITY
+    descriptors, as write_cli_dataset trains it). Returns the scene."""
+    import numpy as np
+    from mavmap_tpu_torch.loop import train_voc_tree
+
+    scene, feats = rig_scene()
+    write_rig_files(root, scene, feats, header_int_bytes)
+    desc = np.concatenate([de[:RIG_CAPACITY] for _, de in feats[::10]])
+    tree = train_voc_tree(desc, branching=8, depth=2, iters=3, device=device)
+    tree.save(os.path.join(root, "tree.npz"))
+    return scene
+
+
+def rig_args(root, out, extra=()):
+    """The rig phase's flags: the reference caches, capacity 1024,
+    tests/test_pipeline.py's rig settings (track length 2, 1 and 4 degrees),
+    loop detection every 10 frames with the phase's tree; self-calibration
+    as the CLI's defaults run it (the window and global bundle
+    adjustments)."""
+    return ["--input-path", os.path.join(root, "data"), "--output-path", out,
+            "--reference-cache-path", os.path.join(root, "ref"),
+            "--max-features", str(RIG_CAPACITY), "--min-track-len", "2",
+            "--tri-min-angle", "1.0", "--init-tri-min-angle", "4.0",
+            "--voc-tree-path", os.path.join(root, "tree.npz"),
+            "--loop-detection-period", str(RIG_LOOP_PERIOD), "--quiet", *extra]
+
+
+def rig_metrics(out, scene):
+    """photo_metrics' numbers from the CLI's own output files (every one
+    parsed; the ATE after a similarity fit against the scene's centres),
+    and the cameras imagedataout.txt names."""
+    cams = set()
+    for line in open(os.path.join(out, "imagedataout.txt")):
+        if not line.startswith("#"):
+            cams.add(tuple(v.strip() for v in line.split(",")[11:]))
+    return dict(photo_metrics(out, scene), cameras_written=sorted(cams))
+
+
+def rig_phase(torch, dev):
+    """The command-line mapper over a two-camera OPENCV rig from reference
+    feature caches (see the module docstring, 16): one CLI run on the card
+    with loop detection and self-calibration; the problems its mapper
+    builds are recorded, and K2 is held at the last two-camera window
+    problem's self-calibrating plans and at the final map's global plan.
+    Checks: 30/30 registered, two cameras in the store, the ATE under
+    min(0.05 m, 2x the JAX CLI's on the same files), and K1-K3 launched.
+    Returns (launches, the K2 records)."""
+    import tempfile
+
+    import numpy as np
+    from mavmap_tpu_torch import cli
+    from mavmap_tpu_torch.models import camera as cam
+    from mavmap_tpu_torch.ops.cuda import build
+    from mavmap_tpu_torch.sfm import mapper as mapper_mod
+
+    _phase("rig")
+    tmp = tempfile.mkdtemp(prefix="mavmap_rig_")
+    t0 = time.perf_counter()
+    scene = write_rig_dataset(tmp, dev)
+    print(f"rig: {RIG_IMAGES} frames on {len(scene.cam_models)} cameras, imagedata.txt, "
+          f"reference feature dumps and a vocabulary tree written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    windows = []
+    build_problem = mapper_mod.build_problem
+
+    def recording(*a, **kw):
+        prob = build_problem(*a, **kw)
+        real = np.asarray(prob.obs_mask, bool)
+        if len(prob.poses) <= 8 and len(np.unique(prob.obs_cam[real])) == 2:
+            windows[:] = [prob]
+        return prob
+
+    mapper_mod.build_problem = recording
+    try:
+        build.reset_launches()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = cli.run(rig_args(tmp, os.path.join(tmp, "out"), ["--device", str(dev)]))
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)
+    finally:
+        mapper_mod.build_problem = build_problem
+    if r.rc != 0:
+        raise AssertionError(f"rig: return code {r.rc}")
+    m = r.result.main_mapper
+    met = rig_metrics(os.path.join(tmp, "out"), scene)
+    rep = m.report()
+    ba_ms = 1000.0 * rep.get("ba_solve_s", 0.0) / max(rep.get("ba_iters", 0), 1)
+    gba_ms = 1000.0 * r.result.timings.get("global_ba", 0.0) / max(
+        rep.get("global_ba_iters", 0), 1)
+    limit = min(RIG_ATE_CAP_M, 2 * JAX_CPU_RIG_ATE_M)
+    print(f"rig cli: registered {met['registered']}/{RIG_IMAGES} in {wall:.3f} s = "
+          f"{RIG_IMAGES / wall:.3f} frames/s (JAX on the CPU {JAX_CPU_RIG_REGISTERED}); "
+          f"{m.store.num_cameras} cameras in the store; ATE {met['ate_m']!r} m (limit "
+          f"{limit!r}; JAX {JAX_CPU_RIG_ATE_M!r}); {met['points']} points; imagedataout.txt "
+          f"cameras {json.dumps(met['cameras_written'])}", flush=True)
+    for c in range(m.store.num_cameras):
+        model = int(m.store.camera_models[c])
+        n = cam.CAMERA_MODEL_NUM_PARAMS[model]
+        print(f"rig camera {c} ({cam.camera_model_name(model)}): refined "
+              f"{json.dumps([float(v) for v in m.store.camera_params[c, :n]])}, truth "
+              f"{json.dumps([float(v) for v in scene.cam_params[c, :n]])}", flush=True)
+    print("rig cli stages_s " + json.dumps({k: round(v, 4) for k, v in r.result.timings.items()}),
+          flush=True)
+    print(f"rig cli: BA {ba_ms:.3f} ms per LM iteration over {rep.get('ba_iters', 0)} "
+          f"iterations (global {gba_ms:.3f} ms over {rep.get('global_ba_iters', 0)}); "
+          f"launches K1 {launches['match']} ({launches['match_batched']} batched) / K2 "
+          f"{launches['seg_accum_full']} ({launches['seg_accum_full_one_pass']} one pass) / "
+          f"K3 {launches['seg_accum_sorted']}", flush=True)
+    print("rig cli counters " + json.dumps(rep), flush=True)
+
+    if met["registered"] < RIG_IMAGES or m.num_proc_images < RIG_IMAGES:
+        raise AssertionError(f"rig: registered {met['registered']}/{RIG_IMAGES}")
+    if m.store.num_cameras != 2:
+        raise AssertionError(f"rig: {m.store.num_cameras} cameras in the store, not 2")
+    if not met["ate_m"] < limit:
+        raise AssertionError(f"rig: ATE {met['ate_m']} m >= {limit} m (2x the JAX CLI's "
+                             f"{JAX_CPU_RIG_ATE_M} m, at most {RIG_ATE_CAP_M} m)")
+    for k in ("match", "seg_accum_full", "seg_accum_sorted"):
+        if launches[k] <= 0:
+            raise AssertionError(f"rig: {k} never launched")
+    if not windows:
+        raise AssertionError("rig: no two-camera window problem was built")
+
+    _phase("kernels at the rig's two-camera shapes")
+    rng = np.random.default_rng(5)
+    shapes = [_check_plan_shape(torch, dev, rng, windows[0], name, "rig window")
+              for name in ("plan_blk", "plan_hess", "plan_ptblk")]
+    shapes.append(_check_plan_shape(torch, dev, rng, _global_problem(m), "plan_ptblk",
+                                    "rig global"))
+    return launches, shapes
+
+
 def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
@@ -2735,6 +2967,8 @@ def main():
     phases["submaps"] = submaps_phase(torch, dev)
     phases["cli"], _ = cli_phase(torch, dev)
     phases["photo"] = photo_phase(torch, dev)
+    phases["rig"], kr = rig_phase(torch, dev)
+    kp += kr
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s of its {SMOKE_LIMIT_S} s limit",
           flush=True)
     print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))

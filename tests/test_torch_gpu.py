@@ -64,7 +64,8 @@ from mavmap_tpu_torch.ops.cuda import match as km
 from mavmap_tpu_torch.ops.matching import match_features, match_features_batched
 from mavmap_tpu_torch.ops.rotation import rotmat_from_rvec
 from mavmap_tpu_torch.sfm.kernels import (
-    register_view, register_view_batch, register_view_pairs, two_view_init, two_view_init_batch)
+    register_chain, register_view, register_view_batch, register_view_pairs, two_view_init,
+    two_view_init_batch)
 from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
 from mavmap_tpu_torch.utils.timer import count_syncs
 
@@ -1004,6 +1005,173 @@ def test_pose_refinement_rejects_non_finite_steps(dev, rng):
         r, t, cost = pose_refinement(r0, t0, X, uv, np.ones(64, bool), K, 1, device=d)
         assert np.array_equal(r.cpu().numpy(), r0) and np.array_equal(t.cpu().numpy(), t0)
         assert not bool(torch.isfinite(cost))
+
+
+# ------------------------------------------------- cameras of several models
+
+# tests/test_torch_rig.py's three cameras: PINHOLE, OPENCV, CATA (OPENCV's
+# parameters plus xi 0.5).
+_PINHOLE = [651.123, 655.123, 386.123, 511.123]
+_OPENCV = _PINHOLE + [-0.171, 0.023, -0.001, 0.001]
+_CATA = _OPENCV + [0.5]
+
+
+def _three_camera_arrays(rng, I=12, P=300, per_image=250, noise=0.3, focal_err=0.0):
+    """tests/test_torch_rig.py's three-camera problem (image i seen by
+    camera i % 3), its points projected by the port's camera models."""
+    K = np.zeros((3, 9), np.float32)
+    K[0, :4], K[1, :8], K[2] = _PINHOLE, _OPENCV, _CATA
+    models = np.array([cam.PINHOLE, cam.OPENCV, cam.CATA], np.int32)
+    X = (rng.normal(size=(P, 3)) * [8, 10, 2] + [0, 0, 14]).astype(np.float32)
+    poses = np.concatenate([rng.normal(size=(I, 3)) * 0.03,
+                            np.stack([np.arange(I) * 0.7, np.zeros(I), np.zeros(I)], 1)],
+                           axis=1).astype(np.float32)
+    R = rotmat_from_rvec(torch.as_tensor(poses[:, :3])).numpy()
+    oi, op, oc, uv = [], [], [], []
+    for i in range(I):
+        c = i % 3
+        Xc = (X @ R[i].T + poses[i, 3:]).astype(np.float32)
+        u = cam.world2image(torch.as_tensor(Xc), int(models[c]), torch.as_tensor(K[c])).numpy()
+        sel = np.sort(rng.permutation(P)[:per_image])
+        oi += [i] * len(sel)
+        op += list(sel)
+        oc += [c] * len(sel)
+        uv += list(u[sel] + rng.normal(size=(len(sel), 2)) * noise)
+    poses0 = poses + rng.normal(size=poses.shape).astype(np.float32) * [0.003] * 3 \
+        + np.concatenate([np.zeros((I, 3)), rng.normal(size=(I, 3)) * 0.02], 1)
+    poses0[:2] = poses[:2]
+    X0 = X + rng.normal(size=X.shape).astype(np.float32) * 0.05
+    K0 = K.copy()
+    K0[:, :2] *= 1.0 + focal_err
+    return (poses0.astype(np.float32), X0.astype(np.float32), K0, models,
+            np.array(oi, np.int32), np.array(op, np.int32), np.array(oc, np.int32),
+            np.array(uv, np.float32)), [1, 2] + [0] * (I - 2)
+
+
+@pytest.mark.parametrize("solver,refine", [("dense", False), ("cg", False), ("dense", True),
+                                           ("cg", True)])
+def test_bundle_adjust_three_camera_models_gpu_vs_cpu(dev, rng, solver, refine):
+    """The PINHOLE + OPENCV + CATA problem solved on the card (K2 with three
+    camera blocks, K3) against the CPU path, 12 iterations. Tolerances,
+    relative to each array's largest entry: poses and points at 1e-3 with
+    fixed intrinsics (test_bundle_adjust_gpu_vs_cpu's), 3e-3 with refined
+    ones; PINHOLE and OPENCV intrinsics at 2e-3, CATA's at 1e-2 with its
+    projections within 0.25 px (its f, xi, k1 and k2 all bend the image
+    radially); the final cost at 1e-4 (1e-3 for CG with refined
+    intrinsics, whose forcing term sets each solve's tolerance). The card
+    sums in another order than the CPU, a change of rounding: on the CPU a
+    3e-7 relative change of the observations moves this problem's solve by
+    up to 5e-5 of the points with fixed intrinsics and 6.6e-4 of the points
+    and 4.7e-4 of the intrinsics with refined ones. A second solve on the
+    card gives the same bits."""
+    args, states = _three_camera_arrays(rng, focal_err=0.01 if refine else 0.0)
+    prob = build_problem(*args, pose_states=states, bucket=True)
+    opts = BAOptions(max_num_iterations=12, solver=solver, refine_camera_params=refine,
+                     function_tolerance=0.0)
+    before = dict(build.launches)
+    pg, xg, ig = bundle_adjust(prob, opts, device=dev)
+    assert build.launches["seg_accum_full"] > before["seg_accum_full"]
+    assert build.launches["seg_accum_sorted"] > before["seg_accum_sorted"]
+    pc, xc, ic = bundle_adjust(prob, opts, device=torch.device("cpu"))
+    assert ig["iterations"] == ic["iterations"] == 12 and ig["solver"] == solver
+    assert ic["final_cost"] < 0.1 * ic["initial_cost"]
+    tol = 3e-3 if refine else 1e-3
+    for g, c in ((pg, pc), (xg, xc)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=tol * np.abs(c).max())
+    np.testing.assert_allclose(ig["final_cost"], ic["final_cost"],
+                               rtol=1e-3 if (refine and solver == "cg") else 1e-4)
+    if refine:
+        kg, kc = ig["cam_params"], ic["cam_params"]
+        for c, ctol in ((0, 2e-3), (1, 2e-3), (2, 1e-2)):
+            np.testing.assert_allclose(kg[c], kc[c], rtol=0, atol=ctol * np.abs(kc[c]).max())
+        grid = torch.as_tensor((rng.normal(size=(500, 3)) * [8, 10, 2]
+                                + [0, 0, 14]).astype(np.float32))
+        ug = cam.world2image(grid, cam.CATA, torch.as_tensor(kg[2]))
+        uc = cam.world2image(grid, cam.CATA, torch.as_tensor(kc[2]))
+        assert float((ug - uc).abs().max()) < 0.25
+    p2, x2, i2 = bundle_adjust(prob, opts, device=dev)
+    assert np.array_equal(p2, pg) and np.array_equal(x2, xg)
+    assert i2["final_cost"] == ig["final_cost"]
+    if refine:
+        assert np.array_equal(i2["cam_params"], ig["cam_params"])
+
+
+def test_register_chain_alternating_cameras_gpu_vs_cpu(dev, monkeypatch):
+    """One register_chain of four frames that alternate a PINHOLE and an
+    OPENCV camera (make_multi_camera_scene; each frame's model code,
+    intrinsics and thresholds packed in scal), anchored on frame 1, on the
+    card (K1) against the CPU path with the CPU run's RANSAC samples
+    injected: match rows, counts and anchor states exactly equal, refined
+    poses at 1e-4 (tests/test_torch_sfm.py's tolerances against the JAX
+    package), the end state's flags exactly and its pose at 1e-4."""
+    from mavmap_tpu_torch.sfm import kernels as kern
+    from mavmap_tpu_torch.utils.synthetic import make_multi_camera_scene
+
+    F, K, frames = 512, 4, [2, 3, 4, 5]
+    scene = make_multi_camera_scene(num_images=6, num_points=1500, relief=10.0, seed=3)
+    feats, gt = render_features(scene, pixel_noise=0.3, clutter=20, seed=3, max_features=F)
+    rng = np.random.default_rng(3)
+
+    def frame(i, d):
+        kp, de = feats[i]
+        k, dd, m = np.zeros((F, 2), np.float32), np.zeros((F, 128), np.float32), np.zeros(F, bool)
+        k[:len(kp)], dd[:len(kp)], m[:len(kp)] = kp, de, True
+        c = scene.image_cameras[i]
+        n = cam.image2normalized_np(k, int(scene.cam_models[c]), scene.cam_params[c])
+        return tuple(torch.as_tensor(a, device=d) for a in (k, dd, m, n.astype(np.float32)))
+
+    ids = np.full(F, -1)
+    ids[:len(gt[1])] = gt[1]
+    has_tri = (ids >= 0) & (rng.random(F) < 0.8)
+    lens = np.where(has_tri, rng.integers(2, 4, F), 0)
+    track_state = np.zeros((F, 7), np.float32)
+    track_state[has_tri, :3] = scene.points3D[ids[has_tri]] + rng.normal(
+        size=(has_tri.sum(), 3)) * 0.01
+    track_state[:, 3], track_state[:, 4] = has_tri, has_tri & (lens >= 2)
+    track_state[:, 5], track_state[:, 6] = lens, -1.0
+    scal = np.zeros(12 + 12 * K, np.float32)
+    scal[0:3], scal[3:6] = scene.rvecs[1], scene.tvecs[1]
+    scal[6], scal[7] = 0.9, 1e9
+    scal[8], scal[9], scal[10], scal[11] = np.deg2rad(1.0), 2, 1, -1
+    per = scal[12:].reshape(K, 12)
+    for k, i in enumerate(frames):
+        p = scene.cam_params[scene.image_cameras[i]]
+        per[k, 0] = per[k, 1] = 8.0 / float(p[0] + p[1])
+        per[k, 2] = scene.cam_models[scene.image_cameras[i]]
+        per[k, 3:12] = p
+    assert list(per[:, 2]) == [cam.PINHOLE, cam.OPENCV] * 2
+
+    drawn = []
+    draw = kern.draw_samples
+
+    def recording(*a, **kw):
+        drawn.append(draw(*a, **kw))
+        return drawn[-1]
+
+    monkeypatch.setattr(kern, "draw_samples", recording)
+    cpu = torch.device("cpu")
+    g = torch.Generator()
+    g.manual_seed(5)
+    out_c = [o.numpy() for o in register_chain(
+        g, *frame(1, cpu), tuple(frame(i, cpu) for i in frames), track_state, scal,
+        p3p_trials=256)]
+    monkeypatch.setattr(kern, "draw_samples", draw)
+    samples = [tuple(s[0].to(dev) for s in d) for d in drawn]
+    assert len(samples) == K
+    before = build.launches["match"]
+    out_g = [o.cpu().numpy() for o in register_chain(
+        None, *frame(1, dev), tuple(frame(i, dev) for i in frames), track_state, scal,
+        p3p_trials=256, samples=samples)]
+    assert build.launches["match"] == before + K
+    (rows_c, sc_c, ht_c, es_c, ep_c), (rows_g, sc_g, ht_g, es_g, ep_g) = out_c, out_g
+    np.testing.assert_array_equal(ht_g, ht_c)
+    for k in range(K):
+        np.testing.assert_array_equal(rows_g[k, :, :3], rows_c[k, :, :3])
+        np.testing.assert_array_equal(sc_g[k, [0, 2, 3, 4, 5]], sc_c[k, [0, 2, 3, 4, 5]])
+        assert sc_c[k, 5] == 1.0 and sc_c[k, 4] > 20
+        np.testing.assert_allclose(sc_g[k, 7:13], sc_c[k, 7:13], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(es_g[:, 3:], es_c[:, 3:])
+    np.testing.assert_allclose(ep_g, ep_c, rtol=0, atol=1e-4)
 
 
 # ------------------------------------------------- two ranks on the card

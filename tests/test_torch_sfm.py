@@ -24,7 +24,13 @@ JAX package.
     per slot, match rows and counts exactly equal to JAX and the refined
     pose at 1e-4 (register_view's tolerances), and every slot equal bit
     for bit to the port's single-pair step on the same samples; with a
-    threshold per slot, and with PINHOLE and OPENCV slots in one call.
+    threshold per slot, and with PINHOLE and OPENCV slots in one call;
+  - tests/test_sfm.py's gates and IMU-frame pre-alignment in both packages
+    on the same seeds: a planar pair rejected, the relative min_disparity
+    gate, and the first fixed image's rotation at its prior within 1e-4
+    after a constrained adjust_bundle.
+The camera-model axis (several models in one problem, a two-camera rig
+through the mapper, pipeline and CLI) is held in tests/test_torch_rig.py.
 """
 
 import numpy as np
@@ -774,3 +780,84 @@ def test_deferred_ba_schedule(chain_scene, monkeypatch):
     assert len(m._pending_ba) == 1
     m.adjust_bundle([4], [0], [1], ba_options=ba)  # synchronous: lands all first
     assert not m._pending_ba and not m._deferred_ba
+
+
+def _both_mappers(scene_kw, render_kw, capacity=None):
+    """The same scene and features made by each package, and a mapper of
+    each over them: [(port mapper, scene, options class, BAOptions class),
+    (JAX mapper, ...)]."""
+    out = []
+    for make, render, mapper_cls, prov_cls, opts_cls, ba_cls, extra in (
+            (make_uav_scene, render_features, SequentialMapper, ArrayFeatureProvider,
+             SequentialMapperOptions, BAOptions, dict(device=CPU)),
+            (j_scene, j_render, JMapper, JProvider, JOpts, JBAOptions,
+             dict(store_backend="python"))):
+        scene = make(**scene_kw)
+        feats, _ = render(scene, **render_kw)
+        cap = capacity or int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
+        out.append((mapper_cls(scene.image_cameras, scene.cam_models, scene.cam_params,
+                               prov_cls(feats, capacity=cap), seed=0, **extra),
+                    scene, opts_cls, ba_cls))
+    return out
+
+
+def test_mapper_rejects_planar_pair_like_jax():
+    """tests/test_sfm.py's test_mapper_rejects_planar_pair: a flat scene
+    (0.2 m of relief at 30 m) fails two-view initialization in both
+    packages (the homography gate)."""
+    for m, _, opts_cls, _ in _both_mappers(
+            dict(num_images=2, num_points=800, relief=0.2, seed=5),
+            dict(pixel_noise=0.2, clutter=10, seed=5)):
+        assert not m.process_initial(0, 1, opts_cls(essential_ransac_trials=128))
+        assert m.num_proc_images == 0 and not m.image_idx_to_id
+
+
+def test_relative_min_disparity_gate_like_jax():
+    """tests/test_sfm.py's test_relative_min_disparity_gate: min_disparity
+    below 1 is relative to the frame diagonal, so 0.9 rejects the pair and
+    an absolute 2 px passes it, in both packages."""
+    scene_kw = dict(num_images=3, num_points=800, relief=10.0, seed=3)
+    render_kw = dict(pixel_noise=0.3, seed=3)
+    for min_disp, ok in ((2.0, True), (0.9, False)):
+        for m, _, opts_cls, _ in _both_mappers(scene_kw, render_kw):
+            o = opts_cls(tri_min_angle=1.0, min_disparity=min_disp,
+                         essential_ransac_trials=256, p3p_ransac_trials=256)
+            assert m.process_initial(0, 1, o) == ok, (type(m).__module__, min_disp)
+
+
+def test_imu_frame_pre_alignment_like_jax():
+    """tests/test_sfm.py's test_imu_frame_pre_alignment in both packages: a
+    5-image map, then adjust_bundle with IMU rotation priors at weight 50
+    over images 2-4 with image 0 fixed and image 1 fixed in x. The model is
+    first rotated into the priors' frame, so the first fixed image's
+    rotation equals its prior within 1e-4 in each, the free images land
+    within 0.03 of theirs (rotation-matrix entries), 5/5 stay registered at
+    ATE < 0.03 m, and the port's fixed rotation equals the JAX package's
+    within 1e-4 (both are the prior)."""
+    from mavmap_tpu.utils.synthetic import imu_priors as j_imu_priors
+    from mavmap_tpu_torch.ops.rotation import rotmat_from_rvec
+    from mavmap_tpu_torch.utils.synthetic import imu_priors
+
+    kw = dict(final_cost_threshold=2.0, essential_ransac_trials=256, p3p_ransac_trials=256)
+    fixed = []
+    for (m, scene, opts_cls, ba_cls), priors_of, rot in zip(
+            _both_mappers(dict(num_images=5, num_points=900, relief=8.0, rows=1, seed=21),
+                          dict(pixel_noise=0.2, clutter=8, seed=21)),
+            (imu_priors, j_imu_priors),
+            (lambda r: rotmat_from_rvec(torch.as_tensor(r, dtype=torch.float32)).numpy(),
+             lambda r: np.asarray(jrot.rotmat_from_rvec(jnp.asarray(r, jnp.float32))))):
+        _run(m, 5, opts_cls(tri_min_angle=1.0, **kw), opts_cls(tri_min_angle=4.0, **kw), ba_cls)
+        priors = priors_of(scene, noise=0.004, seed=21)
+        reg = sorted(m.image_idx_to_id)
+        assert reg == list(range(5))
+        m.adjust_bundle(reg[2:], reg[:1], reg[1:2], ba_options=ba_cls(max_num_iterations=10),
+                        rot_priors=priors, rot_prior_weight=50.0)
+        R_fix = rot(m.store.image_rvecs[m.image_idx_to_id[reg[0]]])
+        assert np.abs(R_fix - rot(priors[reg[0]])).max() < 1e-4
+        for i in reg[2:]:
+            assert np.abs(rot(m.store.image_rvecs[m.image_idx_to_id[i]])
+                          - rot(priors[i])).max() < 0.03
+        ate = (mapper_ate if isinstance(m, SequentialMapper) else j_ate)(m, scene)
+        assert int(m.store.image_registered.sum()) == 5 and ate < 0.03, ate
+        fixed.append(R_fix)
+    np.testing.assert_allclose(fixed[0], fixed[1], rtol=0, atol=1e-4)
