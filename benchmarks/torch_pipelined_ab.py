@@ -41,7 +41,7 @@ from mavmap_tpu_torch.utils.synthetic import mapper_ate  # noqa: E402
 TIMED = ("chain_dispatch", "chain_dispatch_cont", "chain_complete", "chain_abandon",
          "_dispatch_deferred_ba", "_register_commit")
 COUNTERS = ("chains", "cont_chains", "cont_abandoned", "pulls", "seq_chain_s", "ba_solve_s",
-            "ba_iters", "global_ba_iters", "pull_wait_s", "seq_detect_s", "batch_register_s")
+            "ba_iters", "global_ba_iters", "reg_wait_s", "seq_detect_s", "batch_register_s")
 
 
 def _timed_methods(seconds):

@@ -1035,7 +1035,7 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
                "global": ginfo, "chains": c.get("chains", 0), "pulls": c.get("pulls", 0),
                "ba_applied": c.get("ba_applied", 0), "cont_chains": c.get("cont_chains", 0),
                "cont_abandoned": c.get("cont_abandoned", 0),
-               "pull_wait_s": c.get("pull_wait_s", 0.0), "ba_solve_s": c.get("ba_solve_s", 0.0),
+               "reg_wait_s": c.get("reg_wait_s", 0.0), "ba_solve_s": c.get("ba_solve_s", 0.0),
                "two_stage_selfcal": "ba_selfcal_iters" in c,
                "window_prob": window_prob[0] if window_prob else None,
                "global_arrays": global_arrays}
@@ -1664,7 +1664,7 @@ def pipelined_phase(torch, dev, scene, feats, tree, chained, sync):
     print(f"pipelined bench: {NUM_IMAGES / sa['wall_s']:.3f} frames/s against the chained "
           f"loop's {NUM_IMAGES / chained['wall_s']:.3f} in this call; {sa['cont_chains']} "
           f"continuation chains, {sa['cont_abandoned']} abandoned; pull wait "
-          f"{sa['pull_wait_s']:.4f} s, window solves {sa['ba_solve_s']:.4f} s; host syncs per "
+          f"{sa['reg_wait_s']:.4f} s, window solves {sa['ba_solve_s']:.4f} s; host syncs per "
           f"continuation dispatch (repeat run) {per_cont}, by file {json.dumps(by_file)}",
           flush=True)
 
@@ -1685,7 +1685,7 @@ def pipelined_phase(torch, dev, scene, feats, tree, chained, sync):
     limit = 2.0 * JAX_CPU_PIPELINED_SURVEY_ATE_M
     closures = rep.get("loop_closures", 0) + rep.get("sweep_closures", 0)
     srep = sync["counters"]
-    keys = ("seq_chain_s", "seq_localba_s", "seq_detect_s", "ba_solve_s", "pull_wait_s",
+    keys = ("seq_chain_s", "seq_localba_s", "seq_detect_s", "ba_solve_s", "reg_wait_s",
             "chains", "cont_chains", "cont_abandoned", "pulls", "loop_closures",
             "sweep_closures")
     print(f"pipelined survey: registered {m.num_proc_images}/{SURVEY_IMAGES} in "

@@ -52,6 +52,7 @@ from ..ops.cuda.ba_accum import (
     SegPlan, make_plan, offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
 from ..ops.rotation import rotmat_from_rvec
 from ..utils.device import resolve_device
+from ..utils.timer import span, sync
 from . import colmath as cm
 
 BA_POSE_FREE = 0
@@ -310,6 +311,8 @@ def build_problem(poses, points, cam_params, cam_models, obs_image, obs_point,
 
 def problem_to_device(prob: BAProblem, device) -> BAProblem:
     """Host (numpy) problem -> tensors on `device` (plans not built stay None)."""
+    # A blocking copy of each array with elements (the plans count theirs).
+    sync(sum(np.size(a) > 0 for a in prob if a is not None and not isinstance(a, SegPlan)))
     return BAProblem(*(a if a is None else a.to(device) if isinstance(a, SegPlan)
                        else torch.as_tensor(np.asarray(a), device=device) for a in prob))
 
@@ -327,6 +330,7 @@ def _scatter_dense_points(prob: BAProblem, points, points_d):
     out = points.clone()
     keep = prob.point_rows < points.shape[0]
     out[prob.point_rows[keep].long()] = points_d[keep]
+    sync(2)  # each boolean-mask index reads its count back
     return out
 
 
@@ -546,7 +550,10 @@ def _pcg(matvec, Minv, b, free, cg_iters, cg_tol, stats=None):
     p = z
     rz = torch.sum(r * z)
     it = 0
-    while it < cg_iters and bool(torch.sqrt(torch.sum(r * r)) > cg_tol * r0n):
+    while it < cg_iters:
+        sync()
+        if not bool(torch.sqrt(torch.sum(r * r)) > cg_tol * r0n):
+            break
         Sp = matvec(p)
         alpha = rz / torch.clamp(torch.sum(p * Sp), min=1e-30)
         x = x + alpha * p
@@ -803,6 +810,7 @@ def _lm_loop_selfcal(prob: BAProblem, cam_free, scale, lambda_init, lambda_up,
     init_cost = cost
     lam = torch.tensor(lambda_init, dtype=torch.float32, device=poses.device)
     rel_prev = torch.tensor(1.0, dtype=torch.float32, device=poses.device)
+    sync(2)  # the two copies from the host
     it = 0
     while it < max_iters:
         if solver == "cg":
@@ -827,6 +835,7 @@ def _lm_loop_selfcal(prob: BAProblem, cam_free, scale, lambda_init, lambda_up,
         # the observed progress.
         rel_prev = torch.where(accept, torch.clamp(rel, min=1e-20), rel_prev)
         it += 1
+        sync()
         if bool(done):
             break
     points = _scatter_dense_points(prob, prob.points, points_d)
@@ -846,6 +855,7 @@ def _lm_loop(prob: BAProblem, scale, lambda_init, lambda_up, lambda_down,
     init_cost = cost
     lam = torch.tensor(lambda_init, dtype=torch.float32, device=poses.device)
     rel_prev = torch.tensor(1.0, dtype=torch.float32, device=poses.device)
+    sync(2)  # the two copies from the host
     it = 0
     while it < max_iters:
         if solver == "cg":
@@ -865,6 +875,7 @@ def _lm_loop(prob: BAProblem, scale, lambda_init, lambda_up, lambda_down,
         cost = torch.where(accept, new_cost, cost)
         rel_prev = torch.where(accept, torch.clamp(rel, min=1e-20), rel_prev)
         it += 1
+        sync()
         if bool(done):
             break
     points = _scatter_dense_points(prob, prob.points, points_d)
@@ -928,6 +939,7 @@ def _check_backend(options: BAOptions, device):
 
 def _selfcal_cam_free(prob: BAProblem):
     """Per-camera free mask over the 9 padded intrinsics slots."""
+    sync(1 + torch.is_tensor(prob.cam_models))  # the models' pull, the mask's copy
     models = np.asarray(prob.cam_models.cpu() if torch.is_tensor(prob.cam_models)
                         else prob.cam_models)
     cam_free = np.zeros((len(models), cam.MAX_CAM_PARAMS), np.float32)
@@ -957,19 +969,24 @@ def bundle_adjust_async(prob: BAProblem, options: BAOptions = BAOptions(), num_o
     solver = _resolve_solver(prob, options)
     names = solver_plans(selfcal, solver) + (
         ("plan_pt",) if options.update_point3D_errors else ())
-    prob = problem_to_device(with_plans(prob, names), device)
+    with span("ba.plans"):
+        prob = problem_to_device(with_plans(prob, names), device)
     stats = {}
     args = (float(options.loss_scale_factor), options.lambda_init, options.lambda_up,
             options.lambda_down, options.function_tolerance, options.max_num_iterations)
     kw = dict(solver=solver, cg_max_iters=options.cg_max_iters, cg_tol=options.cg_tol,
               stats=stats)
-    if selfcal:
-        fut = _lm_loop_selfcal(prob, _selfcal_cam_free(prob), *args, **kw)
-    else:
-        fut = _lm_loop(prob, *args, **kw)
+    with span("ba.lm"):
+        if selfcal:
+            fut = _lm_loop_selfcal(prob, _selfcal_cam_free(prob), *args, **kw)
+        else:
+            fut = _lm_loop(prob, *args, **kw)
 
     def finalize():
         poses, points, cost, init_cost, iters = fut[:2] + fut[-3:]
+        # Its host reads: the two costs, the observation count without
+        # num_obs, the intrinsics, the point errors, the poses and points.
+        sync(4 + (num_obs is None) + selfcal + bool(options.update_point3D_errors))
         info = {
             "initial_cost": float(init_cost),
             "final_cost": float(cost),

@@ -11,6 +11,7 @@ from .ba.core import BAProblem, with_plans
 from .fm.map_store import MapStore
 from .loop.voctree import VocTree
 from .ops.cuda.ba_accum import offsets_from_sorted_ids
+from .utils.timer import sync
 
 
 def problem_from_jax(prob) -> BAProblem:
@@ -51,6 +52,7 @@ def problem_from_jax(prob) -> BAProblem:
 
 def features_to_device(features, device):
     """A Features-like (keypoints, descriptors, mask) -> tensors on device."""
+    sync(3)  # a blocking copy each
     return tuple(torch.as_tensor(np.asarray(x), device=device) for x in (
         features.keypoints, features.descriptors, features.mask))
 

@@ -19,6 +19,8 @@ voc_tree_inv_file.h:9-44).
 import numpy as np
 import torch
 
+from ..utils.timer import sync
+
 MAX_NUM_VISUAL_WORDS = 5000  # per image, reference sequential_mapper.h:53
 
 # Vocabularies up to this many words use the dense score path; larger ones
@@ -62,6 +64,7 @@ class LoopDetector:
         cached per image."""
         if image_idx is not None and image_idx in self._words_cache:
             return self._words_cache[image_idx]
+        sync()  # the words' pull
         words = self.voc_tree.quantize(features.descriptors[:MAX_NUM_VISUAL_WORDS],
                                        features.mask[:MAX_NUM_VISUAL_WORDS]).cpu().numpy()
         if image_idx is not None:
@@ -117,6 +120,7 @@ class LoopDetector:
             descs = np.stack([f.descriptors[:MAX_NUM_VISUAL_WORDS] for _, (f, _, _) in items])
             masks = np.stack([f.mask[:MAX_NUM_VISUAL_WORDS] for _, (f, _, _) in items])
         K, F, D = descs.shape
+        sync()  # the words' pull
         words_all = self.voc_tree.quantize(descs.reshape(K * F, D),
                                            masks.reshape(K * F)).cpu().numpy().reshape(K, F)
         for (image_idx, (f, _, _)), words in zip(items, words_all):

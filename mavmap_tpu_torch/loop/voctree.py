@@ -14,6 +14,8 @@ the matmul identity, in full f32 (the package turns TF32 off).
 import numpy as np
 import torch
 
+from ..utils.timer import sync
+
 
 class VocTree:
     def __init__(self, centers_per_level, branching, depth, device="cuda"):
@@ -33,6 +35,9 @@ class VocTree:
 
         Batched tree descent (reference voc_tree.cc:95-131 does this one
         descriptor at a time)."""
+        # Host inputs are copied to the device (a host sync each).
+        sync(int(not torch.is_tensor(descriptors))
+             + int(mask is not None and not torch.is_tensor(mask)))
         desc = torch.as_tensor(descriptors, dtype=torch.float32).to(self.device)
         node = torch.zeros(desc.shape[0], dtype=torch.int64, device=self.device)
         ks = torch.arange(self.branching, device=self.device)

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...utils.timer import sync
 from . import build
 
 PIECE_ROWS = 256  # rows per piece, one pass-1 block each (csrc/ba_accum.cu)
@@ -116,6 +117,7 @@ class SegPlan(NamedTuple):
     def to(self, device):
         fields = ("order", "piece_starts", "seg_pieces") + (
             ("seg_offsets", "filled", "filled_offsets") if self.one_pass else ())
+        sync(sum(getattr(self, f).size > 0 for f in fields))  # a blocking copy each
         return self._replace(**{f: torch.as_tensor(getattr(self, f), device=device)
                                 for f in fields})
 

@@ -19,6 +19,7 @@ Residual: first-order Sampson distance, signed like the reference
 import numpy as np
 import torch
 
+from ..utils.timer import sync
 from .reduce import det3, matmul_ordered, one_by_one, sum_pairwise
 
 # ----------------------------------------------------------------------------
@@ -233,10 +234,13 @@ def _svd_or_nan(A, full_matrices=True, per_matrix=False):
     matrices of a batched step."""
     finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
     A = torch.where(finite[..., None, None], A, torch.zeros_like(A))
+    # On the card each torch.linalg.svd call syncs the host twice.
     if per_matrix:
         U, S, Vh = one_by_one(lambda m: torch.linalg.svd(m, full_matrices=full_matrices), A)
+        sync(2 * max(finite.numel(), 1))
     else:
         U, S, Vh = torch.linalg.svd(A, full_matrices=full_matrices)
+        sync(2)
 
     def nan_where_bad(X, k):
         keep = finite.reshape(finite.shape + (1,) * k)
@@ -276,6 +280,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60, imag_tol=1e-2):
     eq = _build_constraints(C)              # (T, 10, 20)
     A1 = eq[:, :, _HIGH_IDX]
     A2 = eq[:, :, _LOW_IDX]
+    sync(2)  # each list index is copied to the device
     X = solve_or_nan(A1, A2)               # high_i + X[i] . low = 0
 
     def row_polys(i):
@@ -364,6 +369,7 @@ def solve_essential_8pt(points1, points2, weights=None):
     # solver's bits depend on the batch on the card (ops/reduce.py).
     _, V = one_by_one(torch.linalg.eigh,
                       sum_pairwise(D[..., :, :, None] * D[..., :, None, :], dim=-3))
+    sync(max(V[..., 0, 0].numel(), 1))  # one per torch.linalg.eigh call
     E = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
     U, s, Vt = _svd_or_nan(E, per_matrix=True)
     sbar = (s[..., 0] + s[..., 1]) / 2.0

@@ -38,6 +38,7 @@ from ..ops import essential, homography, matching, p3p, projection, triangulatio
 from ..ops.ransac import draw_samples, ransac
 from ..ops.reduce import sum_pairwise
 from ..ops.rotation import rvec_from_rotmat
+from ..utils.timer import span, sync
 
 
 class TwoViewResult(NamedTuple):
@@ -113,6 +114,7 @@ def _slot_thresholds(thresholds, B, device):
     from one host float (no copy) or one per slot."""
     if np.ndim(thresholds) == 0:
         return torch.full((B,), float(np.float32(thresholds)), device=device)
+    sync()  # a blocking copy
     return torch.as_tensor(np.asarray(thresholds, np.float32), device=device)
 
 
@@ -288,9 +290,10 @@ def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_cu
     rvec0 = rvec_from_rotmat(pres.model[:, :3, :3])
     tvec0 = pres.model[:, :3, 3]
 
-    pose, cost = _pose_refine_loop(torch.cat([rvec0, tvec0], dim=-1), prev_p3d_xyz,
-                                   kp_curr_m, pres.inlier_mask, cam_params, model_codes,
-                                   1.0, refine_iters, code_ids)
+    with span("register.pose_lm", "reg_pose_lm_s"):
+        pose, cost = _pose_refine_loop(torch.cat([rvec0, tvec0], dim=-1), prev_p3d_xyz,
+                                       kp_curr_m, pres.inlier_mask, cam_params, model_codes,
+                                       1.0, refine_iters, code_ids)
     # RMS px over refined residuals, like the reference
     # sqrt(summary.final_cost / num_residuals) (bundle_adjustment.cc:222).
     final_cost = torch.sqrt(cost / torch.clamp(pres.num_inliers * 2, min=1))
@@ -398,6 +401,7 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     dev = kp_p.device
     K = len(feats_k)
     scal_h = np.asarray(scal, np.float32)
+    sync(1 + (cont_state is None))  # the blocking copies of scal (and track_state)
     scal_d = torch.as_tensor(scal_h, device=dev)
     ratio, max_distance = float(scal_h[6]), float(scal_h[7])
     min_tri_angle = float(scal_h[8])
@@ -518,6 +522,7 @@ def register_view_pairs(generator, kpp, desc_p, mask_p, np_, kpc, desc_c, mask_c
     codes = [int(c) for c in model_code]
     # One host->device copy carries the thresholds and, where the slots mix
     # camera models, their codes (small integers, exact in float32).
+    sync()  # a blocking copy
     per_slot = torch.as_tensor(np.asarray([norm_threshold, codes], np.float32),
                                device=kpp.device)
     code_ids = per_slot[1] if len(set(codes)) > 1 else None

@@ -49,7 +49,6 @@ After each, the ranks compare a digest of the map they hold, and a
 difference raises.
 """
 
-import time as _time
 from collections import OrderedDict
 from dataclasses import replace as _dc_replace
 from typing import NamedTuple
@@ -66,6 +65,7 @@ from ..ops.matching import MATCHER_BACKENDS, match_features_batched
 from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
 from ..utils.device import resolve_device
 from ..utils.mathx import rel2abs_threshold
+from ..utils.timer import span, sync
 from .kernels import (register_chain, register_chain_cont, register_chain_fresh,
                       register_view, register_view_batch, register_view_pairs,
                       two_view_init, two_view_init_batch, unpack_register,
@@ -153,7 +153,8 @@ class SequentialMapper:
         self._norm_cache = _LRUCache(cache_capacity)
         self._dev_feat_cache = _LRUCache(cache_capacity)
         self._dev_norm_cache = _LRUCache(cache_capacity)
-        # Event counters and accumulated seconds; free-form keys.
+        # Event counters and accumulated seconds (utils/timer.span); free-form
+        # keys.
         self.counters = {}
         # Bundle adjustments on the deferred/asynchronous schedule: problems
         # stashed by adjust_bundle(defer=True) and solves whose results have
@@ -209,8 +210,7 @@ class SequentialMapper:
         kp, desc, mask = self._dev_feat_cache.get_or(
             image_idx, lambda: features_to_device(self._features(image_idx), self.device))
         n = self._dev_norm_cache.get_or(
-            image_idx,
-            lambda: torch.as_tensor(self._normalized(image_idx), device=self.device))
+            image_idx, lambda: self._tensor(self._normalized(image_idx)))
         return kp, desc, mask, n
 
     def _normalized(self, image_idx):
@@ -314,7 +314,9 @@ class SequentialMapper:
         return options.match_max_distance if options.match_max_distance > 0 else 1e9
 
     def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        a = np.asarray(a)
+        sync(int(a.size > 0))  # a blocking copy
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def _stacked_features(self, image_idxs):
         """(kp, desc, mask, normalized) of several images, each stacked to
@@ -346,17 +348,24 @@ class SequentialMapper:
         if first_idx == second_idx:
             raise ValueError("initial pair must be distinct images")
 
-        kp1, d1, m1, n1 = self._device_features(first_idx)
-        kp2, d2, m2, n2 = self._device_features(second_idx)
-        rows, scalars = two_view_init(
-            self._gen, kp1, d1, m1, n1, kp2, d2, m2, n2,
-            options.match_max_ratio, self._max_distance(options),
-            self._norm_threshold(options.ransac_max_reproj_error, first_idx),
-            essential_trials=options.essential_ransac_trials,
-            max_depth=options.max_depth, samples=samples,
-            matcher=self._matcher_backend(options))
-        r = unpack_two_view(rows.cpu().numpy(), scalars.cpu().numpy())
-        return self._two_view_gates_and_commit(first_idx, second_idx, r, options, debug=debug)
+        with span("register.prepare", "reg_prepare_s", self):
+            kp1, d1, m1, n1 = self._device_features(first_idx)
+            kp2, d2, m2, n2 = self._device_features(second_idx)
+        with span("register.dispatch", "reg_dispatch_s", self):
+            rows, scalars = two_view_init(
+                self._gen, kp1, d1, m1, n1, kp2, d2, m2, n2,
+                options.match_max_ratio, self._max_distance(options),
+                self._norm_threshold(options.ransac_max_reproj_error, first_idx),
+                essential_trials=options.essential_ransac_trials,
+                max_depth=options.max_depth, samples=samples,
+                matcher=self._matcher_backend(options))
+        with span("register.wait", "reg_wait_s", self):
+            sync(2)
+            rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
+        with span("register.commit", "reg_commit_s", self):
+            return self._two_view_gates_and_commit(first_idx, second_idx,
+                                                   unpack_two_view(rows, scalars), options,
+                                                   debug=debug)
 
     def process_initial_batch(self, first_idx, candidate_idxs,
                               options: SequentialMapperOptions = None, debug=False):
@@ -370,27 +379,35 @@ class SequentialMapper:
             raise ValueError("initial processing can only be called once")
         if not len(candidate_idxs):
             return -1
-        kp1, d1, m1, n1 = self._device_features(first_idx)
-        kp2s, d2s, m2s, n2s = self._stacked_features(candidate_idxs)
-        t0 = _time.perf_counter()
-        rows, scalars = two_view_init_batch(
-            self._gen, kp1, d1, m1, n1, kp2s, d2s, m2s, n2s, options.match_max_ratio,
-            self._max_distance(options),
-            [self._norm_threshold(options.ransac_max_reproj_error, j) for j in candidate_idxs],
-            essential_trials=options.essential_ransac_trials, max_depth=options.max_depth,
-            matcher=self._matcher_backend(options))
-        rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
-        self._count_batch(t0, len(candidate_idxs))
-        for k, j in enumerate(candidate_idxs):
-            if self._two_view_gates_and_commit(first_idx, j, unpack_two_view(rows[k], scalars[k]),
-                                               options, debug=debug):
-                return j
+        with span("register.prepare", "reg_prepare_s", self):
+            kp1, d1, m1, n1 = self._device_features(first_idx)
+            kp2s, d2s, m2s, n2s = self._stacked_features(candidate_idxs)
+        with span("batch.step", "batch_register_s", self):
+            with span("register.dispatch", "reg_dispatch_s", self):
+                rows, scalars = two_view_init_batch(
+                    self._gen, kp1, d1, m1, n1, kp2s, d2s, m2s, n2s, options.match_max_ratio,
+                    self._max_distance(options),
+                    [self._norm_threshold(options.ransac_max_reproj_error, j)
+                     for j in candidate_idxs],
+                    essential_trials=options.essential_ransac_trials,
+                    max_depth=options.max_depth, matcher=self._matcher_backend(options))
+            rows, scalars = self._pull_batch(rows, scalars, len(candidate_idxs))
+        with span("register.commit", "reg_commit_s", self):
+            for k, j in enumerate(candidate_idxs):
+                if self._two_view_gates_and_commit(first_idx, j,
+                                                   unpack_two_view(rows[k], scalars[k]),
+                                                   options, debug=debug):
+                    return j
         return -1
 
-    def _count_batch(self, t0, n):
-        """Host seconds and slots of one batched registration step."""
-        self._count_time("batch_register_s", _time.perf_counter() - t0)
+    def _pull_batch(self, rows, scalars, n):
+        """A batched registration step's outputs as numpy; counts its n
+        slots."""
+        with span("register.wait", "reg_wait_s", self):
+            sync(2)
+            rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
         self._count("batch_register_slots", n)
+        return rows, scalars
 
     def _step(self, step):
         """A batched registration step, or with a mesh the step with its
@@ -482,36 +499,37 @@ class SequentialMapper:
         if self.is_pair_processed(image_idx, prev_image_idx):
             return True
 
-        kpp, dp_, mp_, npn = self._device_features(prev_image_idx)
-        kpc, dc_, mc_, ncn = self._device_features(image_idx)
-        prev_p2d, has_tri, stable, xyz, prev_rvec, prev_tvec, _ = \
-            self._prev_track_state(prev_image_idx, options)
-        ci = self.image_cameras[image_idx]
-
-        def t(a, dtype=None):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
-
-        out = register_view(
-            self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn,
-            t(xyz), t(has_tri), t(stable),
-            t(prev_rvec, torch.float32), t(prev_tvec, torch.float32),
-            t(self.cam_params[ci]), int(self.cam_models[ci]),
-            options.match_max_ratio, self._max_distance(options),
-            self._norm_threshold(options.ransac_max_reproj_error, image_idx),
-            p3p_trials=options.p3p_ransac_trials, samples=samples,
-            matcher=self._matcher_backend(options))
+        with span("register.prepare", "reg_prepare_s", self):
+            kpp, dp_, mp_, npn = self._device_features(prev_image_idx)
+            kpc, dc_, mc_, ncn = self._device_features(image_idx)
+            prev_p2d, has_tri, stable, xyz, prev_rvec, prev_tvec, _ = \
+                self._prev_track_state(prev_image_idx, options)
+            ci = self.image_cameras[image_idx]
+            f32 = torch.float32
+            state = (self._tensor(xyz), self._tensor(has_tri), self._tensor(stable),
+                     self._tensor(prev_rvec, f32), self._tensor(prev_tvec, f32),
+                     self._tensor(self.cam_params[ci]))
+        with span("register.dispatch", "reg_dispatch_s", self):
+            out = register_view(
+                self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, *state,
+                int(self.cam_models[ci]), options.match_max_ratio, self._max_distance(options),
+                self._norm_threshold(options.ransac_max_reproj_error, image_idx),
+                p3p_trials=options.p3p_ransac_trials, samples=samples,
+                matcher=self._matcher_backend(options))
         # The JAX package's schedule: register first, then dispatch the
         # previous frame's deferred window solve, pull the outputs with
         # the results of the solve dispatched a step earlier. (Unlike a
         # chain, this step needs no early copy, _copy_early: the solve runs
         # when dispatched and no speculative step follows, so nothing
         # queues behind its outputs.)
-        r = unpack_register(*self._pull_with_pending(out))
-        if not self._register_gates(image_idx, r, options, prev_image_idx, debug=debug):
-            return False
-        tri_nt = self._norm_threshold(options.tri_max_reproj_error, image_idx)
-        return self._register_commit(image_idx, prev_image_idx, r, options,
-                                     prev_p2d, has_tri, tri_nt, debug=debug)
+        pulled = self._pull_with_pending(out)
+        with span("register.commit", "reg_commit_s", self):
+            r = unpack_register(*pulled)
+            if not self._register_gates(image_idx, r, options, prev_image_idx, debug=debug):
+                return False
+            tri_nt = self._norm_threshold(options.tri_max_reproj_error, image_idx)
+            return self._register_commit(image_idx, prev_image_idx, r, options,
+                                         prev_p2d, has_tri, tri_nt, debug=debug)
 
     def _register_gates(self, image_idx, r, options, prev_image_idx=None, debug=False):
         """Host-side failure gates on the pulled register_view scalars
@@ -683,10 +701,11 @@ class SequentialMapper:
         n_real = len(idxs)
         K = max(pad_to or n_real, n_real)
         idxs = list(idxs) + [idxs[-1]] * (K - n_real)
-        kpp, dp_, mp_, npn = self._device_features(prev_image_idx)
-        feats = tuple(self._device_features(i) for i in idxs)
-        prev_p2d, has_tri, stable, xyz, prev_rvec, prev_tvec, lens = \
-            self._prev_track_state(prev_image_idx, options)
+        with span("register.prepare", "reg_prepare_s", self):
+            kpp, dp_, mp_, npn = self._device_features(prev_image_idx)
+            feats = tuple(self._device_features(i) for i in idxs)
+            prev_p2d, has_tri, stable, xyz, prev_rvec, prev_tvec, lens = \
+                self._prev_track_state(prev_image_idx, options)
 
         # Unlike process(), the previous chain's deferred window solves go
         # BEFORE this chain and land WITH it: one chain of anchor staleness
@@ -694,47 +713,50 @@ class SequentialMapper:
         handles = self._dispatch_deferred_ba()
         self._pending_ba += handles
 
-        F = self.provider.capacity
-        track_state = np.zeros((F, 7), np.float32)
-        track_state[:, :3] = xyz
-        track_state[:, 3] = has_tri
-        track_state[:, 4] = stable
-        track_state[:, 5] = lens
-        track_state[:, 6] = -1.0
-        tri_nts, scal = self._chain_scal(idxs, options)
-        scal[0:3] = prev_rvec
-        scal[3:6] = prev_tvec
+        with span("register.prepare", "reg_prepare_s", self):
+            F = self.provider.capacity
+            track_state = np.zeros((F, 7), np.float32)
+            track_state[:, :3] = xyz
+            track_state[:, 3] = has_tri
+            track_state[:, 4] = stable
+            track_state[:, 5] = lens
+            track_state[:, 6] = -1.0
+            tri_nts, scal = self._chain_scal(idxs, options)
+            scal[0:3] = prev_rvec
+            scal[3:6] = prev_tvec
 
-        # Anchor freshness: the solve just dispatched refines the anchor's
-        # pose and most of its 3-D points, but its results reach the store
-        # only after this chain's pull. The fresh variant reads the anchor
-        # pose from the solve's output tensors and gathers each row's 3-D
-        # point through track_state[:, 6].
-        ba_args = None
-        if handles:
-            sel_ids_h, pids_h, h = handles[-1]
-            prev_id = self.image_idx_to_id[prev_image_idx]
-            anchor_row = sel_ids_h.index(prev_id) if prev_id in sel_ids_h else -1
-            if anchor_row >= 0 and len(pids_h):
-                p3d = self.store.point2D_point3D[prev_p2d]
-                loc = np.minimum(np.searchsorted(pids_h, np.maximum(p3d, 0)),
-                                 len(pids_h) - 1)
-                ok = has_tri[: len(prev_p2d)] & (p3d >= 0) & (pids_h[loc] == p3d)
-                track_state[: len(prev_p2d), 6][ok] = loc[ok]
-                scal[11] = anchor_row
-                ba_args = (h.fut[0], h.fut[1])
+            # Anchor freshness: the solve just dispatched refines the
+            # anchor's pose and most of its 3-D points, but its results
+            # reach the store only after this chain's pull. The fresh
+            # variant reads the anchor pose from the solve's output tensors
+            # and gathers each row's 3-D point through track_state[:, 6].
+            ba_args = None
+            if handles:
+                sel_ids_h, pids_h, h = handles[-1]
+                prev_id = self.image_idx_to_id[prev_image_idx]
+                anchor_row = sel_ids_h.index(prev_id) if prev_id in sel_ids_h else -1
+                if anchor_row >= 0 and len(pids_h):
+                    p3d = self.store.point2D_point3D[prev_p2d]
+                    loc = np.minimum(np.searchsorted(pids_h, np.maximum(p3d, 0)),
+                                     len(pids_h) - 1)
+                    ok = has_tri[: len(prev_p2d)] & (p3d >= 0) & (pids_h[loc] == p3d)
+                    track_state[: len(prev_p2d), 6][ok] = loc[ok]
+                    scal[11] = anchor_row
+                    ba_args = (h.fut[0], h.fut[1])
 
         common = dict(p3p_trials=options.p3p_ransac_trials,
                       matcher=self._matcher_backend(options))
-        if ba_args is not None:
-            out = register_chain_fresh(self._gen, kpp, dp_, mp_, npn, feats, track_state,
-                                       scal, *ba_args, **common)
-        else:
-            out = register_chain(self._gen, kpp, dp_, mp_, npn, feats, track_state, scal,
-                                 **common)
+        with span("register.dispatch", "reg_dispatch_s", self):
+            if ba_args is not None:
+                out = register_chain_fresh(self._gen, kpp, dp_, mp_, npn, feats, track_state,
+                                           scal, *ba_args, **common)
+            else:
+                out = register_chain(self._gen, kpp, dp_, mp_, npn, feats, track_state, scal,
+                                     **common)
+            host, ready = self._copy_early(out)
         self._count("chains")
-        return _ChainToken(out, *self._copy_early(out), idxs, n_real, prev_image_idx, prev_p2d,
-                           has_tri, tri_nts, options)
+        return _ChainToken(out, host, ready, idxs, n_real, prev_image_idx, prev_p2d, has_tri,
+                           tri_nts, options)
 
     def chain_dispatch_cont(self, idxs, prev_token,
                             options: SequentialMapperOptions = None, pad_to=None):
@@ -765,17 +787,22 @@ class SequentialMapper:
         n_real = len(idxs)
         K = max(pad_to or n_real, n_real)
         idxs = list(idxs) + [idxs[-1]] * (K - n_real)
-        kp_a, d_a, m_a, n_a = self._device_features(anchor_idx)
-        feats = tuple(self._device_features(i) for i in idxs)
+        with span("register.prepare", "reg_prepare_s", self):
+            kp_a, d_a, m_a, n_a = self._device_features(anchor_idx)
+            feats = tuple(self._device_features(i) for i in idxs)
         self._pending_ba += self._dispatch_deferred_ba()
-        tri_nts, scal = self._chain_scal(idxs, options)
-        out = register_chain_cont(self._gen, kp_a, d_a, m_a, n_a, feats, prev_token.out[3],
-                                  prev_token.out[4], scal, p3p_trials=options.p3p_ransac_trials,
-                                  matcher=self._matcher_backend(options))
+        with span("register.prepare", "reg_prepare_s", self):
+            tri_nts, scal = self._chain_scal(idxs, options)
+        with span("register.dispatch", "reg_dispatch_s", self):
+            out = register_chain_cont(self._gen, kp_a, d_a, m_a, n_a, feats, prev_token.out[3],
+                                      prev_token.out[4], scal,
+                                      p3p_trials=options.p3p_ransac_trials,
+                                      matcher=self._matcher_backend(options))
+            host, ready = self._copy_early(out)
         self._count("chains")
         self._count("cont_chains")
-        return _ChainToken(out, *self._copy_early(out), idxs, n_real, anchor_idx, None, None,
-                           tri_nts, options)
+        return _ChainToken(out, host, ready, idxs, n_real, anchor_idx, None, None, tri_nts,
+                           options)
 
     def chain_abandon(self, token):
         """Drop a speculative chain whose anchor never committed: wait for
@@ -791,33 +818,36 @@ class SequentialMapper:
         gates and commit frame by frame. Returns the per-frame oks (see
         process_chain_k)."""
         rows_all, scalars_all, has_tri_in = self._pull_with_pending(token.host, token.ready)
-        anchor_idx, anchor_p2d, anchor_has_tri = token.anchor_idx, token.anchor_p2d, token.has_tri
-        if anchor_p2d is None:
-            # A continuation chain: its anchor must have committed by now
-            # (the caller abandons the token otherwise).
-            if not self.is_image_processed(anchor_idx):
-                raise ValueError("continuation chain completed before its anchor committed: "
-                                 "chain_abandon it when the previous chain fails")
-            anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[anchor_idx])
-            anchor_has_tri = has_tri_in[0]
+        with span("register.commit", "reg_commit_s", self):
+            anchor_idx, anchor_p2d = token.anchor_idx, token.anchor_p2d
+            anchor_has_tri = token.has_tri
+            if anchor_p2d is None:
+                # A continuation chain: its anchor must have committed by now
+                # (the caller abandons the token otherwise).
+                if not self.is_image_processed(anchor_idx):
+                    raise ValueError("continuation chain completed before its anchor "
+                                     "committed: chain_abandon it when the previous chain "
+                                     "fails")
+                anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[anchor_idx])
+                anchor_has_tri = has_tri_in[0]
 
-        oks = []
-        for k, idx in enumerate(token.idxs[:token.n_real]):
-            r = unpack_register(rows_all[k], scalars_all[k])
-            ok = self._register_gates(idx, r, token.options, anchor_idx, debug=debug)
-            if ok:
-                # The commit classifies rows with the same derived has_tri
-                # the device registered against.
-                ok = self._register_commit(idx, anchor_idx, r, token.options, anchor_p2d,
-                                           anchor_has_tri, token.tri_nts[k], debug=debug)
-            oks.append(bool(ok))
-            if not ok:
-                break
-            if k + 1 < token.n_real:
-                anchor_idx = idx
-                anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[idx])
-                anchor_has_tri = has_tri_in[k + 1]
-        return oks
+            oks = []
+            for k, idx in enumerate(token.idxs[:token.n_real]):
+                r = unpack_register(rows_all[k], scalars_all[k])
+                ok = self._register_gates(idx, r, token.options, anchor_idx, debug=debug)
+                if ok:
+                    # The commit classifies rows with the same derived has_tri
+                    # the device registered against.
+                    ok = self._register_commit(idx, anchor_idx, r, token.options, anchor_p2d,
+                                               anchor_has_tri, token.tri_nts[k], debug=debug)
+                oks.append(bool(ok))
+                if not ok:
+                    break
+                if k + 1 < token.n_real:
+                    anchor_idx = idx
+                    anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[idx])
+                    anchor_has_tri = has_tri_in[k + 1]
+            return oks
 
     # --------------------------------------------------------- loop closure
 
@@ -841,6 +871,7 @@ class SequentialMapper:
         if self.mesh is not None:
             from ..parallel.dist_register import dist_match_counts
 
+            sync()
             counts = dist_match_counts(self.mesh, dq, mq, dstack, mstack,
                                        options.match_max_ratio,
                                        self._matcher_backend(options)).cpu().numpy()
@@ -848,6 +879,7 @@ class SequentialMapper:
             return counts
         _, ok = match_features_batched(dq, dstack, mq, mstack, ratio=options.match_max_ratio,
                                        backend=self._matcher_backend(options))
+        sync()
         return torch.sum(ok, dim=-1).cpu().numpy()
 
     @staticmethod
@@ -869,13 +901,11 @@ class SequentialMapper:
         if self.loop_detector is None:
             return 0
         options = options or SequentialMapperOptions()
-        t0 = _time.perf_counter()
-        idxs, _ = self.find_similar_images(image_idx, num_images)
-        self._count_time("detect_query_s", _time.perf_counter() - t0)
-        t0 = _time.perf_counter()
-        cand = [int(i) for i in idxs]
-        match_counts = self._batch_match_counts(image_idx, cand, options)
-        self._count_time("detect_pregate_s", _time.perf_counter() - t0)
+        with span("loop.query", "detect_query_s", self):
+            idxs, _ = self.find_similar_images(image_idx, num_images)
+        with span("loop.pregate", "detect_pregate_s", self):
+            cand = [int(i) for i in idxs]
+            match_counts = self._batch_match_counts(image_idx, cand, options)
         min_needed = self._min_matches(options)
         # The batched step registers the current image against processed
         # previous images; the current one may itself be unregistered (the
@@ -887,23 +917,22 @@ class SequentialMapper:
         num_successes = 0
         num_nh = 0
         if runnable:
-            t0 = _time.perf_counter()
             results = self._batch_register_candidates(image_idx, runnable, options)
-            self._count_time("detect_register_s", _time.perf_counter() - t0)
             self._count("detect_runnable", len(runnable))
-            for other, (r, prev_p2d, has_tri, tri_nt) in zip(runnable, results):
-                distance = abs(other - image_idx)
-                if not (num_nh < num_nh_images or distance > nh_distance):
-                    continue
-                if not self._register_gates(image_idx, r, options):
-                    continue
-                if self._register_commit(image_idx, other, r, options, prev_p2d, has_tri,
-                                         tri_nt):
-                    if verbose:
-                        print(f"Closed loop to image #{other}")
-                    num_successes += 1
-                    if distance <= nh_distance:
-                        num_nh += 1
+            with span("register.commit", "reg_commit_s", self):
+                for other, (r, prev_p2d, has_tri, tri_nt) in zip(runnable, results):
+                    distance = abs(other - image_idx)
+                    if not (num_nh < num_nh_images or distance > nh_distance):
+                        continue
+                    if not self._register_gates(image_idx, r, options):
+                        continue
+                    if self._register_commit(image_idx, other, r, options, prev_p2d, has_tri,
+                                             tri_nt):
+                        if verbose:
+                            print(f"Closed loop to image #{other}")
+                        num_successes += 1
+                        if distance <= nh_distance:
+                            num_nh += 1
         self._count("loop_closures", num_successes)
         return num_successes
 
@@ -925,20 +954,23 @@ class SequentialMapper:
                 out.extend(self._batch_register_candidates(
                     image_idx, cand_idxs[k:k + self.BATCH_CHUNK], options))
             return out
-        states, xyz, has_tri, stable, rvecs, tvecs = self._stacked_states(cand_idxs, options)
-        kpp, dp_, mp_, npn = self._stacked_features(cand_idxs)
-        kpc, dc_, mc_, ncn = self._device_features(image_idx)
-        ci = self.image_cameras[image_idx]
-        tri_nt = self._norm_threshold(options.tri_max_reproj_error, image_idx)
-        t0 = _time.perf_counter()
-        rows, scalars = self._step(register_view_batch)(
-            self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable, rvecs,
-            tvecs, self._tensor(self.cam_params[ci]), int(self.cam_models[ci]),
-            options.match_max_ratio, self._max_distance(options),
-            self._norm_threshold(options.ransac_max_reproj_error, image_idx),
-            p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
-        rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
-        self._count_batch(t0, n)
+        with span("register.prepare", "reg_prepare_s", self):
+            states, xyz, has_tri, stable, rvecs, tvecs = self._stacked_states(cand_idxs,
+                                                                               options)
+            kpp, dp_, mp_, npn = self._stacked_features(cand_idxs)
+            kpc, dc_, mc_, ncn = self._device_features(image_idx)
+            ci = self.image_cameras[image_idx]
+            tri_nt = self._norm_threshold(options.tri_max_reproj_error, image_idx)
+            kparams = self._tensor(self.cam_params[ci])
+        with span("batch.step", "batch_register_s", self):
+            with span("register.dispatch", "reg_dispatch_s", self):
+                rows, scalars = self._step(register_view_batch)(
+                    self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable,
+                    rvecs, tvecs, kparams, int(self.cam_models[ci]), options.match_max_ratio,
+                    self._max_distance(options),
+                    self._norm_threshold(options.ransac_max_reproj_error, image_idx),
+                    p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
+            rows, scalars = self._pull_batch(rows, scalars, n)
         self._check_replicated("a batched candidate registration", scalars)
         return [(unpack_register(rows[k], scalars[k]), states[k][0], states[k][1], tri_nt)
                 for k in range(n)]
@@ -966,40 +998,44 @@ class SequentialMapper:
                 out.extend(self.batch_register_pairs(pairs[k:k + self.BATCH_CHUNK], options,
                                                      closure=closure))
             return out
-        states, xyz, has_tri, stable, rvecs, tvecs = self._stacked_states(
-            [p for _, p in pairs], options)
-        kpp, dp_, mp_, npn = self._stacked_features([p for _, p in pairs])
-        kpc, dc_, mc_, ncn = self._stacked_features([c for c, _ in pairs])
-        cis = [self.image_cameras[c] for c, _ in pairs]
-        tri_nts = [self._norm_threshold(options.tri_max_reproj_error, c) for c, _ in pairs]
-        t0 = _time.perf_counter()
-        rows, scalars = self._step(register_view_pairs)(
-            self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable, rvecs,
-            tvecs, self._tensor(self.cam_params[cis]), [int(self.cam_models[c]) for c in cis],
-            options.match_max_ratio, self._max_distance(options),
-            [self._norm_threshold(options.ransac_max_reproj_error, c) for c, _ in pairs],
-            p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
-        rows, scalars = rows.cpu().numpy(), scalars.cpu().numpy()
-        self._count_batch(t0, n)
+        with span("register.prepare", "reg_prepare_s", self):
+            states, xyz, has_tri, stable, rvecs, tvecs = self._stacked_states(
+                [p for _, p in pairs], options)
+            kpp, dp_, mp_, npn = self._stacked_features([p for _, p in pairs])
+            kpc, dc_, mc_, ncn = self._stacked_features([c for c, _ in pairs])
+            cis = [self.image_cameras[c] for c, _ in pairs]
+            tri_nts = [self._norm_threshold(options.tri_max_reproj_error, c) for c, _ in pairs]
+            kparams = self._tensor(self.cam_params[cis])
+        with span("batch.step", "batch_register_s", self):
+            with span("register.dispatch", "reg_dispatch_s", self):
+                rows, scalars = self._step(register_view_pairs)(
+                    self._gen, kpp, dp_, mp_, npn, kpc, dc_, mc_, ncn, xyz, has_tri, stable,
+                    rvecs, tvecs, kparams, [int(self.cam_models[c]) for c in cis],
+                    options.match_max_ratio, self._max_distance(options),
+                    [self._norm_threshold(options.ransac_max_reproj_error, c) for c, _ in pairs],
+                    p3p_trials=options.p3p_ransac_trials, matcher=self._matcher_backend(options))
+            rows, scalars = self._pull_batch(rows, scalars, n)
         out = []
-        for k, (curr, prev) in enumerate(pairs):
-            # Back-fill: every pair was built while `curr` was unregistered;
-            # once an earlier pair registered it, committing this one would
-            # add points triangulated with a pose that never committed (the
-            # reference breaks on the first success). Closure mode registers
-            # processed currents by design.
-            if not closure and self.is_image_processed(curr):
-                out.append(True)
-                continue
-            if self.is_pair_processed(curr, prev):
-                out.append(not closure)
-                continue
-            r = unpack_register(rows[k], scalars[k])
-            ok = self._register_gates(curr, r, options)
-            if ok:
-                ok = self._register_commit(curr, prev, r, options, states[k][0], states[k][1],
-                                           tri_nts[k])
-            out.append(bool(ok))
+        with span("register.commit", "reg_commit_s", self):
+            for k, (curr, prev) in enumerate(pairs):
+                # Back-fill: every pair was built while `curr` was
+                # unregistered; once an earlier pair registered it,
+                # committing this one would add points triangulated with a
+                # pose that never committed (the reference breaks on the
+                # first success). Closure mode registers processed currents
+                # by design.
+                if not closure and self.is_image_processed(curr):
+                    out.append(True)
+                    continue
+                if self.is_pair_processed(curr, prev):
+                    out.append(not closure)
+                    continue
+                r = unpack_register(rows[k], scalars[k])
+                ok = self._register_gates(curr, r, options)
+                if ok:
+                    ok = self._register_commit(curr, prev, r, options, states[k][0],
+                                               states[k][1], tri_nts[k])
+                out.append(bool(ok))
         self._check_replicated("a batched pair registration", scalars)
         return out
 
@@ -1027,6 +1063,7 @@ class SequentialMapper:
                                            ratio=options.match_max_ratio,
                                            backend=self._matcher_backend(options))
             counts.append(torch.sum(ok, dim=-1))
+        sync()
         return torch.cat(counts).cpu().numpy()
 
     def batch_detect_closures(self, query_idxs, num_images=30, nh_distance=30, options=None,
@@ -1041,28 +1078,24 @@ class SequentialMapper:
             return 0
         options = options or SequentialMapperOptions()
         min_needed = self._min_matches(options)
-        t0 = _time.perf_counter()
         cand_pairs = []
-        for q in query_idxs:
-            if not self.is_image_processed(q):
-                continue
-            idxs, _ = self.find_similar_images(q, num_images)
-            cand_pairs += [(q, int(c)) for c in idxs
-                           if int(c) != q and abs(int(c) - q) > nh_distance
-                           and self.is_image_processed(int(c))
-                           and not self.is_pair_processed(q, int(c))]
-        self._count_time("sweep_retrieval_s", _time.perf_counter() - t0)
+        with span("loop.sweep_retrieval", "sweep_retrieval_s", self):
+            for q in query_idxs:
+                if not self.is_image_processed(q):
+                    continue
+                idxs, _ = self.find_similar_images(q, num_images)
+                cand_pairs += [(q, int(c)) for c in idxs
+                               if int(c) != q and abs(int(c) - q) > nh_distance
+                               and self.is_image_processed(int(c))
+                               and not self.is_pair_processed(q, int(c))]
         if not cand_pairs:
             return 0
-        t0 = _time.perf_counter()
-        counts = self._batch_match_counts_pairs(cand_pairs, options)
-        jobs = [p for p, n in zip(cand_pairs, counts) if n >= min_needed]
-        self._count_time("sweep_pregate_s", _time.perf_counter() - t0)
+        with span("loop.sweep_pregate", "sweep_pregate_s", self):
+            counts = self._batch_match_counts_pairs(cand_pairs, options)
+            jobs = [p for p, n in zip(cand_pairs, counts) if n >= min_needed]
         if not jobs:
             return 0
-        t0 = _time.perf_counter()
         got = self.batch_register_pairs(jobs, options, closure=True)
-        self._count_time("sweep_register_s", _time.perf_counter() - t0)
         self._count("sweep_jobs", len(jobs))
         self._count("sweep_cands", len(cand_pairs))
         n = 0
@@ -1109,10 +1142,11 @@ class SequentialMapper:
             if not cands:
                 continue
             results = self._batch_register_candidates(idx, cands, options)
-            for cand, (r, prev_p2d, has_tri, tri_nt) in zip(cands, results):
-                if self._register_gates(idx, r, options, cand):
-                    closures += bool(self._register_commit(idx, cand, r, options, prev_p2d,
-                                                           has_tri, tri_nt))
+            with span("register.commit", "reg_commit_s", self):
+                for cand, (r, prev_p2d, has_tri, tri_nt) in zip(cands, results):
+                    if self._register_gates(idx, r, options, cand):
+                        closures += bool(self._register_commit(idx, cand, r, options,
+                                                               prev_p2d, has_tri, tri_nt))
 
         # Images processed in both mappers anchor the alignment.
         common = [idx for idx in other.image_idx_to_id if self.is_image_processed(idx)]
@@ -1212,13 +1246,14 @@ class SequentialMapper:
     def _apply_ba(self, pending):
         """Land one solve's results (sel_ids, pids, finalize) in the store."""
         sel_ids, pids, finalize = pending
-        new_poses, new_points, info = finalize()
+        with span("ba.apply", "ba_apply_s", self):
+            new_poses, new_points, info = finalize()
+            self.apply_ba_result(sel_ids, new_poses, pids, new_points,
+                                 point_errors=info.get("point_errors"))
+            if "cam_params" in info:
+                self._adopt_cam_params(info["cam_params"])
         self._count("ba_iters", int(info["iterations"]))
         self._count("ba_applied")
-        self.apply_ba_result(sel_ids, new_poses, pids, new_points,
-                             point_errors=info.get("point_errors"))
-        if "cam_params" in info:
-            self._adopt_cam_params(info["cam_params"])
         return info
 
     def _dispatch_deferred_ba(self):
@@ -1227,10 +1262,9 @@ class SequentialMapper:
         deferred, self._deferred_ba = self._deferred_ba, []
         handles = []
         for sel_ids, pids, prob, ba_options, n_obs in deferred:
-            t0 = _time.perf_counter()
-            handles.append((sel_ids, pids, bundle_adjust_async(
-                prob, ba_options, device=self.device, num_obs=n_obs)))
-            self._count_time("ba_solve_s", _time.perf_counter() - t0)
+            with span("ba.solve", "ba_solve_s", self):
+                handles.append((sel_ids, pids, bundle_adjust_async(
+                    prob, ba_options, device=self.device, num_obs=n_obs)))
         return handles
 
     def _pull_with_pending(self, out, ready=None):
@@ -1238,14 +1272,15 @@ class SequentialMapper:
         the host, then apply the solves pending from earlier dispatches in
         dispatch order; the ones just dispatched become pending. `out` may
         be host copies issued earlier (_copy_early), with the CUDA event
-        `ready` behind them: then only that event is waited for. Returns
-        the outputs as numpy arrays."""
+        `ready` behind them: then only that event is waited for (one host
+        sync, which CUDA's sync debug mode does not see). Returns the
+        outputs as numpy arrays."""
         newly = self._dispatch_deferred_ba()
-        if ready is not None:
-            t0 = _time.perf_counter()
-            ready.synchronize()
-            self._count_time("pull_wait_s", _time.perf_counter() - t0)
-        vals = tuple(t.cpu().numpy() for t in out)
+        with span("register.wait", "reg_wait_s", self):
+            sync(len(out) if ready is None else 1)
+            if ready is not None:
+                ready.synchronize()
+            vals = tuple(t.cpu().numpy() for t in out)
         self._count("pulls")
         pending, self._pending_ba = self._pending_ba, []
         for p in pending:
@@ -1389,11 +1424,10 @@ class SequentialMapper:
                 obs_image[sub], obs_point_s.astype(np.int32), obs_cam[sub], obs_xy[sub],
                 pose_states=states, point_fixed=point_fixed_s, rot_prior=rp,
                 rot_prior_weight=rw, bucket=True)
-            t0 = _time.perf_counter()
-            _, _, info_s = bundle_adjust(
-                prob_s, _dc_replace(ba_options, update_point3D_errors=False),
-                device=self.device, num_obs=len(sub))
-            self._count_time("ba_selfcal_s", _time.perf_counter() - t0)
+            with span("ba.selfcal", "ba_selfcal_s", self):
+                _, _, info_s = bundle_adjust(
+                    prob_s, _dc_replace(ba_options, update_point3D_errors=False),
+                    device=self.device, num_obs=len(sub))
             self._count("ba_selfcal_iters", int(info_s["iterations"]))
             self._adopt_cam_params(info_s["cam_params"])
             ba_options = _dc_replace(ba_options, refine_camera_params=False)
@@ -1408,15 +1442,13 @@ class SequentialMapper:
             self._deferred_ba.append((sel_ids, pids, prob, ba_options, n_obs))
             return None
         if async_:
-            t0 = _time.perf_counter()
-            self._pending_ba.append((sel_ids, pids, bundle_adjust_async(
-                prob, ba_options, device=self.device, num_obs=n_obs)))
-            self._count_time("ba_solve_s", _time.perf_counter() - t0)
+            with span("ba.solve", "ba_solve_s", self):
+                self._pending_ba.append((sel_ids, pids, bundle_adjust_async(
+                    prob, ba_options, device=self.device, num_obs=n_obs)))
             return None
-        t0 = _time.perf_counter()
-        new_poses, new_points, info = bundle_adjust(prob, ba_options, device=self.device,
-                                                    num_obs=n_obs)
-        self._count_time("ba_solve_s", _time.perf_counter() - t0)
+        with span("ba.solve", "ba_solve_s", self):
+            new_poses, new_points, info = bundle_adjust(prob, ba_options, device=self.device,
+                                                        num_obs=n_obs)
         self._count("ba_iters", int(info["iterations"]))
         self.apply_ba_result(sel_ids, new_poses, pids, new_points,
                              point_errors=info.get("point_errors"))
@@ -1496,11 +1528,10 @@ class SequentialMapper:
                 self.store.camera_models, obs_image[sub], obs_point_s.astype(np.int32),
                 obs_cam[sub], obs_xy[sub], pose_states=states, point_fixed=point_fixed_s,
                 rot_prior=rp, rot_prior_weight=rw, bucket=True)
-            t0 = _time.perf_counter()
-            _, _, info_s = bundle_adjust(
-                prob_s, _dc_replace(ba_options, update_point3D_errors=False), device=self.device,
-                num_obs=len(sub))
-            self._count_time("ba_selfcal_s", _time.perf_counter() - t0)
+            with span("ba.selfcal", "ba_selfcal_s", self):
+                _, _, info_s = bundle_adjust(
+                    prob_s, _dc_replace(ba_options, update_point3D_errors=False),
+                    device=self.device, num_obs=len(sub))
             self._count("ba_selfcal_iters", int(info_s["iterations"]))
             self._adopt_cam_params(info_s["cam_params"])
 
@@ -1510,11 +1541,10 @@ class SequentialMapper:
             poses, points, cams, self.store.camera_models, obs_image, obs_point, obs_cam,
             obs_xy, mesh.size, pose_states=states, point_fixed=point_fixed, rot_prior=rp,
             rot_prior_weight=rw, bucket=True, shard=mesh.rank)
-        t0 = _time.perf_counter()
-        new_poses, new_points, info = dist_bundle_adjust(
-            mesh, prob, _dc_replace(ba_options, refine_camera_params=False,
-                                    update_point3D_errors=False), per_shard)
-        self._count_time("ba_solve_s", _time.perf_counter() - t0)
+        with span("ba.solve", "ba_solve_s", self):
+            new_poses, new_points, info = dist_bundle_adjust(
+                mesh, prob, _dc_replace(ba_options, refine_camera_params=False,
+                                        update_point3D_errors=False), per_shard)
         self._count_time("ba_collective_s", info["collective_s"])
         self._count("ba_iters", int(info["iterations"]))
         new_poses = new_poses[: len(image_ids)]
@@ -1525,6 +1555,7 @@ class SequentialMapper:
             prob_e = build_problem(new_poses, new_points, cams, self.store.camera_models,
                                    obs_image, obs_point, obs_cam, obs_xy, bucket=True)
             prob_e = problem_to_device(with_plans(prob_e, ("plan_pt",)), self.device)
+            sync()
             point_errors = point_mean_errors(prob_e, prob_e.poses,
                                              prob_e.points).cpu().numpy()[: len(points)]
         self.apply_ba_result(image_ids, new_poses, pids, new_points, point_errors=point_errors)

@@ -1,17 +1,143 @@
-"""Timers + profiling (counterpart of reference src/util/timer.{h,cc}).
+"""Timers, spans and profiling (counterpart of reference src/util/timer.{h,cc}).
 
 Port of mavmap_tpu/utils/timer.py: the reference's Timer, accumulating
 stage timers, and a device trace context, here a torch.profiler trace
 (CPU, and CUDA where a card is present) written for TensorBoard in place
-of the JAX package's jax.profiler trace; and a count of a call's host
-syncs with a CUDA device.
+of the JAX package's jax.profiler trace; a count of a call's host syncs
+with a CUDA device; and the program's spans and host-sync counter.
+
+Spans (`span`) mark the program's own boundaries: registration's prepare,
+dispatch, pose LM, wait and commit, the bundle adjustments' solves and the
+landing of their results, the loop retrieval and pipeline stages. A span
+with a counter adds its inclusive seconds (time.perf_counter) to a counter
+of its owner, a SequentialMapper's `counters`, or to a `totals` dict (the
+pipeline's stage timings). A span opened without an owner, in ba/core.py
+or sfm/kernels.py, takes the mapper of the innermost open span that names
+one, through a context variable; outside every such span it does nothing.
+`sync(n)` counts host syncs, the points where the program blocks on the
+card, into that mapper's counters["host_syncs"] (and "ba_host_syncs"
+inside a span named "ba.*"). While `recording()` is open, every span also
+appends (name, start_ns, end_ns, depth, parent, syncs) on time.time_ns(),
+the clock of torch.profiler's event timestamps, to the list it yields.
+Spans leave no mark in the profiler's trace: a user annotation there would
+count as device activity.
 """
 
 import contextlib
+import contextvars
 import os
 import time
 import warnings
 from collections import defaultdict
+
+# The innermost open span of this thread (or task) that set it: (the owning
+# mapper's counters or None, inside a span named "ba.*", the open record or
+# None).
+_STATE = contextvars.ContextVar("mavmap_tpu_torch_span", default=(None, False, None))
+# The list of the open recording(), or None.
+_RECORDS = contextvars.ContextVar("mavmap_tpu_torch_records", default=None)
+
+
+class _Record:
+    """An open span while recording: its name, start, depth, parent's
+    name and host syncs so far."""
+
+    __slots__ = ("name", "start_ns", "depth", "parent", "syncs")
+
+    def __init__(self, name, parent):
+        self.name = name
+        self.start_ns = time.time_ns()
+        self.depth = 0 if parent is None else parent.depth + 1
+        self.parent = None if parent is None else parent.name
+        self.syncs = 0
+
+
+class _Span:
+    __slots__ = ("name", "counter", "owner", "totals", "t0", "token", "sink", "rec", "out")
+
+    def __init__(self, name, counter, owner, totals):
+        self.name = name
+        self.counter = counter
+        self.owner = owner
+        self.totals = totals
+
+    def __enter__(self):
+        counters, in_ba, parent = _STATE.get()
+        if self.owner is not None:
+            counters = self.owner.counters
+        self.sink = self.totals if self.totals is not None else counters
+        self.token = self.rec = None
+        if counters is None and self.totals is None:
+            return self  # outside every mapper's span: nothing to count or record
+        self.out = _RECORDS.get()
+        if self.out is not None:
+            self.rec = _Record(self.name, parent)
+        if self.owner is not None or self.rec is not None:
+            self.token = _STATE.set((counters, in_ba or self.name.startswith("ba."),
+                                     self.rec or parent))
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.sink is None:
+            return False
+        if self.counter is not None:
+            self.sink[self.counter] = (self.sink.get(self.counter, 0.0)
+                                       + time.perf_counter() - self.t0)
+        rec = self.rec
+        if rec is not None:
+            self.out.append((rec.name, rec.start_ns, time.time_ns(), rec.depth, rec.parent,
+                             rec.syncs))
+        if self.token is not None:
+            _STATE.reset(self.token)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name, counter=None, owner=None, totals=None):
+    """Context manager around one of the program's steps. counter: the key
+    that takes the span's inclusive seconds, in `totals` if given, else in
+    the owning mapper's `counters`; owner: that mapper (default: the owner
+    of the innermost open span). A span with neither counter nor owner costs
+    one check while nothing records."""
+    if counter is None and owner is None and _RECORDS.get() is None:
+        return _NO_SPAN
+    return _Span(name, counter, owner, totals)
+
+
+def sync(n=1):
+    """Count `n` host syncs (a pull or a blocking upload of a tensor with
+    elements, a bool / int / float of a device scalar, an event wait, an
+    implicit sync such as a boolean-mask index) into the owning mapper's
+    counters, and into the innermost recorded span. The same sites count
+    on the CPU, where they do not block."""
+    counters, in_ba, rec = _STATE.get()
+    if counters is None or not n:
+        return
+    counters["host_syncs"] = counters.get("host_syncs", 0) + n
+    if in_ba:
+        counters["ba_host_syncs"] = counters.get("ba_host_syncs", 0) + n
+    if rec is not None:
+        rec.syncs += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span closed while the block runs; yields the list of
+    (name, start_ns, end_ns, depth, parent, syncs), in closing order.
+    start_ns / end_ns are time.time_ns(); depth counts the recorded spans
+    open around it (0 outermost) and parent is the name of the innermost
+    of them (None at depth 0)."""
+    if _RECORDS.get() is not None:
+        raise RuntimeError("recording() is already open")
+    out = []
+    token = _RECORDS.set(out)
+    try:
+        yield out
+    finally:
+        _RECORDS.reset(token)
 
 
 class Timer:

@@ -46,7 +46,10 @@ tests/test_pipeline.py's real-photo scene: at most 1 gray level on at most
 differently on the card; truncation to uint8 turns that into single gray
 levels). A dispatched chain's outputs are copied to pinned host memory
 behind one CUDA event, which chain_complete waits for; a continuation
-chain syncs the host only to upload its packed scalars.
+chain syncs the host only to upload its packed scalars. The mapper's own
+count of host syncs equals the sync debug mode's over a chain, a process,
+a window bundle adjustment and a loop detection (with the event waits,
+which the mode does not see, made visible to it).
 """
 
 
@@ -987,6 +990,70 @@ def test_chain_complete_reads_the_copies_issued_at_dispatch(dev):
     assert m.chain_complete(tok) == [True, True]
     assert m.chain_complete(cont) == [True, True]
     assert m.report()["cont_chains"] == 1 and m.report()["pulls"] == 2
+
+
+def test_host_syncs_equal_the_sync_debug_modes(dev, monkeypatch):
+    """The mapper's host_syncs counter (utils/timer.sync, the program's own
+    count) rises over one process_chain_k, one process, one window
+    adjust_bundle and one detect_loop by what CUDA's sync debug mode counts
+    there (utils/timer.count_syncs). The mode does not see an event wait
+    (cudaEventSynchronize), which the program counts where a chain's host
+    copies are waited for: here torch.cuda.Event.synchronize warns as the
+    mode does."""
+    import warnings
+
+    from mavmap_tpu_torch.features import ArrayFeatureProvider
+    from mavmap_tpu_torch.loop import LoopDetector
+    from mavmap_tpu_torch.sfm import SequentialMapper, SequentialMapperOptions
+
+    wait = torch.cuda.Event.synchronize
+
+    def seen_wait(self):
+        warnings.warn("called a synchronizing CUDA operation (cudaEventSynchronize)")
+        return wait(self)
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", seen_wait)
+    count_syncs(lambda: None)  # the mode's first use in a process may warn once, from torch
+    scene = make_uav_scene(num_images=16, num_points=2400, relief=10.0, rows=2, extent=None,
+                           seed=13)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=20, seed=13, max_features=512)
+    desc = np.concatenate([d for _, d in feats[::3]])
+    tree = train_voc_tree(desc[np.random.default_rng(0).permutation(len(desc))[:4000]],
+                          branching=8, depth=2, iters=3, device=dev)
+    m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                         ArrayFeatureProvider(feats, capacity=512),
+                         loop_detector=LoopDetector(tree), device=dev, seed=0)
+    opts = SequentialMapperOptions(tri_min_angle=1.0, essential_ransac_trials=256,
+                                   p3p_ransac_trials=256)
+    window_ba = BAOptions(max_num_iterations=6, refine_camera_params=True)
+    assert m.process_initial(0, 1, SequentialMapperOptions(
+        tri_min_angle=4.0, essential_ransac_trials=256, p3p_ransac_trials=256))
+
+    def held(name, call):
+        sites = []
+        before = m.counters.get("host_syncs", 0)
+        n, _ = count_syncs(call, sites)
+        assert m.counters.get("host_syncs", 0) - before == n, (name, n, sites)
+        assert n > 0, name
+
+    def chain():
+        last = max(m.image_idx_to_id)
+        return m.process_chain_k(list(range(last + 1, last + 5)), last, opts, pad_to=4)
+
+    def window():
+        w = sorted(m.image_idx_to_id)[-6:]
+        return w[2:], w[:2]
+
+    held("process_chain_k", chain)
+    m.adjust_bundle(*window(), ba_options=window_ba, async_=True, defer=True)
+    held("process_chain_k after a window", chain)
+    held("window adjust_bundle", lambda: m.adjust_bundle(*window(), ba_options=window_ba))
+    m.adjust_bundle(*window(), ba_options=window_ba, async_=True, defer=True)
+    last = max(m.image_idx_to_id)
+    held("process", lambda: m.process(last + 1, last, opts))
+    held("detect_loop", lambda: m.detect_loop(max(m.image_idx_to_id), num_images=6,
+                                              num_nh_images=15, nh_distance=3, options=opts))
+    assert m.num_proc_images >= 10
 
 
 def test_pose_refinement_rejects_non_finite_steps(dev, rng):
