@@ -10,11 +10,13 @@ times one register_view_pairs step on chip_smoke.py's survey (consecutive
 pairs, ground-truth track states, the mapper's options) at B = 1, 8 and 32:
 host ms from the call to its outputs on the host, median after a warm-up,
 and the host syncs of one step (CUDA's sync debug mode) with the source
-line of each. A tree with the batched pose LM is timed with its own stop
-(ba.core._lm_stop_rule: "lagged", a flag copied without waiting) and with
-two stand-ins defined here: "sync" reads the flag every iteration, "fixed"
-runs max_iters iterations. Each of 6 rounds runs every rule once, the
-order turned by one each round. One JSON line per (tree, rule, B).
+line of each. A tree whose pose LM runs from the host with a stop flag
+(ba.core._lm_stop_rule: "lagged", a flag copied without waiting) is timed
+with it and with two stand-ins defined here: "sync" reads the flag every
+iteration, "fixed" runs max_iters iterations; each of 6 rounds runs every
+rule once, the order turned by one each round. A tree without it (the pose
+LM in one launch of kernel K4) is timed 6 times alone. One JSON line per
+(tree, rule, B).
 
 Then, in this checkout, the B-dependence probe: a 32-slot
 register_view_pairs and two_view_init_batch step and each of its slots

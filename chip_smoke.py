@@ -35,7 +35,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
  6. chained: bench.py's own loop (run() without its pipelining option) on
     the same scene — chains of 6 frames through process_chain_k, one
     deferred asynchronous window bundle adjustment per chain, flush_ba and
-    the global bundle adjustment — checking 30/30, the ATE and launches;
+    the global bundle adjustment — checking 30/30, the ATE and launches,
+    and that every pose refinement ran as one launch of K4 (none through
+    the plain loop on the card);
     run twice, the two maps must be equal bit for bit (poses, points, ATE);
     then K2 at the per-(point, block) plan's shapes of its last window
     problem and of its global problem, and at the per-(point, image) and
@@ -63,13 +65,18 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     one two_view_init_batch step (the survey's first image against its
     next B images) at B = 1, 8 and 32: host ms per slot, syncs and K1
     launches per step, and every slot equal to two_view_init's bits;
+    then K4, the pose LM in one launch, on the pose refinement captured
+    from the 32-slot step and on its first slot alone: held against the
+    plain loop on the card, and timed as in phase 4 beside the plain loop's
+    host time and the iterations the slots ran;
 11. pipeline: run_pipeline in sequential mode over the survey's scene and
     features with a vocabulary tree, as benchmarks/pipeline_scale.py runs
     it: the batched initial-pair search, chains of 4 with a deferred window
     bundle adjustment each, loop detection every 20 frames and as the
     rescue, the back-fill, the global bundle adjustment and one closure
     sweep — checking the registered count and the ATE against the JAX
-    package's on the CPU, that loops were closed and that batched K1 ran;
+    package's on the CPU, that loops were closed, that batched K1 ran and
+    that every pose refinement ran as one launch of K4;
     then pipelined: speculative chain pipelining (chain_dispatch_cont,
     chain_abandon) (a) through bench.py's pipelined loop over its scene,
     twice (30/30, the ATE against the JAX package's pipelined loop on the
@@ -804,6 +811,54 @@ def _check_matcher(what, m, launches, backend):
                              f"launches")
 
 
+class PoseLMCalls:
+    """While open, counts the registration steps' pose refinements on the
+    card (calls of sfm.kernels._pose_refine_loop, the one call site, with
+    CUDA tensors and at least one slot) and the plain loop's calls with
+    CUDA tensors (ba.core._pose_refine_plain, which the program must not
+    make); `args` keeps the arguments of the widest call."""
+
+    def __enter__(self):
+        from mavmap_tpu_torch.ba import core as ba_core
+        from mavmap_tpu_torch.sfm import kernels
+
+        self.steps, self.plain_on_card, self.args = 0, 0, None
+        self._saved = (kernels._pose_refine_loop, ba_core._pose_refine_plain)
+        loop, plain = self._saved
+
+        def counted_loop(pose, *a, **kw):
+            if pose.is_cuda and pose.shape[0] > 0:
+                self.steps += 1
+                if self.args is None or pose.shape[0] > self.args[0][0].shape[0]:
+                    self.args = ((pose,) + a, kw)
+            return loop(pose, *a, **kw)
+
+        def counted_plain(pose, *a, **kw):
+            self.plain_on_card += int(pose.is_cuda)
+            return plain(pose, *a, **kw)
+
+        kernels._pose_refine_loop, ba_core._pose_refine_plain = counted_loop, counted_plain
+        return self
+
+    def __exit__(self, *exc):
+        from mavmap_tpu_torch.ba import core as ba_core
+        from mavmap_tpu_torch.sfm import kernels
+
+        kernels._pose_refine_loop, ba_core._pose_refine_plain = self._saved
+        return False
+
+
+def _check_pose_lm(what, launches, calls):
+    """Every pose refinement of the run went through K4, one launch each,
+    and none through the plain loop on the card."""
+    print(f"{what}: {calls.steps} pose refinements on the card, {launches['pose_lm']} K4 "
+          f"launches, {calls.plain_on_card} plain pose LMs on the card", flush=True)
+    if calls.steps == 0 or launches["pose_lm"] != calls.steps or calls.plain_on_card:
+        raise AssertionError(f"{what}: {calls.steps} pose refinements, "
+                             f"{launches['pose_lm']} K4 launches, {calls.plain_on_card} "
+                             f"plain pose LMs on the card")
+
+
 def main_path_phase(torch, dev):
     """bench.py's scene through the port's per-frame mapping loop. Returns
     (launches, the mapper)."""
@@ -1077,11 +1132,13 @@ def chained_phase(torch, dev, name="chained"):
     _phase(name)
     scene, prov = _bench_scene()
     build.reset_launches()
-    m, s = bench_loop(torch, dev, scene, prov, NUM_IMAGES)
+    with PoseLMCalls() as calls:
+        m, s = bench_loop(torch, dev, scene, prov, NUM_IMAGES)
     launches = dict(build.launches)
     ate = float(mapper_ate(m, scene))
     limit = min(0.05, 2.0 * JAX_CPU_CHAINED_ATE_M)
     _report_loop(name, m, NUM_IMAGES, ate, limit, s, launches)
+    _check_pose_lm(name, launches, calls)
     _check_map(m, NUM_IMAGES, NUM_IMAGES, ate, limit, name)
     lm_iters = s["window_iters"] + s["global"]["iterations"]
     _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations",
@@ -1473,6 +1530,89 @@ def batched_geometry_phase(torch, dev, scene, feats, gt):
     return records + two_view_geometry(torch, dev, scene, feats, gt)
 
 
+# K4's work per row and iteration as csrc/pose_lm.cu does it for a PINHOLE
+# camera: the dual residual (the rotated point 126, the projection 56), its
+# weight and the 27 sums of H and g (126), the trial cost (30).
+POSE_LM_FLOPS_PER_ROW_ITER = 338
+
+
+def check_pose_lm(torch, dev, scene, feats, gt):
+    """K4 at the main path's shapes: the pose refinement of a 32-slot
+    register_view_pairs step on the survey (1024 rows a slot, the cap of 30
+    iterations), captured from the step, and its first slot alone. Holds K4
+    against the plain loop on the same tensors by tests/test_torch_gpu.py's
+    float32 bounds on the costs: within 2 (N - 1) 2^-24 relative, and K4's
+    poses as good under the plain cost within as much. The poses' largest
+    difference is reported, not held: where a slot's minimum is flat along
+    some direction (rotation against translation over a narrow view), two
+    equally good poses lie up to ~1e-3 apart (8.9e-4 at equal cost in
+    one slot). Reports the device time (graph timer), the host time per
+    call of _pose_refine_loop as the step makes it, the iterations the
+    slots ran, the plain loop's time on the card (host clock around a
+    synchronised call: it reads its stop flag every iteration) and the
+    bound: the inputs read once over the HBM rate against the operations
+    the iterations run over the f32 rate. Neither sets K4's time; a chain
+    of dependent steps does (csrc/pose_lm.cu)."""
+    from mavmap_tpu_torch.ba import core as ba_core
+    from mavmap_tpu_torch.ops.cuda.pose_lm import pose_lm
+    from mavmap_tpu_torch.sfm.kernels import register_view_pairs
+
+    _phase("pose LM kernel")
+    B = GEOMETRY_SLOTS[-1]
+    args = geometry_inputs(torch, dev, scene, feats, gt, B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(B)
+    with PoseLMCalls() as calls:
+        register_view_pairs(gen, *args, p3p_trials=512)
+    (full, kw) = calls.args
+    records = []
+    for n in (1, B):
+        a = [t[:n].contiguous() if torch.is_tensor(t) else t[:n] if isinstance(t, list) else t
+             for t in full]
+        iters_cap = a[7]
+        _, _, iters = pose_lm(*a[:8])
+        p, cost = ba_core._pose_refine_loop(*a, **kw)
+        _sync(torch, dev)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pp, cp = ba_core._pose_refine_plain(*a, **kw)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+        N = a[1].shape[1]
+        rtol = 2 * (N - 1) * 2.0 ** -24
+        pose_err = float((p - pp).abs().max())
+        cost_err = float(((cost - cp).abs() / cp.abs()).max())
+        at_kernel_pose = ba_core._pose_refine_plain(p, *a[1:7], 0, *a[8:])[1]
+        worse = float((at_kernel_pose / cp - 1).max())
+        if not (cost_err <= rtol and worse <= rtol):
+            raise AssertionError(f"pose LM kernel at B={n}: costs {cost_err} off the plain "
+                                 f"loop's, its poses {worse} worse under the plain cost "
+                                 f"(limit {rtol} each)")
+        ms, call_us = _time_ms(lambda: ba_core._pose_refine_loop(*a, **kw))
+        it = iters.cpu().tolist()
+        nbytes = n * (N * (3 + 2) * 4 + N + (6 + 9) * 4) + n * (6 + 1 + 1) * 4
+        flops = sum(it) * N * POSE_LM_FLOPS_PER_ROW_ITER
+        bound_ms, by, resource = _bound(nbytes, flops)
+        rec = dict(shape=f"{n} x {N} rows, cap {iters_cap}", B=n, rows=N, iters_cap=iters_cap,
+                   iters=it, ms=ms, call_us=call_us, us_per_iter=1000 * ms / max(max(it), 1),
+                   plain_ms=1000 * statistics.median(walls), library_ms=None,
+                   bound_ms=bound_ms, bound_by=by, bound_resource=resource,
+                   share=bound_ms / ms, set_by="latency: a chain of block-wide sums and a "
+                   "6x6 solve per iteration",
+                   profiler_us=_profiled_us(torch, lambda: ba_core._pose_refine_loop(*a, **kw),
+                                            ["pose_lm"]),
+                   max_pose_err=pose_err, max_cost_rel_err=cost_err,
+                   kernel_pose_worse_rel=worse)
+        records.append(rec)
+        print(f"pose LM kernel B={n}: iterations {it}; " + _fmt(rec)
+              + f"; {rec['us_per_iter']:.2f} µs per iteration of the longest slot; plain loop "
+              f"{rec['plain_ms']:.3f} ms per call on the host clock; poses within "
+              f"{pose_err!r}, costs {cost_err!r} of it, its poses {worse!r} worse under the "
+              f"plain cost", flush=True)
+    return records
+
+
 def two_view_geometry(torch, dev, scene, feats, gt):
     """One two_view_init_batch step (the mapper's initial-pair step) of the
     survey's first image against its next B images at B = 1, 8 and 32:
@@ -1563,9 +1703,10 @@ def pipeline_phase(torch, dev, scene, feats, tree):
     build.reset_launches()
     _sync(torch, dev)
     t0 = time.perf_counter()
-    res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
-                       _provider(feats), opts, voc_tree=tree, device=dev)
-    _sync(torch, dev)
+    with PoseLMCalls() as calls:
+        res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
+                           _provider(feats), opts, voc_tree=tree, device=dev)
+        _sync(torch, dev)
     wall = time.perf_counter() - t0
     launches, slots = dict(build.launches), dict(build.slots)
     peak, held = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
@@ -1601,6 +1742,7 @@ def pipeline_phase(torch, dev, scene, feats, tree):
     lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
     _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
     _check_matcher("pipeline", m, launches, "pallas")
+    _check_pose_lm("pipeline", launches, calls)
     return dict(launches, match_batched_slots=slots["match_batched"]), dict(
         _map_summary(res, scene, wall), peak=peak, held=held, counters=rep)
 
@@ -2878,12 +3020,13 @@ def rig_phase(torch, dev):
     return launches, shapes
 
 
-def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
+def _kernel_line(phases, k1, k2, k3, ks, kp, k4, floor_ms):
     """The kernels' JSON line: each kernel's launches on the main path and
     per phase, and its numbers at its headline shape (K1 1024x1024x128, K2
-    the survey's CG matvec (2O, 9), K3 the survey's (O, 3)), with every
-    timed shape listed and the launch floor beside them; for K2 also its
-    one-pass launches per phase and the path each timed shape took."""
+    the survey's CG matvec (2O, 9), K3 the survey's (O, 3), K4 32 slots of
+    1024 rows), with every timed shape listed and the launch floor beside
+    them; for K2 also its one-pass launches per phase and the path each
+    timed shape took."""
     def launches(k):
         return phases["main"][k], {p: n[k] for p, n in phases.items()}
 
@@ -2898,7 +3041,10 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
                                 + [r["max_abs_err"] for r in kp])),
             ("seg_accum_sorted", "mavmap_tpu_torch/csrc/ba_accum.cu",
              "mavmap_tpu/ops/pallas/ba_accum.py:179", k3["shapes"] + ks["sorted"],
-             ks["sorted"][0], max(k3["max_abs_err"], ks["sorted_err"]))):
+             ks["sorted"][0], max(k3["max_abs_err"], ks["sorted_err"])),
+            ("pose_lm", "mavmap_tpu_torch/csrc/pose_lm.cu",
+             "none: mavmap_tpu/ba/core.py _pose_refine_loop runs under XLA", k4, k4[-1],
+             max(r["max_pose_err"] for r in k4))):
         n_main, by_phase = launches(name)
         row = dict(name=name, route="cuda", source=source, replaces=replaces, launches=n_main,
                    launches_by_phase=by_phase, max_abs_err=err)
@@ -2913,6 +3059,10 @@ def _kernel_line(phases, k1, k2, k3, ks, kp, floor_ms):
             row["launches_one_pass_by_phase"] = {p: n["seg_accum_full_one_pass"]
                                                  for p, n in phases.items()}
             row["paths"] = [[r["shape"], r["path"]] for r in shapes]
+        if name == "pose_lm":
+            row["plain_note"] = ("plain_ms: the plain loop's host clock per synchronised call "
+                                 "on the card (it cannot be captured in a graph)")
+            row["set_by"] = head["set_by"]
         row["shapes"] = shapes
         rows.append(row)
     return json.dumps({"kernels": rows})
@@ -2951,6 +3101,7 @@ def main():
     del survey_prob
     phases["cg_vs_dense"] = cg_vs_dense_phase(torch, dev)
     batched_geometry_phase(torch, dev, scene, feats, gt)
+    k4 = check_pose_lm(torch, dev, scene, feats, gt)
     tree = pipeline_tree(feats, dev)
     phases["pipeline"], pipe_ref = pipeline_phase(torch, dev, scene, feats, tree)
     (phases["pipelined_bench"], phases["pipelined_bench_repeat"],
@@ -2971,7 +3122,7 @@ def main():
     kp += kr
     print(f"smoke total: {time.perf_counter() - t_start:.1f} s of its {SMOKE_LIMIT_S} s limit",
           flush=True)
-    print(_kernel_line(phases, k1, k2, k3, ks, kp, floor_ms))
+    print(_kernel_line(phases, k1, k2, k3, ks, kp, k4, floor_ms))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

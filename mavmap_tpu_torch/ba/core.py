@@ -32,6 +32,11 @@ The point-sharded solve (parallel/dist_ba.py) runs these loops with a
 pieces (the JAX package's jax.lax.psum over the mesh axis). Without the
 hook every function computes exactly what the single-device solve does.
 
+The registration step's robust pose refinement (`_pose_refine_loop`)
+runs every LM iteration of every slot in one launch of CUDA kernel K4
+(ops/cuda/pose_lm.py) on a CUDA device, and as its plain version
+`_pose_refine_plain` on the CPU.
+
 `bundle_adjust_async` keeps the JAX package's dispatch/finalize interface
 but runs the solve when it is called: the loops sync the host every
 iteration, so nothing is left in flight (see its docstring).
@@ -50,6 +55,7 @@ from ..ops.projection import compose_proj_matrix, transform_points
 from ..ops.reduce import sum_pairwise
 from ..ops.cuda.ba_accum import (
     SegPlan, make_plan, offsets_from_sorted_ids, seg_accum_full, seg_accum_sorted)
+from ..ops.cuda.pose_lm import pose_lm
 from ..ops.rotation import rotmat_from_rvec
 from ..utils.device import resolve_device
 from ..utils.timer import span, sync
@@ -1046,46 +1052,34 @@ def _slot_jacobian(f, pose):
     return vmap(lambda t: jvp(f, (pose,), (t,))[1])(axes).permute(1, 2, 3, 0)
 
 
-def _lm_stop_rule(device):
-    """check(active) -> True once no slot of the pose LM is active. On a
-    CUDA device "any slot still active" is copied to pinned host memory
-    without waiting, and the LM ends once a copy that has landed reads
-    False: no host sync, and the iterations run past that change no bit,
-    since a stopped slot stays frozen. On the CPU the flag is read every
-    iteration: there is no device to wait for."""
-    if device.type != "cuda":
-        return lambda active: not bool(active.any())
-    flag = torch.ones((), dtype=torch.bool, pin_memory=True)
-    landed = torch.cuda.Event()
-    stream = torch.cuda.current_stream(device)
-    pending = False
-
-    def check(active):
-        nonlocal pending
-        if pending and landed.query():
-            if not bool(flag):
-                return True
-            pending = False
-        if not pending:
-            with torch.cuda.stream(stream):
-                flag.copy_(active.any(), non_blocking=True)
-                landed.record(stream)
-            pending = True
-        return False
-
-    return check
-
-
 def _pose_refine_loop(pose, points, uv, mask, kparams, model_codes, scale, max_iters,
                       code_ids=None):
     """Robust pose LM (DENSE_QR + Cauchy in the reference) over a leading
     slot axis: pose (B, 6), points (B, N, 3), uv (B, N, 2), mask (B, N),
     kparams (B, 9); model_codes: B host ints (code_ids: the same as a
-    device tensor where they mix models). A slot stops when an accepted
-    step gains under 1e-6 of its cost, and from then on its pose, damping
-    and cost stay frozen while the others iterate: what the JAX package's
-    lax.while_loop does under vmap. Returns (poses (B, 6), final costs
-    (B,))."""
+    device tensor where they mix models). On a CUDA device every iteration
+    of every slot runs in one launch of kernel K4 (ops/cuda/pose_lm.py); on
+    the CPU as _pose_refine_plain, its plain version. Returns (poses (B, 6),
+    final costs (B,))."""
+    if pose.is_cuda:
+        if code_ids is not None:
+            code_ids = code_ids.to(torch.int32)
+        p, cost, _ = pose_lm(pose, points.contiguous(), uv.contiguous(), mask.contiguous(),
+                             kparams.contiguous(), model_codes, scale, max_iters, code_ids)
+        return p, cost
+    return _pose_refine_plain(pose, points, uv, mask, kparams, model_codes, scale, max_iters,
+                              code_ids)
+
+
+def _pose_refine_plain(pose, points, uv, mask, kparams, model_codes, scale, max_iters,
+                       code_ids=None):
+    """The plain PyTorch version of K4, _pose_refine_loop's arguments and
+    results. A slot stops when an accepted step gains under 1e-6 of its
+    cost, and from then on its pose, damping and cost stay frozen while the
+    others iterate: what the JAX package's lax.while_loop does under vmap.
+    The loop ends once no slot is active, read on the host every iteration
+    (a sync per iteration on a CUDA device, where only tests and timings
+    call it)."""
     c2 = scale * scale
 
     def residual(p):
@@ -1103,7 +1097,6 @@ def _pose_refine_loop(pose, points, uv, mask, kparams, model_codes, scale, max_i
     cost = cost_of(r)
     lam = torch.full((B,), 1e-3, dtype=pose.dtype, device=pose.device)
     active = torch.ones(B, dtype=torch.bool, device=pose.device)
-    stop = _lm_stop_rule(pose.device)
     for _ in range(max_iters):
         J = _slot_jacobian(residual, p)  # (B, N, 2, 6)
         w = _cauchy_weight(torch.sum(r * r, dim=-1), scale)
@@ -1127,7 +1120,7 @@ def _pose_refine_loop(pose, points, uv, mask, kparams, model_codes, scale, max_i
         rel = (cost - new_cost) / torch.clamp(cost, min=1e-20)
         cost = torch.where(accept, new_cost, cost)
         active = active & ~(accept & (rel < 1e-6))
-        if stop(active):
+        if not bool(active.any()):
             break
     return p, cost
 

@@ -18,9 +18,13 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("match.cu", "ba_accum.cu")
+SOURCES = ("match.cu", "ba_accum.cu", "pose_lm.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# Flags of one source only. The pose LM rounds every product and sum on
+# its own, as the plain version's elementwise kernels do: no contraction
+# into fused multiply-adds (csrc/pose_lm.cu).
+SOURCE_FLAGS = {"pose_lm.cu": ("-fmad=false",)}
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process (None: reused)
@@ -38,7 +42,7 @@ def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + f.read())
+            h.update(name.encode() + " ".join(SOURCE_FLAGS.get(name, ())).encode() + f.read())
     return h.hexdigest()[:16]
 
 
@@ -55,9 +59,9 @@ def build():
     t0 = time.perf_counter()
     objs = [f"{tmp}.{name}.o" for name in SOURCES]
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o",
-                                   obj], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+                                   os.path.join(CSRC, name), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for name, obj in zip(SOURCES, objs)]
         errors = []
         for name, proc in zip(SOURCES, procs):
@@ -91,8 +95,9 @@ def library():
     lib.mavmap_seg_accum_full.argtypes = [P, P, P, I, P, I, I, I, P, P, P]
     lib.mavmap_seg_accum_sorted.argtypes = [P, P, I, I, P, P]
     lib.mavmap_seg_accum_one_pass.argtypes = [P, P, P, P, I, I, I, I, P, P]
+    lib.mavmap_pose_lm.argtypes = [P, P, P, P, P, P, I, I, I, ctypes.c_float, I, P, P, P, P]
     for fn in (lib.mavmap_match, lib.mavmap_seg_accum_full, lib.mavmap_seg_accum_sorted,
-               lib.mavmap_seg_accum_one_pass):
+               lib.mavmap_seg_accum_one_pass, lib.mavmap_pose_lm):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -116,9 +121,10 @@ def stream_ptr(device):
 # "match" counts every K1 launch; "match_batched" the ones with a slot axis,
 # and slots["match_batched"] the slots those launches ran.
 # "seg_accum_full" counts every K2 launch, "seg_accum_full_one_pass" the
-# ones that took the one-pass path (a plan's one_pass).
+# ones that took the one-pass path (a plan's one_pass). "pose_lm" counts
+# K4's launches: one per registration step's pose refinement.
 launches = {"match": 0, "match_batched": 0, "seg_accum_full": 0,
-            "seg_accum_full_one_pass": 0, "seg_accum_sorted": 0}
+            "seg_accum_full_one_pass": 0, "seg_accum_sorted": 0, "pose_lm": 0}
 slots = {"match_batched": 0}
 
 

@@ -9,6 +9,9 @@ CPU tensors; the JAX comparison of the pose LM imports JAX inside its test).
     (one stops at once, one whose normal equations are non-finite so every
     step is rejected, one still improving at max_iters) equals the loop
     at one slot bit for bit, and the JAX package's loop within 1e-5;
+  - the pose LM on CPU tensors runs its plain version: no kernel is built,
+    loaded or launched, and it gives the bits it gave before its CUDA path
+    became kernel K4;
   - one pair and BATCH_CHUNK + 1 pairs through the mapper's chunking: the
     steps it runs (B = 1; B = 32 then 1) against the single steps on a
     generator in the same state, bit for bit;
@@ -27,6 +30,7 @@ import torch
 from mavmap_tpu_torch.ba.core import _pose_refine_loop
 from mavmap_tpu_torch.features import ArrayFeatureProvider
 from mavmap_tpu_torch.models import camera as cam
+from mavmap_tpu_torch.ops.cuda import build
 from mavmap_tpu_torch.ops.projection import compose_proj_matrix, transform_points
 from mavmap_tpu_torch.ops.reduce import elementwise_fixed
 from mavmap_tpu_torch.sfm import SequentialMapper, SequentialMapperOptions
@@ -198,6 +202,43 @@ def test_pose_refine_loop_slots_stop_apart_equal_one_slot_and_jax():
                         jnp.float32(1.0), 3)
         np.testing.assert_allclose(p[b].numpy(), np.asarray(pj), rtol=0, atol=1e-5)
         np.testing.assert_allclose(cost[b].numpy(), np.asarray(cj), rtol=1e-5, atol=1e-5)
+
+
+# _pose_refine_loop's outputs on _lm_slots() (poses, then costs, as float32
+# bit patterns) from the loop as it ran on the CPU before its CUDA path
+# became kernel K4: three PINHOLE slots at 3 iterations, and the same slots
+# as PINHOLE, OPENCV and CATA cameras (no distortion, xi 0) at 30.
+PLAIN_BITS = {
+    "pinhole3": ([[1017357814, 3156585516, 1022715387, 1050300204, 3192693540, 1056962132],
+                  [1017370378, 3156465418, 1022739087, 1050253722, 3192704205, 1056964608],
+                  [1017345386, 3156551260, 1022707508, 1050292222, 3192698801, 1056964875]],
+                 [1095081522, 2143289344, 1095086450]),
+    "mixed30": ([[1017357805, 3156585593, 1022715386, 1050300213, 3192693542, 1056962108],
+                 [1017370378, 3156465418, 1022739087, 1050253722, 3192704205, 1056964608],
+                 [1017357053, 3156581387, 1022715165, 1050298994, 3192694305, 1056962384]],
+                [1095081495, 2143289344, 1095081478]),
+}
+
+
+@pytest.mark.parametrize("case, codes, iters", [("pinhole3", [1, 1, 1], 3),
+                                                ("mixed30", [1, 2, 3], 30)])
+def test_pose_refine_loop_on_the_cpu_is_the_plain_loop(monkeypatch, case, codes, iters):
+    """On CPU tensors _pose_refine_loop runs _pose_refine_plain: it neither
+    builds nor loads the kernel library, K4's launch count stays, and the
+    poses and costs are the bits the loop gave before K4 (PLAIN_BITS)."""
+    def refuse(*a, **kw):
+        raise AssertionError("the CPU pose LM asked for the CUDA kernels")
+
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    before = build.launches["pose_lm"]
+    args = _lm_slots()
+    code_ids = torch.tensor(codes, dtype=torch.float32) if len(set(codes)) > 1 else None
+    p, cost = _pose_refine_loop(*args[:5], codes, 1.0, iters, code_ids)
+    assert build.launches["pose_lm"] == before
+    poses, costs = PLAIN_BITS[case]
+    assert p.numpy().view(np.uint32).tolist() == poses
+    assert cost.numpy().view(np.uint32).tolist() == costs
 
 
 @pytest.fixture(scope="module")

@@ -26,11 +26,21 @@ in an order fixed by one slot's shapes: ops/reduce.py); the two-view step
 gives its matches, inliers and counts, and its floats within
 test_two_view_init_matches_jax's tolerances (the 5-point solver's GEMMs
 over the trials pick their kernel by the batch). A 32-slot step repeats
-bit for bit, gives the same bits whether the pose LM stops late (its
-lagged flag), every iteration or never early, and syncs the host no more often than a 1-slot step; the vocabulary
+bit for bit and syncs the host no more often than a 1-slot step; the vocabulary
 tree quantizes as on the CPU except at near-ties (two centers within 1e-5
 relative). The pose LM rejects a non-finite step on the card as on the
-CPU. tests/test_torch_merge.py's restart-and-merge run repeats bit
+CPU. Its kernel K4 against the plain loop run on the same CUDA tensors
+(PINHOLE, OPENCV, CATA and mixed slots, B = 1, 3, 32, 1024 rows): the
+sums over a slot's rows add in another order, so the two loops take steps
+that differ in their last bits, and near the minimum each accepts or
+rejects a step by comparing two costs whose rounding error may reach
+(N - 1) 2^-24 of the cost (a float32 sum of N positive terms). So the
+final costs agree within twice that, 2 (N - 1) 2^-24 relative; K4's pose
+is as good under the plain loop's cost within the same bound; and the
+poses lie within 1e-3 of each other (a gross fault, not rounding). Slots
+that stop apart as on the CPU; its bits repeat and do not depend on B;
+one launch per registration step, and no CUDA tensor reaches the plain
+loop. tests/test_torch_merge.py's restart-and-merge run repeats bit
 for bit on the card, runs with index_add_ and accumulating index_put_
 refused on CUDA tensors, and registers the same frames on the Python track
 store as on the native one. Two ranks sharing the card (parallel.launch,
@@ -370,21 +380,158 @@ def test_register_view_pairs_is_bitwise_repeatable(dev):
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
-def test_pose_lm_stop_rules_give_the_same_bits(dev, monkeypatch):
-    """The batched pose LM's lagged stop on the card against a stop read
-    every iteration and against no early stop at all: a slot that has
-    stopped stays frozen, so where the loop ends changes no bit."""
-    (_, _), (args, _) = _register_slots(dev)
-    rules = (ba_core._lm_stop_rule, lambda device: lambda active: not bool(active.any()),
-             lambda device: lambda active: False)
-    outs = []
-    for rule in rules:
-        monkeypatch.setattr(ba_core, "_lm_stop_rule", rule)
+# ------------------------------------------------- the pose LM, kernel K4
+
+_LM_CAMERAS = {cam.PINHOLE: [651.123, 655.123, 386.123, 511.123, 0, 0, 0, 0, 0],
+               cam.OPENCV: [651.123, 655.123, 386.123, 511.123, -0.171, 0.023, -0.001,
+                            0.001, 0],
+               cam.CATA: [651.123, 655.123, 386.123, 511.123, -0.171, 0.023, -0.001, 0.001,
+                          0.5]}
+_LM_CODES = {"pinhole": [cam.PINHOLE], "opencv": [cam.OPENCV], "cata": [cam.CATA],
+             "mixed": [cam.PINHOLE, cam.OPENCV, cam.CATA]}
+
+
+def _lm_case(dev, codes, B, N=1024, seed=0):
+    """B pose-LM slots as a registration step hands them over: 1024 rows,
+    the last 124 padding (mask off, points at the origin); 20 % outliers up
+    to 60 px off, most of them and 10 % of the rest off the inlier mask;
+    0.5 px noise; starts 0.01 rad and 0.1 m from the truth. Slot b takes
+    camera codes[b % len(codes)]. Returns the loop's arguments on `dev`,
+    code_ids as the registration step makes them (float32)."""
+    rng = np.random.default_rng(seed)
+    codes = [codes[b % len(codes)] for b in range(B)]
+    X = np.stack([rng.uniform(-6, 6, (B, N)), rng.uniform(-5, 5, (B, N)),
+                  rng.uniform(8, 14, (B, N))], -1).astype(np.float32)
+    truth = np.concatenate([rng.normal(size=(B, 3)) * 0.05, rng.normal(size=(B, 3)) * 0.5], 1)
+    K = np.array([_LM_CAMERAS[c] for c in codes], np.float32)
+    uv = np.stack([cam.world2image(
+        torch.as_tensor(X[b]) @ rotmat_from_rvec(torch.as_tensor(truth[b, :3], dtype=torch.float32)).T
+        + torch.as_tensor(truth[b, 3:], dtype=torch.float32), c, torch.as_tensor(K[b])).numpy()
+        for b, c in enumerate(codes)])
+    uv = uv + rng.normal(size=uv.shape) * 0.5
+    out = rng.random((B, N)) < 0.2
+    uv[out] += rng.uniform(-60, 60, (int(out.sum()), 2))
+    mask = ((rng.random((B, N)) < 0.25) | ~out) & (rng.random((B, N)) < 0.9)
+    mask[:, 900:] = False
+    X[:, 900:] = 0.0
+    start = truth + np.concatenate([rng.normal(size=(B, 3)) * 0.01,
+                                    rng.normal(size=(B, 3)) * 0.1], 1)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return ([f32(start), f32(X), f32(uv), torch.as_tensor(mask, device=dev), f32(K)], codes,
+            f32(codes) if len(set(codes)) > 1 else None)
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+@pytest.mark.parametrize("models", ["pinhole", "opencv", "cata", "mixed"])
+def test_pose_lm_kernel_vs_plain(dev, models, B):
+    """K4 (through _pose_refine_loop on CUDA tensors) against the plain loop
+    on the same tensors, 30 iterations at most, within the float32 bounds
+    of the module docstring; one launch."""
+    args, codes, code_ids = _lm_case(dev, _LM_CODES[models], B)
+    before = build.launches["pose_lm"]
+    p, cost = ba_core._pose_refine_loop(*args, codes, 1.0, 30, code_ids)
+    assert build.launches["pose_lm"] == before + 1
+    pp, cp = ba_core._pose_refine_plain(*args, codes, 1.0, 30, code_ids)
+    assert p.dtype == torch.float32 and p.shape == (B, 6) and cost.shape == (B,)
+    assert bool(torch.isfinite(p).all()) and bool(torch.isfinite(cost).all())
+    rtol = 2 * (args[1].shape[1] - 1) * 2.0 ** -24
+    assert float(((cost - cp).abs() / cp).max()) <= rtol
+    at_kernel_pose = ba_core._pose_refine_plain(p, *args[1:], codes, 1.0, 0, code_ids)[1]
+    assert bool((at_kernel_pose <= cp * (1 + rtol)).all())
+    assert float((p - pp).abs().max()) <= 1e-3, (p - pp).abs().max(dim=1)
+    start_cost = ba_core._pose_refine_plain(*args, codes, 1.0, 0, code_ids)[1]
+    assert bool((cost < 0.9 * start_cost).all())  # the starts were off: every slot improved
+
+
+def _lm_stop_apart_slots(dev):
+    """tests/test_torch_batched.py's three slots that stop apart, on the
+    card: 0 starts where K4 itself is left unmoved by 30 iterations, 1 has
+    a NaN pixel in an observation it uses (every step non-finite, so
+    rejected), 2 starts far off (still improving after 3 iterations)."""
+    from mavmap_tpu_torch.ops.cuda.pose_lm import pose_lm
+
+    rng = np.random.default_rng(11)
+    N = 64
+    K = np.array([700.0, 700.0, 400.0, 300.0, 0, 0, 0, 0, 0], np.float32)
+    X = np.stack([rng.uniform(-5, 5, N), rng.uniform(-4, 4, N), rng.uniform(6, 12, N)], 1)
+    pose = np.array([0.02, -0.01, 0.03, 0.3, -0.2, 0.5], np.float32)
+    xc = torch.as_tensor(X, dtype=torch.float32) @ rotmat_from_rvec(
+        torch.as_tensor(pose[:3])).T + torch.as_tensor(pose[3:])
+    uv = cam.world2image(xc, 1, torch.as_tensor(K)).numpy() + rng.normal(size=(N, 2)) * 0.3
+    uv[:2] += 40.0
+    mask = rng.random(N) < 0.9
+    mask[3] = True
+    uvs = np.stack([uv] * 3)
+    uvs[1, 3, 0] = np.nan
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = [f32(np.stack([pose, pose, pose + [0.05, -0.04, 0.03, 0.5, -0.4, 0.6]])),
+            f32(np.stack([X] * 3)), f32(uvs), torch.as_tensor(np.stack([mask] * 3), device=dev),
+            f32(np.stack([K] * 3))]
+    p0 = args[0][:1] + 1e-3
+    for _ in range(10):  # accepted steps only lower the cost, so this ends
+        p1 = pose_lm(p0, *[a[:1] for a in args[1:]], [1], 1.0, 30)[0]
+        if torch.equal(p1, p0):
+            break
+        p0 = p1
+    args[0][0] = p0[0]
+    return args
+
+
+def test_pose_lm_kernel_slots_stop_apart(dev):
+    """K4 with three slots that stop apart (_lm_stop_apart_slots), as the
+    CPU test holds the plain loop: 0 is left where it started, 1 rejects
+    every step, keeps its start and a NaN cost and runs every iteration, 2
+    still improves at the third; each slot equals its one-slot launch."""
+    from mavmap_tpu_torch.ops.cuda.pose_lm import pose_lm
+
+    args = _lm_stop_apart_slots(dev)
+    (p2, c2, _), (p, cost, iters), (p4, c4, _) = (pose_lm(*args, [1, 1, 1], 1.0, n)
+                                                   for n in (2, 3, 4))
+    assert torch.equal(p[0], args[0][0]) and torch.equal(p4[0], p[0])
+    assert torch.equal(p[1], args[0][1]) and bool(torch.isnan(cost[1]))
+    assert int(iters[1]) == 3 and int(iters[2]) == 3
+    assert c4[2] < cost[2] < c2[2]
+    for b in range(3):
+        pb, cb, ib = pose_lm(*[a[b:b + 1] for a in args], [1], 1.0, 3)
+        assert torch.equal(p[b], pb[0]) and torch.equal(cost[b:b + 1].isnan(), cb.isnan())
+        assert torch.equal(cost[b].nan_to_num(), cb[0].nan_to_num()) and int(ib) == int(iters[b])
+
+
+def test_pose_lm_kernel_bits_repeat_and_do_not_depend_on_b(dev):
+    """A 32-slot K4 launch over mixed camera models, twice, gives the same
+    bits, and every slot gives the bits of its own one-slot launch."""
+    from mavmap_tpu_torch.ops.cuda.pose_lm import pose_lm
+
+    args, codes, code_ids = _lm_case(dev, _LM_CODES["mixed"], 32, seed=5)
+    ids = code_ids.to(torch.int32)
+    first, second = (pose_lm(*args, codes, 1.0, 30, ids) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for b in range(32):
+        one = pose_lm(*[a[b:b + 1] for a in args], codes[b:b + 1], 1.0, 30)
+        for big, small in zip(first, one):
+            assert torch.equal(big[b:b + 1], small), b
+
+
+def test_pose_lm_launches_once_per_register_step(dev, monkeypatch):
+    """register_view, register_view_batch and register_view_pairs (PINHOLE
+    and OPENCV slots, B = 32) each launch K4 once, and no CUDA tensor
+    reaches the plain loop."""
+    plain = ba_core._pose_refine_plain
+
+    def cpu_only(pose, *a, **kw):
+        assert not pose.is_cuda, "a CUDA tensor reached the plain pose LM"
+        return plain(pose, *a, **kw)
+
+    monkeypatch.setattr(ba_core, "_pose_refine_plain", cpu_only)
+    (batch, singles), (pairs, _) = _register_slots(dev)
+    for step, args in ((register_view, singles[0]), (register_view_batch, batch),
+                       (register_view_pairs, pairs)):
         g = torch.Generator(device=dev)
         g.manual_seed(5)
-        outs.append(register_view_pairs(g, *args, p3p_trials=256))
-    for rows, scalars in outs[1:]:
-        assert torch.equal(rows, outs[0][0]) and torch.equal(scalars, outs[0][1])
+        before = build.launches["pose_lm"]
+        step(g, *args, p3p_trials=256)
+        assert build.launches["pose_lm"] == before + 1, step.__name__
 
 
 def test_batched_step_syncs_do_not_grow_with_slots(dev):

@@ -128,11 +128,56 @@ def test_kernel_argument_checks():
         build.check(700, "kernel")
 
 
+def _pose_lm_args(B=3, N=8):
+    return [torch.zeros((B, 6)), torch.zeros((B, N, 3)), torch.zeros((B, N, 2)),
+            torch.zeros((B, N), dtype=torch.bool), torch.zeros((B, 9)), [1] * B, 1.0, 30]
+
+
+def _bad_pose_lm_args(case):
+    a = _pose_lm_args()
+    if case == "dtype":
+        a[0] = a[0].double()
+    elif case == "strided":
+        a[1] = torch.zeros((3, 3, 8)).transpose(1, 2)
+    elif case == "params":
+        a[4] = torch.zeros((3, 8))
+    elif case == "rows":
+        a[2] = torch.zeros((3, 7, 2))
+    elif case == "codes":
+        a[5] = [1, 1]
+    elif case == "unknown":
+        a[5] = [1, 7, 1]
+    elif case == "mixed":
+        a[5] = [1, 2, 1]
+    elif case == "ids_dtype":
+        a[5] = [1, 2, 1]
+        a.append(torch.tensor([1.0, 2.0, 1.0]))
+    return a
+
+
+@pytest.mark.parametrize("case, error", [
+    ("dtype", TypeError), ("strided", ValueError), ("params", ValueError),
+    ("rows", ValueError), ("codes", ValueError), ("unknown", ValueError),
+    ("mixed", ValueError), ("ids_dtype", TypeError)])
+def test_pose_lm_wrapper_refuses_bad_arguments(monkeypatch, case, error):
+    """K4's wrapper checks dtypes, contiguity, shapes and the slots' camera
+    codes (known ones, one per slot, and their device copy where they mix)
+    before it asks for the kernel library (checked on CPU tensors)."""
+    from mavmap_tpu_torch.ops.cuda.pose_lm import pose_lm
+
+    def refuse():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(build, "library", refuse)
+    with pytest.raises(error):
+        pose_lm(*_bad_pose_lm_args(case))
+
+
 def test_kernel_build_is_keyed_by_source_hash():
     d1 = build._digest()
     assert d1 == build._digest() and len(d1) == 16
     assert set(build.launches) == {"match", "match_batched", "seg_accum_full",
-                                   "seg_accum_full_one_pass", "seg_accum_sorted"}
+                                   "seg_accum_full_one_pass", "seg_accum_sorted", "pose_lm"}
     build.launches["match"] += 1
     build.slots["match_batched"] += 3
     build.reset_launches()
