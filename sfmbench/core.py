@@ -339,8 +339,8 @@ def _traced(torch, state):
 
 def map_state(mapper, maps, closures):
     """The judged copy of a SequentialMapper's map: registered frames,
-    poses, each frame's camera parameters, and every observation (frame,
-    feature row) of a valid triangulated point of track length >= 2."""
+    poses, each frame's camera model and parameters, and every observation
+    (frame, feature row) of a valid triangulated point of track length >= 2."""
     st = mapper.store
     reg = [iid for iid in range(st.num_images) if st.image_registered[iid]]
     frames = np.array([mapper.image_id_to_idx[i] for i in reg], np.int64)
@@ -360,6 +360,7 @@ def map_state(mapper, maps, closures):
         frames=frames, rvecs=np.array(st.image_rvecs[reg], np.float64),
         tvecs=np.array(st.image_tvecs[reg], np.float64),
         cam_params=np.array(st.camera_params[st.image_cameras[reg]], np.float64),
+        cam_models=np.array(st.camera_models[st.image_cameras[reg]], np.int32),
         obs_frame=np.concatenate(obs_f) if obs_f else np.zeros(0, np.int64),
         obs_row=np.concatenate(obs_r) if obs_r else np.zeros(0, np.int64),
         obs_point=obs_point.reshape(-1),
@@ -378,12 +379,15 @@ class Inputs:
     order: list = field(default_factory=list)
 
 
-def make_inputs(workload, seed, num_maps):
-    """The cell's scene and flights, fixed by the workload: the warm-up's
-    features (key -1) and those of its `maps` flights (sensor noise,
-    clutter and row order drawn from `data_seed`); map k of a run with
-    `--seed seed` is flight map_order(seed)[k]. Makes the first `num_maps`."""
-    scene = ref_scene.make_uav_scene(**workload["flight"])
+def make_inputs(workload, seed, num_maps, config=None):
+    """The cell's scene and flights, fixed by the workload and the
+    configuration's `cameras` (one PINHOLE camera where it has none): the
+    warm-up's features (key -1) and those of its `maps` flights (sensor
+    noise, clutter and row order drawn from `data_seed`); map k of a run
+    with `--seed seed` is flight map_order(seed)[k]. Makes the first
+    `num_maps`."""
+    scene = ref_scene.make_uav_scene(**workload["flight"],
+                                     cameras=(config or {}).get("cameras"))
     order = ref_scene.map_order(seed, workload["maps"])
     feats = {}
     for k, flight in [(-1, -1)] + list(enumerate(order[:num_maps])):
@@ -419,7 +423,7 @@ def execute(cell, seed, seconds, trace, device, t_process=None):
         native.load_mapstore_lib()
         part("kernels_build_or_load")
     wl = cell.workload
-    inputs = make_inputs(wl, seed, wl["maps"])
+    inputs = make_inputs(wl, seed, wl["maps"], cell.config)
     part("inputs")
     ctx = cell.driver.prepare(cell, inputs, seed, device)
     part("prepare")

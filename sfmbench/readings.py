@@ -36,7 +36,7 @@ def read_seed(cell, seed, device, spans):
     from .core import make_inputs
     from .reference.judge import bfloat16_state
 
-    inputs = make_inputs(cell.workload, seed, 1)
+    inputs = make_inputs(cell.workload, seed, 1, cell.config)
     ctx = cell.driver.prepare(cell, inputs, seed, device)
     rec = cell.driver.map_once(ctx, 0, spans)
     base = {"cell": cell.name, "seed": seed, "wall_s": rec.wall_s, "registered": rec.registered}
@@ -67,7 +67,7 @@ def main(argv=None):
     cell = load_cell(args.workload)
     spans = Spans()
     t0 = time.perf_counter()
-    warm = make_inputs(cell.workload, args.seeds[0], 0)
+    warm = make_inputs(cell.workload, args.seeds[0], 0, cell.config)
     cell.driver.warmup(cell.driver.prepare(cell, warm, args.seeds[0], dev), spans)
     print(f"warm-up {time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
     out = open(args.out, "a") if args.out else None

@@ -2,9 +2,10 @@
 benchmark's own truth and observations.
 
 The program's outputs are read only to be judged: per map, the registered
-frames, their world->camera poses, the 3-D points, the refined camera
-intrinsics and which feature row of which frame each point was built from
-(a `MapState`, host arrays copied out of the program after the window).
+frames, their world->camera poses, the 3-D points, each frame's camera
+model and refined intrinsics, and which feature row of which frame each
+point was built from (a `MapState`, host arrays copied out of the program
+after the window).
 The truth (the scene's poses) and the observations (the keypoints the
 benchmark generated and handed to the program) are the benchmark's own.
 
@@ -14,15 +15,16 @@ Numbers per map:
   similarity (Umeyama) fit, the centres' translation, rotation and scale
   solved in float64;
 - reprojection RMSE: every observation of a triangulated point in the map,
-  projected with the map's pose, point and refined intrinsics and compared
-  with the benchmark's own keypoint of that feature row.
+  projected with the map's pose, point and refined intrinsics through the
+  frame's camera model and compared with the benchmark's own keypoint of
+  that feature row.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
-from .scene import camera_centers, rotmat
+from .scene import PINHOLE, camera_centers, project, rotmat
 
 
 @dataclass
@@ -32,13 +34,18 @@ class MapState:
     frames: np.ndarray        # (R,) image indices registered in the main model
     rvecs: np.ndarray         # (R, 3) their world->camera rotations
     tvecs: np.ndarray         # (R, 3) and translations
-    cam_params: np.ndarray    # (R, >= 4) each frame's refined PINHOLE fx, fy, cx, cy
+    cam_params: np.ndarray    # (R, 9) each frame's refined camera parameters
     obs_frame: np.ndarray     # (O,) image index of each observation
     obs_row: np.ndarray       # (O,) its feature row in that image
     obs_point: np.ndarray     # (O,) its point's row in `points`
     points: np.ndarray        # (P, 3) the triangulated 3-D points
     maps: int                 # models the run ended with (sub-maps not merged)
     closures: int             # loop and sweep closures committed
+    cam_models: np.ndarray = None  # (R,) each frame's camera model code; all PINHOLE if None
+
+    def __post_init__(self):
+        if self.cam_models is None:
+            self.cam_models = np.full(len(self.frames), PINHOLE, np.int32)
 
 
 def umeyama(src, dst):
@@ -64,9 +71,9 @@ def aligned_errors(est_centers, true_centers):
 
 def reprojection_errors(state: MapState, keypoints):
     """Pixel error of every observation of the map: the map's point through
-    its frame's pose and refined PINHOLE intrinsics, against the keypoint
-    the benchmark generated for that feature row. keypoints: per image
-    (n, 2) arrays, as handed to the program."""
+    its frame's pose, camera model and refined intrinsics, against the
+    keypoint the benchmark generated for that feature row. keypoints: per
+    image (n, 2) arrays, as handed to the program."""
     if len(state.obs_frame) == 0:
         return np.zeros(0)
     slot = np.full(max(int(state.frames.max()) + 1, 1), -1, np.int64)
@@ -78,7 +85,11 @@ def reprojection_errors(state: MapState, keypoints):
     Xc = np.einsum("oij,oj->oi", R, state.points[state.obs_point]) + state.tvecs[s]
     p = np.asarray(state.cam_params, np.float64)[s]
     z = Xc[:, 2]
-    uv = np.stack([p[:, 0] * Xc[:, 0] / z + p[:, 2], p[:, 1] * Xc[:, 1] / z + p[:, 3]], 1)
+    model = np.asarray(state.cam_models)[s]
+    uv = np.empty((len(s), 2))
+    for code in np.unique(model):
+        rows = model == code
+        uv[rows] = project(Xc[rows], p[rows], code)
     sizes = np.array([len(k) for k in keypoints])
     if (state.obs_row >= sizes[state.obs_frame]).any():
         raise ValueError("an observation lies on a feature row the frame does not have")
@@ -116,7 +127,7 @@ def to_bfloat16(a):
 def bfloat16_state(state: MapState):
     """The control: the map as the program hands it over, its poses,
     points and intrinsics held in bfloat16, the precision below the
-    configurations' float32."""
+    configurations' float32 (the camera models as they are)."""
     from dataclasses import replace
 
     return replace(state, rvecs=to_bfloat16(state.rvecs), tvecs=to_bfloat16(state.tvecs),

@@ -8,6 +8,12 @@ clutter). The draws are the same, in the same order, so a scene seed gives
 the scene that the port's generator gives; rotations and projections run
 here in float64 and are stored in float32 where the port stores float32.
 
+A scene carries its cameras: each camera's model (PINHOLE or OPENCV, the
+codes of the port's camera models) and parameters, and which camera took
+each frame. A flight with no `cameras` has the one PINHOLE camera of its
+focal length; a rig's frame i is on camera i % C, as the port's
+`make_multi_camera_scene` puts it.
+
 Nothing here imports the program: the benchmark makes its inputs and its
 truth itself and hands the same features to the program and to the judge.
 """
@@ -15,6 +21,12 @@ truth itself and hands the same features to the program and to the judge.
 from dataclasses import dataclass
 
 import numpy as np
+
+PINHOLE = 1
+OPENCV = 2
+MODEL_CODES = {"PINHOLE": PINHOLE, "OPENCV": OPENCV}
+# fx, fy, cx, cy; OPENCV adds k1, k2, p1, p2.
+MODEL_NUM_PARAMS = {PINHOLE: 4, OPENCV: 8}
 
 
 def rot_x(a):
@@ -80,7 +92,9 @@ class Scene:
     descriptors: np.ndarray   # (M, D) float32 unit descriptors
     rvecs: np.ndarray         # (I, 3) float32 world->camera truth
     tvecs: np.ndarray         # (I, 3) float32
-    cam_params: np.ndarray    # (1, 9) float32 PINHOLE fx, fy, cx, cy
+    cam_params: np.ndarray    # (C, 9) float32 each camera's parameters, zero-padded
+    cam_models: np.ndarray    # (C,) int32 each camera's model code
+    image_cameras: np.ndarray  # (I,) int32 the camera of each frame
     image_size: tuple         # (width, height)
 
     @property
@@ -93,9 +107,12 @@ class Scene:
 
 def make_uav_scene(num_images, num_points, descriptor_dim=128, image_size=(800, 600),
                    focal=700.0, altitude=30.0, extent=60.0, overlap_step=2.5, rows=2,
-                   relief=8.0, seed=0):
+                   relief=8.0, seed=0, cameras=None):
     """A serpentine nadir survey of `rows` strips over a terrain patch
-    (extent=None sizes the patch to the flight plus one frustum margin)."""
+    (extent=None sizes the patch to the flight plus one frustum margin).
+    `cameras`: a rig's cameras, [{"model": "PINHOLE" | "OPENCV", "params":
+    [...]}, ...], frame i on camera i % C; by default one PINHOLE camera
+    of `focal`. The cameras draw nothing: the flight is the same either way."""
     rng = np.random.default_rng(seed)
     w, h = image_size
     per_row = int(np.ceil(num_images / rows))
@@ -120,36 +137,66 @@ def make_uav_scene(num_images, num_points, descriptor_dim=128, image_size=(800, 
         R = rot_z(rng.normal() * 0.05) @ rot_x(np.pi + rng.normal() * 0.05)
         rvecs.append(rvec(R))
         tvecs.append(-R @ C)
-    params = np.zeros((1, 9), np.float32)
-    params[0, :4] = [focal, focal, w / 2, h / 2]
+    if cameras is None:
+        cameras = [{"model": "PINHOLE", "params": [focal, focal, w / 2, h / 2]}]
+    params = np.zeros((len(cameras), 9), np.float32)
+    models = np.zeros(len(cameras), np.int32)
+    for c, camera in enumerate(cameras):
+        if camera["model"] not in MODEL_CODES:
+            raise ValueError(f"camera {c}: unknown model {camera['model']!r}")
+        models[c] = MODEL_CODES[camera["model"]]
+        if len(camera["params"]) != MODEL_NUM_PARAMS[models[c]]:
+            raise ValueError(f"camera {c}: {camera['model']} takes "
+                             f"{MODEL_NUM_PARAMS[models[c]]} parameters")
+        params[c, :len(camera["params"])] = camera["params"]
     return Scene(points3D=pts, descriptors=desc, rvecs=np.array(rvecs, np.float32),
-                 tvecs=np.array(tvecs, np.float32), cam_params=params, image_size=image_size)
+                 tvecs=np.array(tvecs, np.float32), cam_params=params, cam_models=models,
+                 image_cameras=(np.arange(num_images) % len(cameras)).astype(np.int32),
+                 image_size=image_size)
 
 
-def project(points_cam, params):
-    """PINHOLE projection of camera-frame points (..., 3) with params
-    (fx, fy, cx, cy, ...): pixel coordinates (..., 2), float64."""
+def project(points_cam, params, model=PINHOLE):
+    """Projection of camera-frame points (..., 3) through a camera of code
+    `model` with params (..., 9) (fx, fy, cx, cy, then OPENCV's k1, k2, p1,
+    p2): pixel coordinates (..., 2), float64. OPENCV distorts the
+    normalised point radially and tangentially, as the port's camera model
+    does; any other code raises ValueError."""
     p = np.asarray(params, np.float64)
     X = np.asarray(points_cam, np.float64)
     z = X[..., 2]
-    return np.stack([p[0] * X[..., 0] / z + p[2], p[1] * X[..., 1] / z + p[3]], axis=-1)
+    if model == PINHOLE:
+        return np.stack([p[..., 0] * X[..., 0] / z + p[..., 2],
+                         p[..., 1] * X[..., 1] / z + p[..., 3]], axis=-1)
+    if model != OPENCV:
+        raise ValueError(f"no projection for camera model {model!r}")
+    u, v = X[..., 0] / z, X[..., 1] / z
+    k1, k2, p1, p2 = p[..., 4], p[..., 5], p[..., 6], p[..., 7]
+    u2, v2, uv = u * u, v * v, u * v
+    r2 = u2 + v2
+    radial = k1 * r2 + k2 * r2 * r2
+    du = u * radial + 2.0 * p1 * uv + p2 * (r2 + 2.0 * u2)
+    dv = v * radial + 2.0 * p2 * uv + p1 * (r2 + 2.0 * v2)
+    return np.stack([(u + du) * p[..., 0] + p[..., 2], (v + dv) * p[..., 1] + p[..., 3]],
+                    axis=-1)
 
 
 def render_features(scene: Scene, rng, pixel_noise=0.3, descriptor_noise=0.05, clutter=50,
                     dropout=0.05, capacity=None):
     """Every image's features -> (feats, gt_ids): per image (keypoints
-    (n, 2) float32, descriptors (n, D) float32) of the visible points with
-    noise, `clutter` unmatchable rows and random dropout, shuffled, the
-    first `capacity` kept; gt_ids maps each row to its 3-D point (-1:
-    clutter). `rng` draws every noise term (the port's generator seeds it
-    with default_rng(seed + 1))."""
+    (n, 2) float32, projected through the frame's own camera; descriptors
+    (n, D) float32) of the visible points with noise, `clutter`
+    unmatchable rows and random dropout, shuffled, the first `capacity`
+    kept; gt_ids maps each row to its 3-D point (-1: clutter). `rng` draws
+    every noise term (the port's generator seeds it with
+    default_rng(seed + 1))."""
     w, h = scene.image_size
     feats, gt_ids = [], []
     R_all = rotmat(scene.rvecs)
     D = scene.descriptors.shape[1]
     for i in range(scene.num_images):
         Xc = scene.points3D @ R_all[i].T + scene.tvecs[i].astype(np.float64)
-        uv = project(Xc, scene.cam_params[0]).astype(np.float32)
+        c = scene.image_cameras[i]
+        uv = project(Xc, scene.cam_params[c], scene.cam_models[c]).astype(np.float32)
         vis = ((Xc[:, 2] > 1.0) & (uv[:, 0] >= 0) & (uv[:, 0] < w)
                & (uv[:, 1] >= 0) & (uv[:, 1] < h))
         idx = np.where(vis)[0]

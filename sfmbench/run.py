@@ -85,4 +85,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    # Load from one process with few threads: the port's host work is one
+    # Python thread, so the libraries' thread pools are kept to one.
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        os.environ[var] = "1"
     sys.exit(main())

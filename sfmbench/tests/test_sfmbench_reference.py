@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from sfmbench import core
 from sfmbench.reference import judge, roofline, scene as ref
 
 # float32 storage of poses: rotations and translations agree to a few ulps
@@ -15,33 +16,64 @@ TVEC_TOL = 2e-5
 # Keypoints: the port projects in float32, the reference in float64 then
 # rounds; at 800 x 600 px that is within a few float32 ulps of 800.
 KP_TOL = 2e-4
+# The smoke's two-camera rig (the port's make_multi_camera_scene): even
+# frames on a PINHOLE camera of 700 px, odd frames on an OPENCV camera.
+RIG_CAMERAS = [
+    {"model": "PINHOLE", "params": [700.0, 700.0, 400.0, 300.0]},
+    {"model": "OPENCV", "params": [620.0, 620.0, 406.0, 296.0, -0.15, 0.03, 0.0005, -0.0005]},
+]
+SMALL = dict(num_images=8, num_points=600, relief=10.0, rows=2, seed=11)
+UAV30 = dict(num_images=30, num_points=4000, relief=10.0, rows=2, seed=11)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(num_images=8, num_points=600, relief=10.0, rows=2, seed=11),
-    dict(num_images=30, num_points=4000, relief=10.0, rows=2, seed=11),
-    dict(num_images=60, num_points=7200, relief=10.0, rows=4, extent=None, seed=13),
-    dict(num_images=60, num_points=7200, relief=10.0, rows=1, extent=None, seed=13),
-], ids=["small", "uav30", "survey60-lawnmower", "survey60-corridor"])
-def test_scene_matches_port(kw):
-    from mavmap_tpu_torch.utils.synthetic import make_uav_scene
+def _port_scene(kw, rig):
+    from mavmap_tpu_torch.utils.synthetic import make_multi_camera_scene, make_uav_scene
 
-    got, want = ref.make_uav_scene(**kw), make_uav_scene(**kw)
+    return (make_multi_camera_scene if rig else make_uav_scene)(**kw)
+
+
+def _ref_scene(kw, rig):
+    return ref.make_uav_scene(**kw, cameras=RIG_CAMERAS if rig else None)
+
+
+@pytest.mark.parametrize("kw, rig", [
+    (SMALL, False), (UAV30, False),
+    (dict(num_images=60, num_points=7200, relief=10.0, rows=4, extent=None, seed=13), False),
+    (dict(num_images=60, num_points=7200, relief=10.0, rows=1, extent=None, seed=13), False),
+    (SMALL, True), (UAV30, True),
+], ids=["small", "uav30", "survey60-lawnmower", "survey60-corridor", "rig8", "rig30"])
+def test_scene_matches_port(kw, rig):
+    got, want = _ref_scene(kw, rig), _port_scene(kw, rig)
     np.testing.assert_array_equal(got.points3D, want.points3D)
     np.testing.assert_array_equal(got.descriptors, want.descriptors)
     np.testing.assert_allclose(got.rvecs, want.rvecs, rtol=0, atol=RVEC_TOL)
     np.testing.assert_allclose(got.tvecs, want.tvecs, rtol=0, atol=TVEC_TOL)
     np.testing.assert_array_equal(got.cam_params, want.cam_params)
+    np.testing.assert_array_equal(got.cam_models, want.cam_models)
+    np.testing.assert_array_equal(got.image_cameras, want.image_cameras)
+    assert (got.cam_params.dtype, got.cam_models.dtype, got.image_cameras.dtype) == (
+        want.cam_params.dtype, want.cam_models.dtype, want.image_cameras.dtype)
     np.testing.assert_allclose(got.centers(), want.camera_centers(), rtol=0, atol=TVEC_TOL)
 
 
-def test_features_match_port():
-    from mavmap_tpu_torch.utils.synthetic import make_uav_scene, render_features
+@pytest.mark.parametrize("cameras", [
+    [{"model": "CATA", "params": [700.0] * 9}],
+    [{"model": "OPENCV", "params": [700.0, 700.0, 400.0, 300.0]}],
+], ids=["unknown-model", "too-few-params"])
+def test_scene_refuses_cameras(cameras):
+    with pytest.raises(ValueError):
+        ref.make_uav_scene(num_images=2, num_points=10, cameras=cameras)
 
-    kw = dict(num_images=8, num_points=600, relief=10.0, rows=2, seed=11)
-    got, gids = ref.render_features(ref.make_uav_scene(**kw), np.random.default_rng(4),
+
+@pytest.mark.parametrize("kw, rig", [(SMALL, False), (SMALL, True), (UAV30, True)],
+                         ids=["small", "rig8", "rig30"])
+def test_features_match_port(kw, rig):
+    from mavmap_tpu_torch.utils.synthetic import render_features
+
+    got, gids = ref.render_features(_ref_scene(kw, rig), np.random.default_rng(4),
                                     pixel_noise=0.3, clutter=64, capacity=1024)
-    want, wids = render_features(make_uav_scene(**kw), pixel_noise=0.3, clutter=64, seed=3)
+    want, wids = render_features(_port_scene(kw, rig), pixel_noise=0.3, clutter=64, seed=3)
+    assert len(got) == len(want) == kw["num_images"]
     for (k, d), (wk, wd), g, w in zip(got, want, gids, wids):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_allclose(k, wk, rtol=0, atol=KP_TOL)
@@ -76,6 +108,34 @@ def test_noise_rng_takes_large_seeds():
     assert len(orders) > 1 and all(sorted(o) == [0, 1, 2, 3] for o in orders)
 
 
+@pytest.mark.parametrize("model", [ref.PINHOLE, ref.OPENCV], ids=["PINHOLE", "OPENCV"])
+def test_projection_matches_port(model):
+    """Points over the whole 800 x 600 frame and beyond its corners, at
+    20-40 m, through the rig's cameras: the reference's float64 projection
+    against the port's camera model run in float64."""
+    from mavmap_tpu_torch.models import camera as cam
+
+    c = model - 1
+    params = np.zeros(9)
+    params[:len(RIG_CAMERAS[c]["params"])] = RIG_CAMERAS[c]["params"]
+    u, v = np.meshgrid(np.linspace(-0.75, 0.75, 31), np.linspace(-0.55, 0.55, 23))
+    z = np.linspace(20.0, 40.0, u.size).reshape(u.shape)
+    X = np.stack([u * z, v * z, z], -1).reshape(-1, 3)
+    want = cam.world2image(torch.as_tensor(X), model, torch.as_tensor(params)).numpy()
+    np.testing.assert_allclose(ref.project(X, params, model), want, rtol=0, atol=1e-9)
+    # The same points through per-row parameters, as the judge passes them.
+    np.testing.assert_allclose(ref.project(X, np.tile(params, (len(X), 1)), model), want,
+                               rtol=0, atol=1e-9)
+    if model == ref.OPENCV:
+        # At the frame's corners the distortion moves a point by tens of pixels.
+        assert np.abs(ref.project(X, params, ref.PINHOLE) - want).max() > 20.0
+
+
+def test_projection_refuses_other_models():
+    with pytest.raises(ValueError):
+        ref.project(np.ones((2, 3)), np.ones(9), 3)
+
+
 def test_rotations_round_trip():
     rng = np.random.default_rng(0)
     for _ in range(20):
@@ -102,7 +162,8 @@ def test_ate_matches_port():
 
 
 def _true_state(scene, feats, gids, frames):
-    """A MapState built from the truth: every observation of a real point."""
+    """A MapState built from the truth: every observation of a real point,
+    each frame with its own camera's model and parameters."""
     obs_f, obs_r, obs_p = [], [], []
     for f in frames:
         rows = np.flatnonzero(gids[f] >= 0)
@@ -110,17 +171,21 @@ def _true_state(scene, feats, gids, frames):
         obs_r.append(rows)
         obs_p.append(gids[f][rows])
     pids, inv = np.unique(np.concatenate(obs_p), return_inverse=True)
+    cams = scene.image_cameras[frames]
     return judge.MapState(
         frames=np.array(frames), rvecs=scene.rvecs[frames].astype(np.float64),
         tvecs=scene.tvecs[frames].astype(np.float64),
-        cam_params=np.repeat(scene.cam_params[:1].astype(np.float64), len(frames), 0),
+        cam_params=scene.cam_params[cams].astype(np.float64),
         obs_frame=np.concatenate(obs_f), obs_row=np.concatenate(obs_r), obs_point=inv,
-        points=scene.points3D[pids], maps=1, closures=0)
+        points=scene.points3D[pids], maps=1, closures=0, cam_models=scene.cam_models[cams])
 
 
-@pytest.mark.parametrize("noise", [0.0, 0.5])
-def test_judge_on_the_truth(noise):
-    s = ref.make_uav_scene(num_images=6, num_points=800, relief=10.0, rows=2, seed=11)
+@pytest.mark.parametrize("noise, rig", [
+    pytest.param(0.0, False, id="0.0"), pytest.param(0.5, False, id="0.5"),
+    pytest.param(0.0, True, id="rig-0.0"), pytest.param(0.3, True, id="rig-0.3"),
+])
+def test_judge_on_the_truth(noise, rig):
+    s = _ref_scene(dict(num_images=6, num_points=800, relief=10.0, rows=2, seed=11), rig)
     feats, gids = ref.render_features(s, np.random.default_rng(0), pixel_noise=noise,
                                       clutter=8)
     kps = [k for k, _ in feats]
@@ -129,8 +194,50 @@ def test_judge_on_the_truth(noise):
     assert j["ate_m"] < 1e-5
     # Pixel noise of sigma per axis: RMSE of the 2-D error ~ sqrt(2) sigma.
     assert j["reproj_rmse_px"] == pytest.approx(np.sqrt(2) * noise, abs=0.05 + 0.1 * noise)
+    assert j["reproj_rmse_px"] <= 1.5 * np.sqrt(2) * noise + 1e-3
     dropped = judge.judge_map(_true_state(s, feats, gids, [0, 1, 2, 4]), s, kps, 6)
     assert dropped["missing"] == 2
+
+
+def test_state_defaults_to_pinhole():
+    s = ref.make_uav_scene(**SMALL)
+    feats, gids = ref.render_features(s, np.random.default_rng(0), clutter=8)
+    state = _true_state(s, feats, gids, list(range(8)))
+    from dataclasses import replace
+
+    bare = replace(state, cam_models=None)
+    assert bare.cam_models.tolist() == [ref.PINHOLE] * 8
+    np.testing.assert_array_equal(judge.reprojection_errors(bare, [k for k, _ in feats]),
+                                  judge.reprojection_errors(state, [k for k, _ in feats]))
+    assert judge.bfloat16_state(state).cam_models is state.cam_models
+
+
+def _rig_truth_record():
+    """The smoke's rig flight (30 frames, clutter 64, seed 11) as a map
+    record whose state is the truth, with the keypoints handed over."""
+    s = _ref_scene(UAV30, True)
+    feats, gids = ref.render_features(s, np.random.default_rng(12), pixel_noise=0.3,
+                                      clutter=64, capacity=1024)
+    rec = core.MapRecord(wall_s=1.0, offered=30, registered=30, counters={}, timings={},
+                         stats={}, state=_true_state(s, feats, gids, list(range(30))))
+    return s, [k for k, _ in feats], rec
+
+
+def test_zeroed_distortion_is_not_correct():
+    """A planted fault: the OPENCV camera's k1, k2, p1, p2 set to zero in
+    the map handed to the judge. The rig's truth passes the limits of
+    uav30-chained (the same flight from one camera); the fault fails them."""
+    from dataclasses import replace
+
+    s, kps, rec = _rig_truth_record()
+    limits = core.load_json(core.ROOT / "workloads" / "uav30-chained.json")["limits"]
+    ok, checks = core.check(core.judge_values([rec], s, [kps])[0], limits)
+    assert ok, checks
+    params = rec.state.cam_params.copy()
+    params[rec.state.cam_models == ref.OPENCV, 4:8] = 0.0
+    fault = replace(rec, state=replace(rec.state, cam_params=params))
+    ok, checks = core.check(core.judge_values([fault], s, [kps])[0], limits)
+    assert not ok and checks["reproj_worst_px"]["value"] > 3.0, checks
 
 
 def test_kernel_costs_match_the_smoke():
