@@ -27,7 +27,7 @@ import argparse
 import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 def build_parser():
@@ -295,28 +295,31 @@ def pipeline_options(args, loop_detection):
 @dataclass
 class CliRun:
     """What one CLI run gives back: the return code, the PipelineResult
-    (None where mapping did not run) and the wall seconds of the feature
-    extraction before mapping."""
+    (None where mapping did not run), the wall seconds of the feature
+    extraction before mapping, and the CLI's own span totals (`timings`:
+    seconds of `cli.inputs`, reading imagedata.txt, the camera table and
+    the vocabulary tree, and of `cli.outputs`, every output file; and
+    `feature_read_s` / `feature_reads` of the reference dumps read outside
+    every mapper's span)."""
 
     rc: int
     result: object = None
     detection_s: float = 0.0
+    timings: dict = field(default_factory=dict)
 
 
 def run(argv=None):
     """The CLI's work; main() returns its return code."""
     args = build_parser().parse_args(argv)
 
-    import numpy as np
     import torch
 
     from .features import FeatureCache
     from .loop import VocTree
-    from .sfm import outputs
     from .sfm.pipeline import _pipeline_mesh, run_pipeline
     from .utils.imageio import read_image
-    from .utils.io import (cameras_from_records, read_control_point_data, read_image_data,
-                           write_control_point_data)
+    from .utils.io import cameras_from_records, read_control_point_data, read_image_data
+    from .utils.timer import span
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -325,16 +328,22 @@ def run(argv=None):
         return CliRun(1)
 
     t0 = time.time()
-    records = read_image_data(os.path.join(args.input_path, "imagedata.txt"))
-    if args.calib_matrix_path:
-        from .utils.io import read_calib_matrix
+    timings = {}
 
-        K = read_calib_matrix(args.calib_matrix_path)
-        for rec in records:
-            rec.camera_idx = 0
-            rec.camera_model = 1  # PINHOLE
-            rec.camera_params = [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
-    cam_models, cam_params, image_cameras = cameras_from_records(records)
+    def stage(name):
+        return span(name, name, totals=timings)
+
+    with stage("cli.inputs"):
+        records = read_image_data(os.path.join(args.input_path, "imagedata.txt"))
+        if args.calib_matrix_path:
+            from .utils.io import read_calib_matrix
+
+            K = read_calib_matrix(args.calib_matrix_path)
+            for rec in records:
+                rec.camera_idx = 0
+                rec.camera_model = 1  # PINHOLE
+                rec.camera_params = [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
+        cam_models, cam_params, image_cameras = cameras_from_records(records)
     mesh = _pipeline_mesh(pipeline_options(args, False), device)
     rank = 0 if mesh is None else mesh.rank
     if rank == 0:
@@ -350,10 +359,11 @@ def run(argv=None):
 
     voc_tree = None
     if args.voc_tree_path and not args.no_loop_detection:
-        if args.voc_tree_path.endswith(".npz"):
-            voc_tree = VocTree.load(args.voc_tree_path, device=device)
-        else:
-            voc_tree = VocTree.load_reference_binary(args.voc_tree_path, device=device)
+        with stage("cli.inputs"):
+            if args.voc_tree_path.endswith(".npz"):
+                voc_tree = VocTree.load(args.voc_tree_path, device=device)
+            else:
+                voc_tree = VocTree.load_reference_binary(args.voc_tree_path, device=device)
     opts = pipeline_options(args, loop_detection=voc_tree is not None)
 
     def image_path(image_idx):
@@ -421,7 +431,7 @@ def run(argv=None):
         from .features import ReferenceCacheProvider
 
         ref = ReferenceCacheProvider(args.reference_cache_path, [rec.name for rec in records],
-                                     capacity=args.max_features)
+                                     capacity=args.max_features, totals=timings)
         # No `dimensions`: the npz cache would detect on a miss, and a
         # reference-cache run may have no images at all.
         ref.image = provider.image
@@ -435,7 +445,7 @@ def run(argv=None):
     if args.use_control_points:
         if not args.control_point_data_path:
             print("--use-control-points requires --control-point-data-path", file=sys.stderr)
-            return CliRun(1, detection_s=detection_s)
+            return CliRun(1, detection_s=detection_s, timings=timings)
         control_points = read_control_point_data(args.control_point_data_path)
 
     result = run_pipeline(image_cameras, cam_models, cam_params, provider, opts,
@@ -443,18 +453,36 @@ def run(argv=None):
                           control_points=control_points, resume_from=args.load_map or None,
                           device=device)
     if rank != 0:  # every rank holds the same map; rank 0 writes it
-        return CliRun(0 if result.mappers else 1, result, detection_s)
+        return CliRun(0 if result.mappers else 1, result, detection_s, timings)
 
     if args.save_map and result.mappers:
         from .utils.checkpoint import save_map
 
-        save_map(result.main_mapper, args.save_map)
+        with stage("cli.outputs"):
+            save_map(result.main_mapper, args.save_map)
         if not args.quiet:
             print(f"Map checkpoint written to {args.save_map}")
 
     if not result.mappers:
         print("Mapping failed: no images registered", file=sys.stderr)
-        return CliRun(1, result, detection_s)
+        return CliRun(1, result, detection_s, timings)
+
+    with stage("cli.outputs"):
+        _write_outputs(args, records, result, provider)
+
+    n_reg = result.main_mapper.num_proc_images
+    print(f"Registered {n_reg}/{len(records)} images in {time.time() - t0:.1f} s "
+          f"({len(result.mappers)} sub-map(s), {result.main_mapper.store.num_points3D} points)")
+    return CliRun(0, result, detection_s, timings)
+
+
+def _write_outputs(args, records, result, provider):
+    """Every output file of the run's maps (the largest unsuffixed, the
+    others -1, -2, ...) and the estimated control points."""
+    import numpy as np
+
+    from .sfm import outputs
+    from .utils.io import write_control_point_data
 
     out = args.output_path
     for k, m in enumerate(sorted(result.mappers, key=lambda m: -m.num_proc_images)):
@@ -488,11 +516,6 @@ def run(argv=None):
         write_control_point_data(os.path.join(out, "control_points_out.txt"),
                                  [r[0] for r in rows], [r[1] for r in rows],
                                  [r[2] for r in rows], [r[3] for r in rows])
-
-    n_reg = result.main_mapper.num_proc_images
-    print(f"Registered {n_reg}/{len(records)} images in {time.time() - t0:.1f} s "
-          f"({len(result.mappers)} sub-map(s), {result.main_mapper.store.num_points3D} points)")
-    return CliRun(0, result, detection_s)
 
 
 def _rank_rc(mesh, argv):

@@ -23,6 +23,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..utils.timer import owner_counters, span
 from .provider import Features
 
 
@@ -134,14 +135,20 @@ class ReferenceCacheProvider:
     cache (real OpenCV-SURF features for cross-validation). Over-capacity
     images keep the strongest-response keypoints, as the reference's
     detector budget keeps its strongest maxima. At most `cache_capacity`
-    images stay parsed in memory (least recently used out first)."""
+    images stay parsed in memory (least recently used out first).
 
-    def __init__(self, cache_path, names, capacity=1024, cache_capacity=256):
+    Each read of a frame's dumps (a miss) is the span `features.read`: its
+    seconds go to the counter `feature_read_s` and one to `feature_reads`,
+    of the mapper whose span is open, else of `totals` (default: a dict of
+    the provider's own)."""
+
+    def __init__(self, cache_path, names, capacity=1024, cache_capacity=256, totals=None):
         self.cache_path = cache_path
         self.names = list(names)
         self.capacity = capacity
         self.cache_capacity = cache_capacity
         self.descriptor_dim = None
+        self.totals = {} if totals is None else totals
         self._cache = OrderedDict()
 
     def get(self, image_idx):
@@ -149,15 +156,18 @@ class ReferenceCacheProvider:
             self._cache.move_to_end(image_idx)
             return self._cache[image_idx]
         name = self.names[image_idx]
-        kp, desc, resp = read_reference_features(
-            os.path.join(self.cache_path, f"{name}-keypoints.bin"),
-            os.path.join(self.cache_path, f"{name}-descriptors.bin"))
-        if len(kp) > self.capacity:
-            keep = np.argsort(-resp)[: self.capacity]
-            keep.sort()  # keep the spatial order
-            kp, desc = kp[keep], desc[keep]
+        sink = owner_counters(self.totals)
+        with span("features.read", "feature_read_s", totals=sink):
+            kp, desc, resp = read_reference_features(
+                os.path.join(self.cache_path, f"{name}-keypoints.bin"),
+                os.path.join(self.cache_path, f"{name}-descriptors.bin"))
+            if len(kp) > self.capacity:
+                keep = np.argsort(-resp)[: self.capacity]
+                keep.sort()  # keep the spatial order
+                kp, desc = kp[keep], desc[keep]
+            feats = Features.from_arrays(kp, desc, self.capacity)
+        sink["feature_reads"] = sink.get("feature_reads", 0) + 1
         self.descriptor_dim = desc.shape[1]
-        feats = Features.from_arrays(kp, desc, self.capacity)
         self._cache[image_idx] = feats
         if len(self._cache) > self.cache_capacity:
             self._cache.popitem(last=False)

@@ -8,12 +8,16 @@ with a CUDA device; and the program's spans and host-sync counter.
 
 Spans (`span`) mark the program's own boundaries: registration's prepare,
 dispatch, pose LM, wait and commit, the bundle adjustments' solves and the
-landing of their results, the loop retrieval and pipeline stages. A span
-with a counter adds its inclusive seconds (time.perf_counter) to a counter
-of its owner, a SequentialMapper's `counters`, or to a `totals` dict (the
-pipeline's stage timings). A span opened without an owner, in ba/core.py
-or sfm/kernels.py, takes the mapper of the innermost open span that names
-one, through a context variable; outside every such span it does nothing.
+landing of their results, the loop retrieval and pipeline stages, the
+CLI's inputs and outputs and the feature dumps' reads. A span with a
+counter adds its inclusive seconds (time.perf_counter) to a counter of its
+owner, a SequentialMapper's `counters`, or to a `totals` dict (the
+pipeline's stage timings, the CLI's). A span opened without an owner, in
+ba/core.py or sfm/kernels.py, takes the mapper of the innermost open span
+that names one, through a context variable; outside every such span it
+does nothing. `owner_counters(totals)` is that mapper's counters, or
+`totals` outside every mapper's span: a step that runs both inside and
+outside a mapper's span (a feature read) counts into it.
 `sync(n)` counts host syncs, the points where the program blocks on the
 card, into that mapper's counters["host_syncs"] (and "ba_host_syncs"
 inside a span named "ba.*"). While `recording()` is open, every span also
@@ -105,6 +109,13 @@ def span(name, counter=None, owner=None, totals=None):
     if counter is None and owner is None and _RECORDS.get() is None:
         return _NO_SPAN
     return _Span(name, counter, owner, totals)
+
+
+def owner_counters(default=None):
+    """The counters of the mapper that owns the innermost open span, or
+    `default` outside every mapper's span."""
+    counters = _STATE.get()[0]
+    return default if counters is None else counters
 
 
 def sync(n=1):

@@ -15,7 +15,12 @@ on the CPU:
     registration spans summing to no more than the steps' wall time, keeps
     every counter and stage timing that the benchmark and the smoke read,
     and records, with recording on, registration spans that are disjoint
-    within a step, enclose no solve, and lie inside their parents.
+    within a step, enclose no solve, and lie inside their parents;
+  - a read of a frame's reference feature dumps (`features.read`) counts
+    into the mapper whose span is open, else into the provider's totals,
+    and a cached frame counts nothing; the CLI over a two-camera rig from
+    such dumps reads each frame once, counting every read, and times its
+    inputs and outputs (`cli.inputs`, `cli.outputs`) in `CliRun.timings`.
 
 Imports neither jax nor mavmap_tpu.
 """
@@ -217,3 +222,70 @@ def test_pipeline_map_fills_the_registration_counters():
     _check_records(recs)
     assert {"pipeline.sequential_loop", "pipeline.closure_sweeps", "loop.detect",
             "loop.query", "loop.chain", "loop.local_ba", "batch.step"} <= {r[0] for r in recs}
+
+
+def test_owner_counters_are_the_innermost_owners():
+    o, totals = _Owner(), {}
+    assert timer.owner_counters() is None and timer.owner_counters(totals) is totals
+    with timer.span("register.prepare", "reg_prepare_s", o):
+        with timer.span("ba.lm"):
+            assert timer.owner_counters(totals) is o.counters
+    assert timer.owner_counters(totals) is totals
+
+
+def _dumps(tmp_path, n, rows=40):
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    for i in range(n):
+        chip_smoke.write_feature_dump(str(tmp_path), f"img{i}", rng.uniform(0, 800, (rows, 2)),
+                                      rng.normal(size=(rows, 128)),
+                                      np.linspace(1.0, 0.5, rows).astype(np.float32))
+    return [f"img{i}" for i in range(n)]
+
+
+def test_feature_reads_count_into_the_owner_or_the_totals(tmp_path):
+    from mavmap_tpu_torch.features import ReferenceCacheProvider
+
+    totals, o = {}, _Owner()
+    prov = ReferenceCacheProvider(str(tmp_path), _dumps(tmp_path, 3), capacity=64,
+                                  totals=totals)
+    with timer.recording() as recs:
+        prov.get(0)
+        with timer.span("register.prepare", "reg_prepare_s", o):
+            prov.get(1)
+            prov.get(2)
+            prov.get(0)  # cached: no read
+        prov.get(2)
+    assert totals["feature_reads"] == 1 and totals["feature_read_s"] > 0
+    assert o.counters["feature_reads"] == 2
+    assert 0 < o.counters["feature_read_s"] <= o.counters["reg_prepare_s"]
+    assert [(r[0], r[4]) for r in recs if r[0] == "features.read"] == [
+        ("features.read", None), ("features.read", "register.prepare"),
+        ("features.read", "register.prepare")]
+    # Without totals of its caller's, the provider keeps its own.
+    alone = ReferenceCacheProvider(str(tmp_path), ["img0"], capacity=64)
+    alone.get(0)
+    assert alone.totals["feature_reads"] == 1
+
+
+def test_cli_counts_every_feature_read_and_times_its_files(tmp_path):
+    import chip_smoke
+    from mavmap_tpu_torch import cli
+    from mavmap_tpu_torch.utils.synthetic import make_multi_camera_scene
+
+    n = 8
+    scene = make_multi_camera_scene(num_images=n, num_points=2000, relief=10.0, rows=1, seed=9)
+    feats, _ = render_features(scene, pixel_noise=0.3, clutter=10, seed=9, max_features=CAP)
+    chip_smoke.write_rig_files(str(tmp_path), scene, feats)
+    run = cli.run(["--input-path", str(tmp_path / "data"), "--output-path", str(tmp_path / "out"),
+                   "--reference-cache-path", str(tmp_path / "ref"), "--max-features", str(CAP),
+                   "--min-track-len", "2", "--tri-min-angle", "1.0", "--init-tri-min-angle", "4.0",
+                   "--device", "cpu", "--quiet"])
+    assert run.rc == 0 and run.result.main_mapper.num_proc_images == n
+    reads = run.timings.get("feature_reads", 0) + sum(
+        m.counters.get("feature_reads", 0) for m in run.result.mappers)
+    assert reads == n
+    assert run.timings["cli.inputs"] > 0 and run.timings["cli.outputs"] > 0
+    assert not {"cli.inputs", "cli.outputs"} & set(run.result.timings)
+

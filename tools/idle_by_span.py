@@ -143,7 +143,7 @@ def main(argv=None):
     cell = core.load_cell(args.workload)
     wl = cell.workload
     maps = args.maps if args.no_profile else wl["maps"]
-    inputs = core.make_inputs(wl, args.seed, wl["maps"])
+    inputs = core.make_inputs(wl, args.seed, wl["maps"], cell.config)
     ctx = cell.driver.prepare(cell, inputs, args.seed, dev)
     spans = core.Spans()
     cell.driver.warmup(ctx, spans)
