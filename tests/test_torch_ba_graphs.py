@@ -1,0 +1,309 @@
+"""Bundle adjustment's LM loop as CUDA graphs (ba/core.py _Stretches).
+
+On a CUDA device without psum each stretch of device work between two
+host reads (the dense solver's iteration; CG's assembly, each CG
+iteration, its back-substitution and accept/reject) is captured once per
+solve and replayed. The CPU and the psum path run the same stretches
+eagerly, with the bits of the plain loops: they never capture. On the card
+(tests marked `gpu`, which skip without a CUDA device) a graphed solve
+gives the eager solve's bits, iterations, CG iterations, kernel launch
+counts and host syncs; it captures each stretch once and replays it on
+every later run, and every K2 / K3 launch still goes through its Python
+entry point, where the benchmark logs each launch's bound.
+
+This file imports neither jax nor mavmap_tpu, so it runs on a GPU machine
+without JAX:
+
+    python -m pytest --noconftest tests/test_torch_ba_graphs.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mavmap_tpu_torch.ba import BAOptions, build_problem, bundle_adjust
+from mavmap_tpu_torch.ba import core
+from mavmap_tpu_torch.models import camera as cam
+from mavmap_tpu_torch.ops.cuda import ba_accum as ka
+from mavmap_tpu_torch.ops.cuda import build
+from mavmap_tpu_torch.ops.rotation import rotmat_from_rvec
+from mavmap_tpu_torch.utils.timer import span
+
+CPU = torch.device("cpu")
+GRAPH_COUNTERS = ("ba_graph_captures", "ba_graph_replays")
+# The benchmark's rig: a PINHOLE camera and an OPENCV lens.
+CAMERAS = {
+    "pinhole": [(cam.PINHOLE, [700.0, 700.0, 400.0, 300.0])],
+    "rig": [(cam.PINHOLE, [700.0, 700.0, 400.0, 300.0]),
+            (cam.OPENCV, [620.0, 620.0, 406.0, 296.0, -0.15, 0.03, 0.0005, -0.0005])],
+}
+LM = (1.0, 1e-4, 10.0, 0.5)  # scale, lambda_init, lambda_up, lambda_down
+
+
+class _Owner:
+    """A stand-in for the mapper that owns the spans: its counters."""
+
+    def __init__(self):
+        self.counters = {}
+
+
+def _problem(cameras="pinhole", I=10, P=300, per_image=150, noise=0.5, focal_err=0.01,
+             seed=7):
+    """A bucketed problem of I views of P points, view i on camera
+    i % len(cameras), 0.5 px noise, the intrinsics' focal lengths off by
+    `focal_err`; the first view fixed, the second's x-translation too."""
+    rng = np.random.default_rng(seed)
+    cams = CAMERAS[cameras]
+    K = np.zeros((len(cams), 9), np.float32)
+    for c, (_, params) in enumerate(cams):
+        K[c, :len(params)] = params
+    models = np.array([m for m, _ in cams], np.int32)
+    X = (rng.normal(size=(P, 3)) * [4, 4, 2] + [0, 0, 14]).astype(np.float32)
+    poses = np.concatenate([rng.normal(size=(I, 3)) * 0.03,
+                            np.stack([np.arange(I) * 0.7, np.zeros(I), np.zeros(I)], 1)],
+                           axis=1).astype(np.float32)
+    R = rotmat_from_rvec(torch.as_tensor(poses[:, :3])).numpy()
+    oi, op, oc, uv = [], [], [], []
+    for i in range(I):
+        c = i % len(cams)
+        Xc = (X @ R[i].T + poses[i, 3:]).astype(np.float32)
+        u = cam.world2image(torch.as_tensor(Xc), int(models[c]), torch.as_tensor(K[c])).numpy()
+        sel = np.sort(rng.permutation(P)[:per_image])
+        oi += [i] * len(sel)
+        op += list(sel)
+        oc += [c] * len(sel)
+        uv += list(u[sel] + rng.normal(size=(len(sel), 2)) * noise)
+    poses0 = poses + rng.normal(size=poses.shape).astype(np.float32) * [0.003] * 3 \
+        + np.concatenate([np.zeros((I, 3)), rng.normal(size=(I, 3)) * 0.02], 1)
+    poses0[:2] = poses[:2]
+    X0 = X + rng.normal(size=X.shape).astype(np.float32) * 0.05
+    K0 = K.copy()
+    K0[:, :2] *= 1.0 + focal_err
+    return build_problem(poses0.astype(np.float32), X0.astype(np.float32), K0, models,
+                         np.array(oi, np.int32), np.array(op, np.int32),
+                         np.array(oc, np.int32), np.array(uv, np.float32),
+                         pose_states=[1, 2] + [0] * (I - 2), bucket=True)
+
+
+def _solve(host, device, selfcal, solver, *, eager=False, psum=None, max_iters=10,
+           function_tolerance=1e-4):
+    """The LM loop of bundle_adjust on `device` inside a span owned by a
+    stand-in mapper: (results as numpy, CG iterations, the mapper's
+    counters, the kernels' launch counts)."""
+    prob = core.problem_to_device(core.with_plans(host, core.solver_plans(selfcal, solver)),
+                                  device)
+    owner = _Owner()
+    stats = {}
+    kw = dict(solver=solver, cg_max_iters=100, cg_tol=1e-3, stats=stats, eager=eager)
+    before = dict(build.launches)
+    with span("ba.solve", "ba_solve_s", owner):
+        if selfcal:
+            out = core._lm_loop_selfcal(prob, core._selfcal_cam_free(prob), *LM,
+                                        function_tolerance, max_iters, **kw)
+        else:
+            out = core._lm_loop(prob, *LM, function_tolerance, max_iters, psum=psum, **kw)
+    launched = {k: build.launches[k] - before[k] for k in before}
+    res = [t.cpu().numpy() if torch.is_tensor(t) else t for t in out]
+    return res, stats.get("cg_iters", []), owner.counters, launched
+
+
+def _assert_same_bits(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and np.array_equal(x, y, equal_nan=True)
+        else:
+            assert x == y
+
+
+# ------------------------------------------------------------------ CPU
+
+
+def test_graphs_only_on_a_cuda_device_without_psum():
+    """The choice rests on what the solve can see, the device and psum;
+    an eager runner calls each stretch and its K2 / K3 calls, and copies
+    the state it carries into the loop's own tensors."""
+    assert core._graphed(torch.device("cuda", 0), None)
+    assert core._graphed("cuda", None)
+    assert not core._graphed(torch.device("cuda", 0), lambda x: x)
+    assert not core._graphed(CPU, None)
+    run = core._Stretches(False)
+    x = torch.zeros(2)
+    state = {"x": x}
+    assert run("step", lambda: run.carry(state, x=torch.ones(2)) or 5) == 5
+    assert state["x"] is x and x.tolist() == [1.0, 1.0] and not run.runs
+    assert core._capture is None and core._kernel(torch.add, x, 2.0).tolist() == [3.0, 3.0]
+
+
+@pytest.mark.parametrize("cameras", ["pinhole", "rig"])
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_cpu_solves_never_capture(cameras, solver, selfcal):
+    """bundle_adjust on the CPU runs its stretches eagerly: the owning
+    mapper's graph counters stay at 0, and the loop's `eager` keyword
+    changes nothing there."""
+    host = _problem(cameras, I=8, per_image=120)
+    owner = _Owner()
+    with span("ba.solve", "ba_solve_s", owner):
+        _, _, info = bundle_adjust(host, BAOptions(max_num_iterations=4, solver=solver,
+                                                   refine_camera_params=selfcal), device=CPU)
+    assert info["iterations"] >= 1 and owner.counters.get("ba_host_syncs", 0) > 0
+    assert all(owner.counters.get(k, 0) == 0 for k in GRAPH_COUNTERS)
+    a, cg_a, counters, _ = _solve(host, CPU, selfcal, solver, max_iters=3)
+    b, cg_b, _, _ = _solve(host, CPU, selfcal, solver, max_iters=3, eager=True)
+    _assert_same_bits(a, b)
+    assert cg_a == cg_b and (solver == "dense") == (not cg_a)
+    assert all(counters.get(k, 0) == 0 for k in GRAPH_COUNTERS)
+
+
+def _plain_pcg(matvec, Minv, b, free, cg_iters, cg_tol):
+    """CG as one Python loop that tests the residual before each
+    iteration: what _pcg computes, stretch by stretch."""
+    r0n = torch.sqrt(torch.sum(b * b))
+    x, r = torch.zeros_like(b), b
+    z = torch.einsum("iab,ib->ia", Minv, r) * free
+    p, rz = z, torch.sum(r * z)
+    it = 0
+    while it < cg_iters and bool(torch.sqrt(torch.sum(r * r)) > cg_tol * r0n):
+        Sp = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Sp), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Sp
+        z = torch.einsum("iab,ib->ia", Minv, r) * free
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / torch.clamp(rz, min=1e-30) * p
+        rz = rz_new
+        it += 1
+    return x, it
+
+
+@pytest.mark.parametrize("cameras", ["pinhole", "rig"])
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_cg_stretches_give_the_plain_loops_bits(cameras, selfcal):
+    """One CG step through _pcg's stretches (the assembly with the first
+    residual test, then one stretch per CG iteration) equals the plain CG
+    loop on the same system bit for bit, iteration count included."""
+    host = _problem(cameras, I=8, per_image=120)
+    prob = core.problem_to_device(core.with_plans(host, core.PLANS), CPU)
+    pts = core._gather_dense_points(prob, prob.points)
+    lam = torch.tensor(0.1)
+    stats = {}
+    if selfcal:
+        free_k = core._selfcal_cam_free(prob)
+        system = core._cg_system_selfcal(prob, prob.poses, pts, prob.cam_params, free_k, lam,
+                                         1.0)
+        step = core._lm_step_selfcal_cg(prob, prob.poses, pts, prob.cam_params, free_k, lam,
+                                        1.0, 100, 1e-6, stats)
+    else:
+        system = core._cg_system(prob, prob.poses, pts, lam, 1.0)
+        step = core._lm_step_cg(prob, prob.poses, pts, lam, 1.0, 100, 1e-6, stats)
+    matvec, Minv, b, free, finish = system
+    x, it = _plain_pcg(matvec, Minv, b, free, 100, 1e-6)
+    assert 1 < it < 100 and stats["cg_iters"] == [it]
+    _assert_same_bits([t.numpy() for t in step], [t.numpy() for t in finish(x)])
+
+
+# ------------------------------------------------------------------ card
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cameras", ["pinhole", "rig"])
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_graphed_solve_gives_the_eager_bits(dev, cameras, solver, selfcal):
+    """The same bucketed problem solved on the card with graphs and
+    eagerly: the same bits of poses, points (and intrinsics), both costs,
+    the same iterations and CG iterations, the same K2/K3 launch counts and
+    host syncs. Each stretch is captured once and replayed on every later
+    run: the dense solver's one stretch per iteration; CG's assembly and
+    back-substitution per iteration and one stretch per CG iteration."""
+    host = _problem(cameras)
+    g, cg_g, cnt_g, launched_g = _solve(host, dev, selfcal, solver)
+    e, cg_e, cnt_e, launched_e = _solve(host, dev, selfcal, solver, eager=True)
+    _assert_same_bits(g, e)
+    assert cg_g == cg_e
+    assert launched_g == launched_e and launched_g["seg_accum_sorted"] > 0
+    assert cnt_g["host_syncs"] == cnt_e["host_syncs"]
+    assert cnt_g["ba_host_syncs"] == cnt_e["ba_host_syncs"]
+    assert all(cnt_e.get(k, 0) == 0 for k in GRAPH_COUNTERS)
+    iters = g[-1]
+    runs = iters if solver == "dense" else 2 * iters + sum(cg_g)
+    stretches = 1 if solver == "dense" else 2 + (sum(cg_g) > 0)
+    assert iters >= 2
+    assert cnt_g["ba_graph_captures"] == stretches
+    assert cnt_g["ba_graph_replays"] == runs - stretches
+    # A second graphed solve captures afresh, with the same bits.
+    g2, _, cnt_g2, _ = _solve(host, dev, selfcal, solver)
+    _assert_same_bits(g2, g)
+    assert cnt_g2 == cnt_g | {"ba_solve_s": cnt_g2["ba_solve_s"]}
+
+
+@pytest.mark.gpu
+def test_bundle_adjust_captures_once_per_dense_solve(dev):
+    """Every dense bundle_adjust on the card captures its stretch once and
+    replays it on each later iteration: over two solves, two captures and
+    iterations - 2 replays."""
+    owner = _Owner()
+    iters = 0
+    with span("ba.solve", "ba_solve_s", owner):
+        for cameras, selfcal in (("pinhole", False), ("rig", True)):
+            _, _, info = bundle_adjust(_problem(cameras), BAOptions(
+                max_num_iterations=8, solver="dense", refine_camera_params=selfcal),
+                device=dev)
+            iters += info["iterations"]
+    assert owner.counters["ba_graph_captures"] == 2
+    assert owner.counters["ba_graph_replays"] == iters - 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_psum_solve_on_the_card_never_captures(dev, solver):
+    """With a psum hook the loop stays eager on the card (collectives stay
+    out of graphs), and one rank's sum gives the graphed solve's bits."""
+    host = _problem(focal_err=0.0)
+    a, cg_a, counters, _ = _solve(host, dev, False, solver, psum=lambda x: x)
+    b, cg_b, _, _ = _solve(host, dev, False, solver)
+    _assert_same_bits(a, b)
+    assert cg_a == cg_b
+    assert all(counters.get(k, 0) == 0 for k in GRAPH_COUNTERS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("selfcal", [False, True])
+def test_every_k2_k3_launch_calls_its_entry_point(dev, monkeypatch, solver, selfcal):
+    """A graphed solve calls K2's and K3's entry points (ops/cuda/ba_accum.py
+    `_seg_accum_full_cuda`, `_seg_accum_sorted_cuda`, looked up on every
+    call) once per launch, on replays too, with the arguments of the eager
+    solve's calls: what wraps them sees every launch, and the graphs hold
+    no hand kernel."""
+    seen = []
+
+    def wrap(name):
+        orig = getattr(ka, name)
+
+        def call(contrib, *rest):
+            seen.append((name, tuple(contrib.shape)))
+            return orig(contrib, *rest)
+
+        monkeypatch.setattr(ka, name, call)
+
+    wrap("_seg_accum_full_cuda")
+    wrap("_seg_accum_sorted_cuda")
+    host = _problem("rig")
+    g, _, cnt_g, launched_g = _solve(host, dev, selfcal, solver)
+    calls_g, seen[:] = list(seen), []
+    e, _, _, launched_e = _solve(host, dev, selfcal, solver, eager=True)
+    _assert_same_bits(g, e)
+    assert calls_g == seen and cnt_g["ba_graph_replays"] > 0
+    names = [n for n, _ in seen]
+    assert launched_g == launched_e
+    assert launched_g["seg_accum_full"] == names.count("_seg_accum_full_cuda")
+    assert launched_g["seg_accum_sorted"] == names.count("_seg_accum_sorted_cuda") > 0
