@@ -77,16 +77,6 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
     sweep — checking the registered count and the ATE against the JAX
     package's on the CPU, that loops were closed, that batched K1 ran and
     that every pose refinement ran as one launch of K4;
-    then pipelined: speculative chain pipelining (chain_dispatch_cont,
-    chain_abandon) (a) through bench.py's pipelined loop over its scene,
-    twice (30/30, the ATE against the JAX package's pipelined loop on the
-    CPU, the same bits twice, continuation chains dispatched; frames/s
-    beside the chained loop's, and the host syncs of each continuation
-    dispatch in the second run), (b) through run_pipeline(pipeline_chains=
-    True) over the survey as above (held to the JAX package's pipelined
-    run; wall, frames/s and the chain steps' seconds beside the
-    synchronous run's), (c) device memory after (b) against the
-    synchronous run's (held at most 64 MiB more);
 12. mesh: the distributed path on 2 ranks that share the card
     (parallel.launch; gloo, host-staged collectives in rank order), each
     rank a spawned process that must succeed: (a) the survey's global
@@ -149,12 +139,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 Phase 4 also holds K1 with a slot axis (the batched steps' and the
 pre-gates' launches) slot by slot against its plain version and bit for
 bit against the single-pair launch on each slot's pair. The launch
-counters are zeroed just before each mapping run (5-7, 9, 11-16; each run
-of 11's pipelined phase on its own) and read just after it (12: each rank's counts of its pipeline run, summed over the
+counters are zeroed just before each mapping run (5-7, 9, 11-16) and read
+just after it (12: each rank's counts of its pipeline run, summed over the
 ranks; 13: the sum of its two runs; 14: the counts span both CLI runs; 15
-and 16: the phase's one CLI run). The smoke's total seconds are printed last but two, against its
-1200 s limit. Imports
-nothing of JAX or of the JAX package.
+and 16: the phase's one CLI run). The smoke's total seconds are printed
+last but two, against its 1200 s limit. Imports nothing of JAX or of the
+JAX package.
 """
 
 import json
@@ -190,17 +180,6 @@ JAX_CPU_PIPELINE_REGISTERED = 200
 PIPELINE_OPTS = dict(verbose=False, tri_min_angle=1.0, init_tri_min_angle=4.0, min_track_len=2,
                      loop_detection_period=20, final_closure_sweeps=1, final_closure_step=2,
                      chain_len=4, ba_local_max_iters=15)
-# The pipelined phase: the JAX package's speculative chain pipelining on the
-# CPU over bench.py's pipelined loop and over run_pipeline(pipeline_chains=
-# True) on the survey (benchmarks/jax_pipelined_yardstick.py, mapper seeds
-# 0-2, seed 0 below; recorded in PERF.md). The bench loop must stay under
-# min(0.05, 2x its ATE), the survey register as many and stay under 2x its
-# ATE. Memory still held after the pipelined survey may exceed the
-# synchronous run's by at most PIPELINED_HELD_SLACK bytes.
-JAX_CPU_PIPELINED_BENCH_ATE_M = 0.010988323949277401
-JAX_CPU_PIPELINED_SURVEY_ATE_M = 0.007599194068461657
-JAX_CPU_PIPELINED_SURVEY_REGISTERED = 200
-PIPELINED_HELD_SLACK = 64 * 2**20
 # The cli phase: its survey and the JAX package's own CLI on the CPU over
 # the same files (benchmarks/jax_cli_yardstick.py, recorded in PERF.md):
 # 21/40 registered (the first row and one rescued frame: no frame of the
@@ -962,25 +941,14 @@ def xla_matcher_phase(torch, dev):
     return launches
 
 
-def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pipelined=False,
-               on_cont=None):
+def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False):
     """bench.py's run() through the port: chains of CHAIN frames
     (process_chain_k, pad_to=CHAIN) with one deferred asynchronous
     10-image self-calibrating window bundle adjustment per chain, process()
     where a chain cannot run, flush_ba and the 30-iteration global bundle
     adjustment. Returns (mapper, stats); with keep_global,
     stats["global_arrays"] holds the global problem's host arrays as they
-    stand before its solve (outside the timings).
-
-    pipelined: bench.py's pipelining option (MAVMAP_BENCH_PIPELINE=1,
-    bench.py:182-220): a full chain is dispatched (chain_dispatch) and,
-    before it completes, a continuation on its end state
-    (chain_dispatch_cont); a chain that does not commit whole abandons the
-    continuation behind it, and the loop goes on from the committed frames
-    (a frame whose chain failed at once goes through process(); bench.py
-    would dispatch that chain again). No sync after a dispatch, which would
-    undo the overlap. on_cont: called as on_cont(thunk) around each
-    continuation dispatch (the repeat run counts its host syncs)."""
+    stand before its solve (outside the timings)."""
     from mavmap_tpu_torch.ba import BAOptions
     from mavmap_tpu_torch.sfm import SequentialMapper
 
@@ -994,13 +962,12 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
     def solve_s():
         return m.counters.get("ba_solve_s", 0.0)
 
-    def register(fn, *a, sync=True, **kw):
+    def register(fn, *a, **kw):
         # Deferred window solves run inside the register step that
         # dispatches them: their time goes to the window BA stage.
         s0, t0 = solve_s(), time.perf_counter()
         out = fn(*a, **kw)
-        if sync:
-            _sync(torch, dev)
+        _sync(torch, dev)
         ds = solve_s() - s0
         st["register_s"] += time.perf_counter() - t0 - ds
         st["window_ba_s"] += ds
@@ -1023,38 +990,11 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
     if not m.process_initial(0, 1, init_opts):
         raise AssertionError("two-view initialization of images 0, 1 failed")
     st["init_s"] = time.perf_counter() - t0
-    last, i, per_frame = 1, 2, False
-    tok = tok_chain = None
-    while i < n_images or tok is not None:
-        if tok is not None:
-            nstart = tok_chain[-1] + 1
-            nxt = list(range(nstart, min(nstart + CHAIN, n_images)))
-            tok_nxt = None
-            if len(tok_chain) == CHAIN and len(nxt) >= 2:
-                def cont():
-                    return register(m.chain_dispatch_cont, nxt, tok, opts, pad_to=CHAIN,
-                                    sync=False)
-                tok_nxt = on_cont(cont) if on_cont else cont()
-            committed = sum(register(m.chain_complete, tok, sync=False))
-            if committed:
-                last = tok_chain[committed - 1]
-                local_ba()
-            if committed == len(tok_chain) and tok_nxt is not None:
-                tok, tok_chain = tok_nxt, nxt
-                i = nxt[-1] + 1
-            else:
-                if tok_nxt is not None:
-                    register(m.chain_abandon, tok_nxt, sync=False)
-                i, per_frame = (last + 1, False) if committed else (tok_chain[0], True)
-                tok = tok_chain = None
-            continue
+    last, i = 1, 2
+    while i < n_images:
         chain = [j for j in range(i, min(i + CHAIN, n_images))
                  if not m.is_image_processed(j)]
-        if not per_frame and len(chain) >= 2 and chain == list(range(chain[0], chain[-1] + 1)):
-            if pipelined and len(chain) == CHAIN:
-                tok = register(m.chain_dispatch, chain, last, opts, pad_to=CHAIN, sync=False)
-                tok_chain = chain
-                continue
+        if len(chain) >= 2 and chain == list(range(chain[0], chain[-1] + 1)):
             committed = sum(register(m.process_chain_k, chain, last, opts, pad_to=CHAIN))
             if committed:
                 last = chain[committed - 1]
@@ -1064,7 +1004,7 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
         if register(m.process, i, last, opts):
             last = i
             local_ba()
-        i, per_frame = i + 1, False
+        i += 1
     t0 = time.perf_counter()
     m.flush_ba()
     _sync(torch, dev)
@@ -1088,9 +1028,7 @@ def bench_loop(torch, dev, scene, prov, n_images, seed=0, keep_global=False, pip
     c = m.counters
     return m, {"wall_s": wall, "stages_s": st, "window_iters": window_iters,
                "global": ginfo, "chains": c.get("chains", 0), "pulls": c.get("pulls", 0),
-               "ba_applied": c.get("ba_applied", 0), "cont_chains": c.get("cont_chains", 0),
-               "cont_abandoned": c.get("cont_abandoned", 0),
-               "reg_wait_s": c.get("reg_wait_s", 0.0), "ba_solve_s": c.get("ba_solve_s", 0.0),
+               "ba_applied": c.get("ba_applied", 0),
                "two_stage_selfcal": "ba_selfcal_iters" in c,
                "window_prob": window_prob[0] if window_prob else None,
                "global_arrays": global_arrays}
@@ -1124,8 +1062,7 @@ def _map_state(m, ate):
 
 def chained_phase(torch, dev, name="chained"):
     """bench.py's chained loop over bench.py's 30-image scene. Returns
-    (launches, the map's state with the loop's wall seconds, the mapper,
-    its last window problem)."""
+    (launches, the map's state, the mapper, its last window problem)."""
     from mavmap_tpu_torch.ops.cuda import build
     from mavmap_tpu_torch.utils.synthetic import mapper_ate
 
@@ -1144,7 +1081,7 @@ def chained_phase(torch, dev, name="chained"):
     _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations",
                     min_one_pass=s["window_iters"])
     _check_matcher(name, m, launches, "pallas")
-    return launches, dict(_map_state(m, ate), wall_s=s["wall_s"]), m, s["window_prob"]
+    return launches, _map_state(m, ate), m, s["window_prob"]
 
 
 def check_repeat(first, second, name="chained"):
@@ -1743,119 +1680,8 @@ def pipeline_phase(torch, dev, scene, feats, tree):
     _check_launches("pipeline", launches, SURVEY_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations")
     _check_matcher("pipeline", m, launches, "pallas")
     _check_pose_lm("pipeline", launches, calls)
-    return dict(launches, match_batched_slots=slots["match_batched"]), dict(
-        _map_summary(res, scene, wall), peak=peak, held=held, counters=rep)
-
-
-def _pipelined_bench(torch, dev, name, on_cont=None):
-    """bench.py's pipelined loop over bench.py's 30-image scene. Returns
-    (launches, the map's state, the loop's stats)."""
-    from mavmap_tpu_torch.ops.cuda import build
-    from mavmap_tpu_torch.utils.synthetic import mapper_ate
-
-    scene, prov = _bench_scene()
-    build.reset_launches()
-    m, s = bench_loop(torch, dev, scene, prov, NUM_IMAGES, pipelined=True, on_cont=on_cont)
-    launches = dict(build.launches)
-    ate = float(mapper_ate(m, scene))
-    limit = min(0.05, 2.0 * JAX_CPU_PIPELINED_BENCH_ATE_M)
-    _report_loop(name, m, NUM_IMAGES, ate, limit, s, launches)
-    _check_map(m, NUM_IMAGES, NUM_IMAGES, ate, limit, name)
-    lm_iters = s["window_iters"] + s["global"]["iterations"]
-    _check_launches(name, launches, NUM_IMAGES - 1, lm_iters, f"{lm_iters} LM iterations",
-                    min_one_pass=s["window_iters"])
-    _check_matcher(name, m, launches, "pallas")
-    if s["cont_chains"] <= 0:
-        raise AssertionError(f"{name}: no continuation chain dispatched")
-    return launches, _map_state(m, ate), s
-
-
-def pipelined_phase(torch, dev, scene, feats, tree, chained, sync):
-    """Speculative chain pipelining: (a) bench.py's pipelined loop over its
-    30-image scene, twice (the second run counting the host syncs of each
-    continuation dispatch): 30/30, under min(0.05, 2x the JAX package's
-    pipelined ATE), the same bits twice, continuation chains dispatched;
-    frames/s beside the chained phase's (`chained`: its first run's map
-    state and wall). (b) run_pipeline(pipeline_chains=True) over the
-    survey with the pipeline phase's tree and options: the JAX package's
-    pipelined registered count, under 2x its ATE, closures and continuation
-    chains, K1-K3 launched; wall, frames/s, seconds of the chain steps and
-    of the loop beside the synchronous run's (`sync`: the pipeline phase's
-    summary). (c) Device memory: peak and held after (b) beside `sync`'s;
-    held may exceed it by at most PIPELINED_HELD_SLACK. Returns (the
-    launches of (a)'s first run, of its second, of (b))."""
-    from collections import Counter
-
-    from mavmap_tpu_torch.ops.cuda import build
-    from mavmap_tpu_torch.sfm.pipeline import PipelineOptions, run_pipeline
-    from mavmap_tpu_torch.utils.synthetic import mapper_ate
-    from mavmap_tpu_torch.utils.timer import count_syncs
-
-    _phase("pipelined")
-    la, first, sa = _pipelined_bench(torch, dev, "pipelined bench")
-    sites, per_cont = [], []
-
-    def counted(cont):
-        n, tok = count_syncs(cont, sites)
-        per_cont.append(n)
-        return tok
-
-    la2, second, _ = _pipelined_bench(torch, dev, "pipelined bench repeat", on_cont=counted)
-    check_repeat(first, second, "pipelined bench")
-    by_file = Counter(site.rsplit(":", 1)[0] for site in sites)
-    print(f"pipelined bench: {NUM_IMAGES / sa['wall_s']:.3f} frames/s against the chained "
-          f"loop's {NUM_IMAGES / chained['wall_s']:.3f} in this call; {sa['cont_chains']} "
-          f"continuation chains, {sa['cont_abandoned']} abandoned; pull wait "
-          f"{sa['reg_wait_s']:.4f} s, window solves {sa['ba_solve_s']:.4f} s; host syncs per "
-          f"continuation dispatch (repeat run) {per_cont}, by file {json.dumps(by_file)}",
-          flush=True)
-
-    opts = PipelineOptions(**PIPELINE_OPTS, pipeline_chains=True)
-    torch.cuda.reset_peak_memory_stats(dev)
-    build.reset_launches()
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    res = run_pipeline(scene.image_cameras, scene.cam_models, scene.cam_params,
-                       _provider(feats), opts, voc_tree=tree, device=dev)
-    _sync(torch, dev)
-    wall = time.perf_counter() - t0
-    lb = dict(build.launches)
-    peak, held = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
-    m = res.main_mapper
-    rep = m.report()
-    ate = float(mapper_ate(m, scene))
-    limit = 2.0 * JAX_CPU_PIPELINED_SURVEY_ATE_M
-    closures = rep.get("loop_closures", 0) + rep.get("sweep_closures", 0)
-    srep = sync["counters"]
-    keys = ("seq_chain_s", "seq_localba_s", "seq_detect_s", "ba_solve_s", "reg_wait_s",
-            "chains", "cont_chains", "cont_abandoned", "pulls", "loop_closures",
-            "sweep_closures")
-    print(f"pipelined survey: registered {m.num_proc_images}/{SURVEY_IMAGES} in "
-          f"{len(res.mappers)} map(s) in {wall:.3f} s = {SURVEY_IMAGES / wall:.3f} frames/s "
-          f"(synchronous {sync['wall']:.3f} s = {SURVEY_IMAGES / sync['wall']:.3f}); ATE "
-          f"{ate!r} m (limit {limit:.6f} m, the JAX package's "
-          f"{JAX_CPU_PIPELINED_SURVEY_ATE_M} m; synchronous {sync['ate']!r} m); {closures} "
-          f"closures", flush=True)
-    print("pipelined survey timings_s " + json.dumps({k: round(v, 4) for k, v in
-                                                      res.timings.items()}), flush=True)
-    print("pipelined survey against synchronous " + json.dumps(
-        {k: [rep.get(k, 0), srep.get(k, 0)] for k in keys}), flush=True)
-    print(f"pipelined survey device memory: peak {peak / 2**20:.1f} MiB, held after the run "
-          f"{held / 2**20:.1f} MiB (synchronous {sync['peak'] / 2**20:.1f} / "
-          f"{sync['held'] / 2**20:.1f} MiB); launches {json.dumps(lb)}", flush=True)
-    _check_map(m, SURVEY_IMAGES, JAX_CPU_PIPELINED_SURVEY_REGISTERED, ate, limit,
-               "pipelined survey")
-    if closures <= 0:
-        raise AssertionError("pipelined survey: no loop closure committed")
-    if rep.get("cont_chains", 0) <= 0:
-        raise AssertionError("pipelined survey: no continuation chain dispatched")
-    lm_iters = rep.get("ba_iters", 0) + rep.get("global_ba_iters", 0)
-    _check_launches("pipelined survey", lb, SURVEY_IMAGES - 1, lm_iters,
-                    f"{lm_iters} LM iterations")
-    if held > sync["held"] + PIPELINED_HELD_SLACK:
-        raise AssertionError(f"pipelined survey: {held} bytes held after the run against the "
-                             f"synchronous run's {sync['held']} (+{PIPELINED_HELD_SLACK} at most)")
-    return la, la2, lb
+    return (dict(launches, match_batched_slots=slots["match_batched"]),
+            _map_summary(res, scene, wall))
 
 
 def _map_summary(res, scene, wall):
@@ -3104,9 +2930,6 @@ def main():
     k4 = check_pose_lm(torch, dev, scene, feats, gt)
     tree = pipeline_tree(feats, dev)
     phases["pipeline"], pipe_ref = pipeline_phase(torch, dev, scene, feats, tree)
-    (phases["pipelined_bench"], phases["pipelined_bench_repeat"],
-     phases["pipelined_survey"]) = pipelined_phase(torch, dev, scene, feats, tree, first,
-                                                   pipe_ref)
     del tree
     phases["mesh"], km = mesh_phase(torch, dev, scene, feats, gt, survey_raw, pipe_ref)
     k1["batched"] += km["batched"]

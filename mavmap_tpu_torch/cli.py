@@ -3,20 +3,21 @@ src/mapper.cc.
 
 Port of mavmap_tpu/cli.py with the same flags, output files and return
 codes, plus --device (default: the CUDA card; --device cpu runs on the
-CPU). Input: a path holding `imagedata.txt` plus images (8-bit PNG or
-binary PGM, read without Pillow by utils/imageio.py) for the detector, or
-cached feature .npz files; output: estimated poses, point clouds and
-VRML/PLY models; sub-maps are merged into one unless --no-merge, and
---parallel-segments N maps N overlapping segments before that merge.
+CPU), less --pipeline-chains: the JAX package's speculative chain
+pipelining hides a pull latency the card does not have, and the port
+maps with the one chain schedule. Input: a path holding `imagedata.txt`
+plus images (8-bit PNG or binary PGM, read without Pillow by
+utils/imageio.py) for the detector, or cached feature .npz files;
+output: estimated poses, point clouds and VRML/PLY models; sub-maps are
+merged into one unless --no-merge, and --parallel-segments N maps N
+overlapping segments before that merge.
 --mesh N runs the mapping on N torch.distributed ranks (started here
 through parallel.launch, or the ranks of a torchrun environment): the
 global bundle adjustment is sharded by 3-D point and the batched fan-outs
 split their slots over the ranks; rank 0 writes the outputs, and the exit
 code is rank 0's once every rank has finished (a rank that fails makes it
 non-zero). --matcher-backend takes the JAX CLI's values: auto and pallas
-run CUDA kernel K1, xla the plain PyTorch matcher. --pipeline-chains
-keeps one speculative continuation chain in flight in the sequential loop
-(PipelineOptions.pipeline_chains), off by default as in the JAX CLI.
+run CUDA kernel K1, xla the plain PyTorch matcher.
 
 Usage:
     python -m mavmap_tpu_torch.cli --input-path DATA/ --output-path OUT/ \
@@ -147,11 +148,6 @@ def build_parser():
                         "round-trip per frame instead of per pair)")
     p.add_argument("--chain-len", type=int, default=4,
                    help="frames registered per chained device program")
-    p.add_argument("--pipeline-chains", action="store_true",
-                   help="speculative chain pipelining: dispatch the next "
-                        "chain on the in-flight chain's device state "
-                        "before pulling it (off by default, see "
-                        "PipelineOptions.pipeline_chains)")
     p.add_argument("--parallel-segments", type=int, default=1,
                    help="map N overlapping sequence segments, one mapper "
                         "each, their chains dispatched in turn, then merge "
@@ -255,7 +251,6 @@ def pipeline_options(args, loop_detection):
         merge=not args.no_merge,
         chain_frames=not args.no_chain_frames,
         chain_len=args.chain_len,
-        pipeline_chains=args.pipeline_chains,
         parallel_segments=args.parallel_segments,
         segment_overlap=args.segment_overlap,
         final_closure_sweeps=args.final_closure_sweeps,

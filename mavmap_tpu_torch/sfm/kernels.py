@@ -1,9 +1,8 @@
 """Device steps of the sequential mapper.
 
 Port of mavmap_tpu/sfm/kernels.py (`two_view_init`, `register_view`, the
-chained `register_chain` / `register_chain_fresh` / `register_chain_cont`
-with their device copy of the commit's track rules `_derive_chain_state`,
-the batched
+chained `register_chain` / `register_chain_fresh` with their device copy
+of the commit's track rules `_derive_chain_state`, the batched
 `two_view_init_batch` / `register_view_batch` / `register_view_pairs`, and
 the host unpacking). Each step runs on the device of its input tensors and
 returns packed buffers, `rows` (F, 9|12) and `scalars` (21|13) per frame
@@ -365,7 +364,7 @@ def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
 
 def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials, hom_trials, refine_iters,
-                         samples, matcher, cont_state=None, cont_pose=None):
+                         samples, matcher):
     """K consecutive frame registrations: frame k anchors on track state
     derived on the device from frame k-1's results (`_derive_chain_state`),
     so the host pulls once per K frames instead of once per frame.
@@ -384,11 +383,7 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
         anchor_row] + per frame [nt | tri_nt | cam_model | cam_params(9)].
         The key counter is unused (the generator carries the RNG state);
       ba_poses/ba_points (fresh variant): the window-BA solve's output
-        tensors; the anchor's pose and 3-D points are read from them;
-      cont_state (F, 6) / cont_pose (6,) (continuation variant): a previous
-        chain's end_state / end_pose on the device; the anchor's track
-        state and pose come from them, and track_state and scal[0:6] are
-        ignored.
+        tensors; the anchor's pose and 3-D points are read from them.
     The K register_view steps run as a Python loop with no host pull
     between frames (the JAX package scans them in one program). samples:
     optional list of K per-frame sample tuples (see register_view).
@@ -396,12 +391,12 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     end_state (F, 6), end_pose (6,)): has_tri_in[k] is the anchor has_tri
     state frame k registered against; end_state is the last frame's
     derived [xyz(3) | has_tri | stable | track_len] and end_pose its
-    [rvec | tvec], which a continuation chain anchors on.
+    [rvec | tvec], as the JAX package returns them.
     """
     dev = kp_p.device
     K = len(feats_k)
     scal_h = np.asarray(scal, np.float32)
-    sync(1 + (cont_state is None))  # the blocking copies of scal (and track_state)
+    sync(2)  # the blocking copies of scal and track_state
     scal_d = torch.as_tensor(scal_h, device=dev)
     ratio, max_distance = float(scal_h[6]), float(scal_h[7])
     min_tri_angle = float(scal_h[8])
@@ -409,10 +404,7 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     per = scal_h[12:].reshape(K, 12)
     per_d = scal_d[12:].reshape(K, 12)
 
-    if cont_state is not None:
-        state, rvec, tvec = cont_state, cont_pose[:3], cont_pose[3:]
-    else:
-        state, rvec, tvec = torch.as_tensor(track_state, device=dev), scal_d[0:3], scal_d[3:6]
+    state, rvec, tvec = torch.as_tensor(track_state, device=dev), scal_d[0:3], scal_d[3:6]
     xyz = state[:, :3]
     has_tri = state[:, 3] > 0.5
     stable = state[:, 4] > 0.5
@@ -464,20 +456,6 @@ def register_chain_fresh(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     return _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state,
                                 scal, ba_poses, ba_points, p3p_trials, hom_trials,
                                 refine_iters, samples, matcher)
-
-
-def register_chain_cont(generator, kp_a, d_a, m_a, n_a, feats_k, cont_state, cont_pose, scal,
-                        p3p_trials=512, hom_trials=128, refine_iters=30, matcher="pallas",
-                        samples=None):
-    """Chain registration anchored on a previous chain's end state on the
-    device (speculative pipelining): cont_state (F, 6) and cont_pose (6,)
-    are that chain's end_state / end_pose outputs, and kp_a / d_a / m_a /
-    n_a its last frame's features. The mapper dispatches it before that
-    chain's results reach the host. scal[0:6] (the anchor pose) is
-    ignored."""
-    return _register_chain_impl(generator, kp_a, d_a, m_a, n_a, feats_k, None, scal, None,
-                                None, p3p_trials, hom_trials, refine_iters, samples, matcher,
-                                cont_state=cont_state, cont_pose=cont_pose)
 
 
 def register_view_batch(generator, kpp, desc_p, mask_p, np_, kp_curr, desc_c, mask_c, nc_,

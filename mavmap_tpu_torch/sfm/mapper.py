@@ -15,9 +15,6 @@ scalars:
   process_chain_k (chain_dispatch + chain_complete): K frames registered
   in one step, each anchored on the state derived on the device from the
   frame before, pulled once, then gated and committed frame by frame;
-  chain_dispatch_cont / chain_abandon: speculative chain pipelining, the
-  next chain dispatched on the in-flight chain's end state on the device
-  before that chain is pulled, and dropped where it does not commit whole;
   process_initial_batch, detect_loop (_batch_register_candidates),
   batch_register_pairs and batch_detect_closures: many pairs registered in
   one batched step (one batched K1 launch), committed in order with the
@@ -66,10 +63,9 @@ from ..ops.rotation import rotmat_from_rvec, rvec_from_rotmat
 from ..utils.device import resolve_device
 from ..utils.mathx import rel2abs_threshold
 from ..utils.timer import span, sync
-from .kernels import (register_chain, register_chain_cont, register_chain_fresh,
-                      register_view, register_view_batch, register_view_pairs,
-                      two_view_init, two_view_init_batch, unpack_register,
-                      unpack_two_view)
+from .kernels import (register_chain, register_chain_fresh, register_view,
+                      register_view_batch, register_view_pairs, two_view_init,
+                      two_view_init_batch, unpack_register, unpack_two_view)
 from .options import SequentialMapperOptions
 
 
@@ -92,13 +88,11 @@ class _LRUCache(OrderedDict):
 
 
 class _ChainToken(NamedTuple):
-    """A dispatched chain, for chain_complete / chain_abandon /
-    chain_dispatch_cont: its device outputs (rows, scalars, has_tri_in,
-    end_state, end_pose), the host copies of the first three issued at
-    dispatch with the CUDA event recorded behind them (None on the CPU),
-    its frames (padded to K) and the real count, its anchor image, and the
-    anchor's point2D ids and has_tri (None for a continuation chain: they
-    are read at completion, once the anchor has committed)."""
+    """A dispatched chain, for chain_complete: its device outputs (rows,
+    scalars, has_tri_in, end_state, end_pose), the host copies of the
+    first three issued at dispatch with the CUDA event recorded behind
+    them (None on the CPU), its frames (padded to K) and the real count,
+    its anchor image, and the anchor's point2D ids and has_tri."""
 
     out: tuple
     host: tuple
@@ -518,10 +512,7 @@ class SequentialMapper:
                 matcher=self._matcher_backend(options))
         # The JAX package's schedule: register first, then dispatch the
         # previous frame's deferred window solve, pull the outputs with
-        # the results of the solve dispatched a step earlier. (Unlike a
-        # chain, this step needs no early copy, _copy_early: the solve runs
-        # when dispatched and no speculative step follows, so nothing
-        # queues behind its outputs.)
+        # the results of the solve dispatched a step earlier.
         pulled = self._pull_with_pending(out)
         with span("register.commit", "reg_commit_s", self):
             r = unpack_register(*pulled)
@@ -671,11 +662,10 @@ class SequentialMapper:
     def _copy_early(out):
         """Issue the host copies of a chain's rows, scalars and has_tri_in
         right behind the chain, into pinned host tensors, and record a
-        CUDA event behind them (the JAX package's _copy_async). On the one
-        in-order stream a copy runs after everything enqueued before it:
-        issued at completion, it would wait behind a continuation chain
-        dispatched in between. Returns (host tensors, event); on the CPU
-        the outputs are host tensors already and the event is None."""
+        CUDA event behind them (the JAX package's _copy_async): the chain's
+        pull then waits for that one event, one host sync instead of a
+        blocking copy per output. Returns (host tensors, event); on the
+        CPU the outputs are host tensors already and the event is None."""
         if out[0].device.type != "cuda":
             return tuple(out[:3]), None
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out[:3])
@@ -690,7 +680,7 @@ class SequentialMapper:
         """First half of process_chain_k: dispatch the deferred window
         solves, then register the chain and issue the host copies of its
         outputs, without waiting for them. Returns a token for
-        chain_complete (or chain_dispatch_cont)."""
+        chain_complete."""
         options = options or SequentialMapperOptions()
         if not self.is_image_processed(prev_image_idx):
             raise ValueError("chain needs a processed previous image")
@@ -758,60 +748,6 @@ class SequentialMapper:
         return _ChainToken(out, host, ready, idxs, n_real, prev_image_idx, prev_p2d, has_tri,
                            tri_nts, options)
 
-    def chain_dispatch_cont(self, idxs, prev_token,
-                            options: SequentialMapperOptions = None, pad_to=None):
-        """Speculative chain dispatch: register `idxs` anchored on the
-        in-flight previous chain's end state on the device
-        (kernels.register_chain_cont), before that chain is pulled, so its
-        pull and host commit overlap this chain's device work.
-
-        The speculation assumes the previous chain commits all its frames;
-        where it does not, this chain anchored on a pose that never
-        committed and the caller must chain_abandon its token (then go on
-        from the committed frames). The deferred window solves stashed
-        since the last dispatch run ahead of this chain, so a solve still
-        runs once per chain; they refine the store, while this chain's
-        anchor comes from the device state. Returns a token for
-        chain_complete."""
-        options = options or SequentialMapperOptions()
-        if prev_token.n_real != len(prev_token.idxs):
-            # A padded chain registers its last frame against itself in the
-            # padding steps, so its end state no longer describes the last
-            # real frame.
-            raise ValueError("a continuation chain needs a full (unpadded) previous chain")
-        anchor_idx = prev_token.idxs[-1]
-        for i in idxs:
-            if self.is_image_processed(i):
-                raise ValueError("chain frames must be unprocessed")
-
-        n_real = len(idxs)
-        K = max(pad_to or n_real, n_real)
-        idxs = list(idxs) + [idxs[-1]] * (K - n_real)
-        with span("register.prepare", "reg_prepare_s", self):
-            kp_a, d_a, m_a, n_a = self._device_features(anchor_idx)
-            feats = tuple(self._device_features(i) for i in idxs)
-        self._pending_ba += self._dispatch_deferred_ba()
-        with span("register.prepare", "reg_prepare_s", self):
-            tri_nts, scal = self._chain_scal(idxs, options)
-        with span("register.dispatch", "reg_dispatch_s", self):
-            out = register_chain_cont(self._gen, kp_a, d_a, m_a, n_a, feats, prev_token.out[3],
-                                      prev_token.out[4], scal,
-                                      p3p_trials=options.p3p_ransac_trials,
-                                      matcher=self._matcher_backend(options))
-            host, ready = self._copy_early(out)
-        self._count("chains")
-        self._count("cont_chains")
-        return _ChainToken(out, host, ready, idxs, n_real, anchor_idx, None, None, tri_nts,
-                           options)
-
-    def chain_abandon(self, token):
-        """Drop a speculative chain whose anchor never committed: wait for
-        its host copies, land the pending window solves in dispatch order
-        (as its pull would) and discard its outputs. Its RANSAC draws stay
-        spent."""
-        self._pull_with_pending(token.host, token.ready)
-        self._count("cont_abandoned")
-
     def chain_complete(self, token, debug=False):
         """Second half of process_chain_k: wait for the chain's host copies,
         land the pending window solves (in dispatch order), run the host
@@ -821,16 +757,6 @@ class SequentialMapper:
         with span("register.commit", "reg_commit_s", self):
             anchor_idx, anchor_p2d = token.anchor_idx, token.anchor_p2d
             anchor_has_tri = token.has_tri
-            if anchor_p2d is None:
-                # A continuation chain: its anchor must have committed by now
-                # (the caller abandons the token otherwise).
-                if not self.is_image_processed(anchor_idx):
-                    raise ValueError("continuation chain completed before its anchor "
-                                     "committed: chain_abandon it when the previous chain "
-                                     "fails")
-                anchor_p2d = self.store.point2D_ids_of_image(self.image_idx_to_id[anchor_idx])
-                anchor_has_tri = has_tri_in[0]
-
             oks = []
             for k, idx in enumerate(token.idxs[:token.n_real]):
                 r = unpack_register(rows_all[k], scalars_all[k])

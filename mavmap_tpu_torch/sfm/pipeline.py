@@ -10,10 +10,8 @@ skipped frames, the global bundle adjustment, the merge of the sub-maps
 into one (merge_mappers, SequentialMapper.merge; mapper.cc:302-379), the
 final closure sweeps, ground-control-point geo-registration and the
 point-cloud filter; IMU rotation priors in every bundle adjustment, map
-checkpoints with resume, and the debug dumps. With pipeline_chains the
-sequential loop keeps one speculative continuation chain in flight
-(SequentialMapper.chain_dispatch_cont), off by default as in the JAX
-package. Every mapping step runs on the device given to run_pipeline.
+checkpoints with resume, and the debug dumps. Every mapping step runs on
+the device given to run_pipeline.
 With mesh_devices > 1 the run spans that many torch.distributed ranks
 (parallel/), each mapping alike: the batched fan-outs split their slots
 over the ranks, the global bundle adjustment is sharded by 3-D point, and
@@ -93,16 +91,6 @@ class PipelineOptions:
     # to the per-frame path. One window solve per chain.
     chain_frames: bool = True
     chain_len: int = 4
-    # Speculative chain pipelining: dispatch chain k+1 on chain k's end
-    # state on the device before chain k is pulled, so chain k's pull and
-    # host commit overlap chain k+1's device work
-    # (SequentialMapper.chain_dispatch_cont); a chain that fails mid-way
-    # abandons the speculation and the loop goes on from the committed
-    # frames. Not under debug or constrain_rotation (the IMU pre-alignment
-    # rotates the model between chains, which would orphan a chain anchored
-    # on the state before the rotation), and not in the segment loop. Off by
-    # default, as in the JAX package.
-    pipeline_chains: bool = False
     # Segment-parallel mapping: split [start, end] into this many segments
     # that overlap by segment_overlap frames (at least 3, what the merge
     # needs), map each with its own mapper, their chains dispatched in turn,
@@ -729,23 +717,6 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                    nh_distance=opts.loop_detection_nh_dist, verbose=opts.verbose)
             count_since_loop = 0
 
-    def after_chain_commit(committed_chain, committed):
-        # The bookkeeping of each committed chain.
-        nonlocal count_since_loop, prev_idx, num_skipped, idx
-        for j in committed_chain[:committed]:
-            if opts.verbose:
-                print(f"Processed image #{j} (points3D={mapper.store.num_points3D})")
-        count_since_loop += committed
-        prev_idx = committed_chain[committed - 1]
-        num_skipped = 0
-        idx = prev_idx + 1
-        # One window solve per chain, deferred onto the next register
-        # step: the window covers every frame the chain added.
-        with span("loop.local_ba", "seq_localba_s", mapper):
-            _local_ba(mapper, opts, rot_priors)
-        periodic_detect(prev_idx)
-        maybe_checkpoint(mapper)
-
     with stage("sequential_loop"):
         segment_range = {}  # mapper -> its segment (lo, hi) in segment-parallel mode
         if resume_from and opts.parallel_segments > 1 and opts.verbose:
@@ -815,53 +786,29 @@ def run_pipeline(image_cameras, cam_models, cam_params, provider, opts: Pipeline
                         break
                     chain.append(j)
             if len(chain) >= 2:
-                # seq_chain_s: the chain steps, without the bookkeeping of the
-                # chains they commit (after_chain_commit).
-                if (opts.pipeline_chains and not debug and not opts.constrain_rotation
-                        and len(chain) == opts.chain_len):
-                    # Speculative pipelining (PipelineOptions.pipeline_chains):
-                    # one continuation chain in flight.
-                    with span("loop.chain", "seq_chain_s", mapper):
-                        tok, tok_chain = mapper.chain_dispatch(chain, prev_idx, seq_opts,
-                                                               pad_to=opts.chain_len), chain
-                    while tok is not None:
-                        with span("loop.chain", "seq_chain_s", mapper):
-                            nstart = tok_chain[-1] + 1
-                            nxt = [j for j in range(nstart, min(nstart + opts.chain_len, end + 1))
-                                   if not mapper.is_image_processed(j)]
-                            tok_nxt = None
-                            if (len(tok_chain) == opts.chain_len and len(nxt) >= 2
-                                    and nxt == list(range(nstart, nstart + len(nxt)))):
-                                # The maturity ramp counts the in-flight chain's
-                                # frames as committed.
-                                spec_opts = _mapper_options(
-                                    opts, num_proc=mapper.num_proc_images + len(tok_chain))
-                                tok_nxt = mapper.chain_dispatch_cont(nxt, tok, spec_opts,
-                                                                     pad_to=opts.chain_len)
-                            committed = sum(mapper.chain_complete(tok))
-                        if committed:
-                            after_chain_commit(tok_chain, committed)
-                        if committed == len(tok_chain) and tok_nxt is not None:
-                            tok, tok_chain = tok_nxt, nxt
-                        else:
-                            if tok_nxt is not None:
-                                with span("loop.chain", "seq_chain_s", mapper):
-                                    mapper.chain_abandon(tok_nxt)
-                            tok = None
-                    if committed:
-                        continue
-                    # The last chain in flight failed at its first frame: the
-                    # per-frame path below takes that frame (the chains before
-                    # it committed and moved prev_idx on).
-                    idx = tok_chain[0]
-                else:
-                    with span("loop.chain", "seq_chain_s", mapper):
-                        oks = mapper.process_chain_k(chain, prev_idx, seq_opts,
-                                                     pad_to=opts.chain_len, debug=debug)
-                    committed = sum(oks)
-                    if committed:
-                        after_chain_commit(chain, committed)
-                        continue
+                # seq_chain_s: the chain step, without the bookkeeping of
+                # the frames it commits.
+                with span("loop.chain", "seq_chain_s", mapper):
+                    oks = mapper.process_chain_k(chain, prev_idx, seq_opts,
+                                                 pad_to=opts.chain_len, debug=debug)
+                committed = sum(oks)
+                if committed:
+                    for j in chain[:committed]:
+                        if opts.verbose:
+                            print(f"Processed image #{j} "
+                                  f"(points3D={mapper.store.num_points3D})")
+                    count_since_loop += committed
+                    prev_idx = chain[committed - 1]
+                    num_skipped = 0
+                    idx = prev_idx + 1
+                    # One window solve per chain, deferred onto the next
+                    # register step: the window covers every frame the chain
+                    # added.
+                    with span("loop.local_ba", "seq_localba_s", mapper):
+                        _local_ba(mapper, opts, rot_priors)
+                    periodic_detect(prev_idx)
+                    maybe_checkpoint(mapper)
+                    continue
                 # The chain's first frame failed its gates: the per-frame path
                 # below takes it (rescue, skip, sub-map restart).
             success = mapper.process(idx, prev_idx, seq_opts, debug=debug)

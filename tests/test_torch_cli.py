@@ -16,8 +16,8 @@ JAX package's.
   - --parallel-segments 2 writes its outputs from one merged map;
   - the CLI refuses to run on the CPU unless --device cpu is given (--mesh
     runs: tests/test_torch_parallel.py);
-  - --pipeline-chains (speculative chain pipelining) writes the outputs
-    and registers the default run's images;
+  - --pipeline-chains, the JAX CLI's speculative chain pipelining, is
+    refused with argparse's usage error (the port leaves it out);
   - --matcher-backend xla (the plain PyTorch matcher) writes the outputs
     of the default run.
 """
@@ -297,21 +297,15 @@ def test_cli_matcher_backend_xla_writes_the_default_outputs(cli_runs):
     assert len(_rows(out / "points3D.txt")) == len(_rows(tmp / "tout" / "points3D.txt"))
 
 
-def test_cli_pipeline_chains_maps(cli_runs):
-    """--pipeline-chains reaches run_pipeline and maps (its chain over
-    frames 2-5 takes the pipelined branch; six frames leave no room for a
-    continuation): exit 0, every output file of the default run written,
-    the same images registered."""
-    tmp, _, _, default = cli_runs
-    out = tmp / "pipelined"
-    run = tcli.run(["--input-path", str(tmp / "data"), "--output-path", str(out),
-                    "--cache-path", str(tmp / "tcache"), "--device", "cpu",
-                    "--pipeline-chains"] + FLAGS)
-    assert run.rc == 0
-    assert sorted(os.listdir(out)) == sorted(os.listdir(tmp / "tout"))
-    assert [r[0] for r in _rows(out / "imagedataout.txt")] == \
-        [r[0] for r in _rows(tmp / "tout" / "imagedataout.txt")] == [f"img{i}" for i in range(N)]
-    assert run.result.main_mapper.report()["chains"] == 1
+def test_cli_rejects_pipeline_chains(tmp_path, capsys):
+    """The JAX CLI's --pipeline-chains is not a flag of the port: argparse
+    exits 2 naming it, before any work."""
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["--input-path", str(tmp_path), "--output-path", str(tmp_path / "out"),
+                   "--device", "cpu", "--pipeline-chains"] + FLAGS)
+    assert e.value.code == 2
+    assert "unrecognized arguments: --pipeline-chains" in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()
 
 
 def test_fingerprint_holds_every_detector_parameter():

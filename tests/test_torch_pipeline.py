@@ -18,9 +18,8 @@ leaves no doubt:
     and "pallas" (kernel K1's plain version on the CPU, as "auto") maps
     the "auto" run's frames to the same poses, and records the backend.
 Sub-map merging and segment-parallel mapping are held in
-tests/test_torch_merge.py and tests/test_torch_segments.py, pipeline_chains
-in tests/test_torch_pipelined.py, mesh_devices in
-tests/test_torch_parallel.py.
+tests/test_torch_merge.py and tests/test_torch_segments.py, mesh_devices
+in tests/test_torch_parallel.py.
 """
 
 import numpy as np

@@ -13,11 +13,14 @@ JAX package.
   - chained registration: _derive_chain_state exactly equal on the same
     rows; register_chain (K=3) with every frame's RANSAC samples derived
     from the JAX package's in-program keys: match rows and counts exactly
-    equal, refined poses at 1e-4, and the end state a continuation chain
-    anchors on (tests/test_torch_pipelined.py holds those chains); the chained loop with deferred window BA
-    of tests/test_sfm.py through both mappers (outcome-based, as above:
-    14/14 each, the port's ATE at most max(2 x JAX's, 0.02 m)); and the
-    deferred/asynchronous BA schedule itself;
+    equal, refined poses at 1e-4, and the end state it returns; the
+    chained loop with deferred window BA of tests/test_sfm.py through both
+    mappers (outcome-based, as above: 14/14 each, the port's ATE at most
+    max(2 x JAX's, 0.02 m)); a chain refused before any work; the same
+    kind of loop with one frame's descriptors replaced by noise, first, in
+    the middle or last in its chain: both mappers register the same
+    frames, that one not among them; and the deferred/asynchronous BA
+    schedule itself;
   - the batched steps (two_view_init_batch, register_view_batch,
     register_view_pairs) with every slot's samples derived from the JAX
     package's keys (jax.random.split(key, B), then the step's own split):
@@ -635,9 +638,9 @@ def test_register_chain_matches_jax(chain_scene, rng):
         np.testing.assert_array_equal(sc_t[k, [0, 2, 3, 4, 5]], sc_j[k, [0, 2, 3, 4, 5]])
         assert sc_t[k, 5] == 1.0 and sc_t[k, 4] > 20
         np.testing.assert_allclose(sc_t[k, 7:13], sc_j[k, 7:13], rtol=0, atol=1e-4)
-    # The end state continuation chains anchor on: the last frame's track
-    # flags and lengths exactly, its pose at 1e-4, its 3-D points at 1e-4
-    # of the map's extent (new points triangulate from those poses).
+    # The end state: the last frame's track flags and lengths exactly, its
+    # pose at 1e-4, its 3-D points at 1e-4 of the map's extent (new points
+    # triangulate from those poses).
     assert es_t.shape == es_j.shape == (F, 6) and ep_t.shape == ep_j.shape == (6,)
     np.testing.assert_array_equal(es_t[:, 3:], es_j[:, 3:])
     assert es_t[:, 3].sum() > 20
@@ -698,6 +701,102 @@ def test_chained_deferred_loop_matches_jax():
     rep = mt.report()
     assert rep["chains"] == 3 and rep["pulls"] == 3 and rep["ba_applied"] == 3
     assert not mt._pending_ba and not mt._deferred_ba
+
+
+@pytest.mark.parametrize("case", ["anchor not in the map", "frame in the map"])
+def test_chain_dispatch_refuses_a_bad_chain(chain_scene, case):
+    """chain_dispatch raises before any work where its anchor is not in the
+    map or one of its frames already is: no RANSAC draw spent, no chain
+    counted, and the next chain registers as if it had not been called."""
+    scene, feats, _ = chain_scene
+    m = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                         ArrayFeatureProvider(feats, capacity=F), device=CPU, seed=0)
+    opts = SequentialMapperOptions(tri_min_angle=1.0, essential_ransac_trials=TRIALS,
+                                   p3p_ransac_trials=TRIALS)
+    assert m.process_initial(0, 1, opts)
+    state = m._gen.get_state()
+    if case == "anchor not in the map":
+        with pytest.raises(ValueError, match="processed previous image"):
+            m.chain_dispatch([3, 4], 2, opts)
+    else:
+        with pytest.raises(ValueError, match="must be unprocessed"):
+            m.chain_dispatch([1, 2], 0, opts)
+    assert torch.equal(m._gen.get_state(), state) and "chains" not in m.report()
+    assert m.process_chain_k([2, 3], 1, opts) == [True, True]
+
+
+# tests/test_sfm.py's speculative loop scene: chains of 4 over 14 images.
+FAIL_SCENE = dict(num_images=14, num_points=2600, relief=10.0, rows=1, seed=25)
+FAIL_RENDER = dict(pixel_noise=0.3, clutter=24, seed=25)
+FAIL_OPTS = dict(tri_min_angle=1.0, essential_ransac_trials=256, p3p_ransac_trials=256)
+
+
+def _run_chained_with_failures(mapper, opts, init_opts, ba_options_cls, n, ch=4):
+    """The chained loop of run_pipeline's sequential step: a chain of up to
+    `ch` frames from the committed frontier; where it commits only some,
+    the next chain starts after them; where its first frame fails, that
+    frame goes through process() and is skipped if that fails too. One
+    deferred window-8 BA per commit, flush_ba, global BA. Returns each
+    chain's (frames, oks)."""
+    assert mapper.process_initial(0, 1, init_opts)
+
+    def local_ba():
+        window = sorted(mapper.image_idx_to_id.keys())[-8:]
+        if len(window) > 2:
+            mapper.adjust_bundle(window[2:], window[:2],
+                                 ba_options=ba_options_cls(max_num_iterations=6),
+                                 async_=True, defer=True)
+
+    last, i, chains = 1, 2, []
+    while i < n:
+        chain = list(range(i, min(i + ch, n)))
+        if len(chain) >= 2:
+            oks = mapper.process_chain_k(chain, last, opts, pad_to=ch)
+            chains.append((chain, oks))
+            committed = sum(oks)
+            if committed:
+                last = chain[committed - 1]
+                local_ba()
+                i = last + 1
+                continue
+        if mapper.process(i, last, opts):
+            last = i
+            local_ba()
+        i += 1
+    mapper.flush_ba()
+    mapper.adjust_global_bundle(ba_options_cls(max_num_iterations=30))
+    return chains
+
+
+@pytest.mark.parametrize("blackout", [6, 8, 9], ids=["first", "middle", "last"])
+def test_chained_loop_with_a_failed_frame_matches_jax(blackout):
+    """One frame's descriptors replaced by unit noise, first, in the middle
+    or last in its chain (chains 2-5, 6-9, 10-13): in both mappers the
+    chain 6-9 commits the frames before it and stops there, the loop goes
+    on from the committed frames, and every other frame is registered in
+    the end, with no solve left pending or deferred."""
+    scene = make_uav_scene(**FAIL_SCENE)
+    feats, _ = render_features(scene, **FAIL_RENDER)
+    d = np.random.default_rng(0).normal(size=feats[blackout][1].shape).astype(np.float32)
+    feats[blackout] = (feats[blackout][0], d / np.linalg.norm(d, axis=1, keepdims=True))
+    cap = int(np.ceil(max(len(k) for k, _ in feats) / 256)) * 256
+    n = FAIL_SCENE["num_images"]
+    mt = SequentialMapper(scene.image_cameras, scene.cam_models, scene.cam_params,
+                          ArrayFeatureProvider(feats, capacity=cap), device=CPU, seed=0)
+    js = j_scene(**FAIL_SCENE)
+    mj = JMapper(js.image_cameras, js.cam_models, js.cam_params, JProvider(feats, capacity=cap),
+                 seed=0, store_backend="python")
+    init = dict(FAIL_OPTS, tri_min_angle=2.0)
+    chains_t = _run_chained_with_failures(mt, SequentialMapperOptions(**FAIL_OPTS),
+                                          SequentialMapperOptions(**init), BAOptions, n)
+    chains_j = _run_chained_with_failures(mj, JOpts(**FAIL_OPTS), JOpts(**init), JBAOptions, n)
+    stopped = [True] * (blackout - 6) + [False]
+    for chains in (chains_t, chains_j):
+        assert ([6, 7, 8, 9], stopped) in chains, chains
+    others = [i for i in range(n) if i != blackout]
+    assert sorted(mt.image_idx_to_id) == sorted(mj.image_idx_to_id) == others
+    assert not mt._pending_ba and not mt._deferred_ba
+    assert not getattr(mj, "_pending_ba", None) and not getattr(mj, "_deferred_ba", None)
 
 
 def test_deferred_ba_schedule(chain_scene, monkeypatch):
