@@ -70,7 +70,7 @@ from ..ops.cuda.ba_accum import (
 from ..ops.cuda.pose_lm import pose_lm
 from ..ops.rotation import rotmat_from_rvec
 from ..utils.device import resolve_device
-from ..utils.timer import owner_counters, span, sync
+from ..utils.timer import count, span, sync
 from . import colmath as cm
 
 BA_POSE_FREE = 0
@@ -558,44 +558,45 @@ def _lm_step(prob: BAProblem, poses, points_d, lam, scale, psum=None):
 
 
 class _Stretches:
-    """Runs one solve's stretches of device work, each between two host
-    reads of the LM or CG loop, under a key naming the stretch.
+    """Runs stretches of device work, each between two host reads, under a
+    key naming the stretch.
 
     Eager (`graphed` False: the CPU, the psum path, tests) a stretch is a
-    plain call. Graphed (a CUDA device without psum) a stretch is captured
-    on its first run, on a side stream into one memory pool that the solves
-    share (_graph_resources), as CUDA graphs cut at each K2 / K3 call
+    plain call. Graphed (on a CUDA device) a stretch is captured on its
+    first run, on a side stream into a memory pool of the runner's `name`
+    (_graph_resources), as CUDA graphs cut at each hand-kernel call
     (_kernel): the pieces between the calls are graphs, and each call runs
     eagerly through its Python entry point, so every launch of a hand
-    kernel is made where an eager solve makes it. Every later run replays
+    kernel is made where an eager run makes it. Every later run replays
     the pieces and repeats the calls in order on the same tensors, copying
-    each call's result into the one that the next piece reads: the same
-    kernels on the same inputs, so the same bits, with the host launching a
-    few graphs and calls instead of every op. The pieces and calls run on
-    the current stream; the side stream only records. The loop state that a
-    stretch updates is `carry`'d: copied in place into the tensors that the
-    graphs read. A replay adds no host read: the loops read the same flags
-    at the same points either way. The owning mapper counts
-    ba_graph_captures and ba_graph_replays, one per stretch run. `close()`
-    resets the graphs when the solve ends."""
+    each call's result (a tensor or a tuple of them) into the one that the
+    next piece reads: the same kernels on the same inputs, so the same
+    bits, with the host launching a few graphs and calls instead of every
+    op. The pieces and calls run on the current stream; the side stream
+    only records. Loop state that a stretch updates is `carry`'d: copied
+    in place into the tensors that the graphs read. A replay adds no host
+    read. The owning mapper counts <name>_graph_captures and
+    <name>_graph_replays, one per stretch run.
 
-    def __init__(self, graphed, device=None):
+    Two runners use it. "ba": a solve's LM and CG loops (on a CUDA device
+    without psum), K2 / K3 cut out, graphs that last one solve: `close()`
+    resets them when it ends. "reg": the registration chain's frame steps
+    (sfm/kernels.py), K4 cut out, graphs that last the process: one runner
+    per device, never closed, replayed by every later chain."""
+
+    def __init__(self, graphed, device=None, name="ba"):
         self.graphed = graphed
         self.runs = {}
         if graphed:
             self.device = torch.device(device)
-            self.stream, self.pool = _graph_resources(self.device)
-            self.counters = owner_counters()
+            self.stream, self.pool = _graph_resources(self.device, name)
+            self.names = (f"{name}_graph_captures", f"{name}_graph_replays")
 
     @staticmethod
     def carry(state, **values):
         """Set loop state in place: copy each value into its entry."""
         for name, value in values.items():
             state[name].copy_(value)
-
-    def _count(self, name):
-        if self.counters is not None:
-            self.counters[name] = self.counters.get(name, 0) + 1
 
     def __call__(self, key, fn):
         """fn() run as the stretch `key`; a replay returns the outputs of
@@ -609,8 +610,9 @@ class _Stretches:
                 graph.replay()
                 if call is not None:
                     kernel, args, result = call
-                    result.copy_(kernel(*args))
-            self._count("ba_graph_replays")
+                    for r, new in zip(_tensors(result), _tensors(kernel(*args))):
+                        r.copy_(new)
+            count(self.names[1])
             return out
         global _capture
         with torch.cuda.device(self.device):
@@ -632,7 +634,7 @@ class _Stretches:
                 _capture = None
                 torch.cuda.set_stream(self.current)
         self.runs[key] = (self.pieces, out)
-        self._count("ba_graph_captures")
+        count(self.names[0])
         return out
 
     def _begin(self):
@@ -651,8 +653,9 @@ class _Stretches:
         return graph
 
     def kernel(self, fn, args):
-        """fn(*args), a K2 / K3 call met while capturing: it ends the piece,
-        runs eagerly, is repeated on every replay, and a new piece starts."""
+        """fn(*args), a hand-kernel call met while capturing: it ends the
+        piece, runs eagerly, is repeated on every replay, and a new piece
+        starts."""
         graph = self._end()
         result = fn(*args)
         self.pieces.append((graph, (fn, args, result)))
@@ -666,28 +669,34 @@ class _Stretches:
         self.runs.clear()
 
 
+def _tensors(result):
+    """A hand-kernel call's result as a tuple of tensors."""
+    return result if isinstance(result, tuple) else (result,)
+
+
 _EAGER = _Stretches(False)
 _GRAPH_RESOURCES = {}
-_capture = None  # the _Stretches capturing a stretch now; the solves run on one thread
+_capture = None  # the _Stretches capturing a stretch now; the steps run on one thread
 
 
 def _kernel(fn, *args):
-    """fn(*args), a call of hand kernel K2 or K3, cut out of the graphs of
-    a stretch that is being captured (_Stretches.kernel)."""
+    """fn(*args), a call of a hand kernel (K2 or K3 in a solve, K4 in a
+    registration frame step), cut out of the graphs of a stretch that is
+    being captured (_Stretches.kernel)."""
     return fn(*args) if _capture is None else _capture.kernel(fn, args)
 
 
-def _graph_resources(device):
-    """(side stream, memory pool) of the solves' CUDA graphs on `device`,
-    made on first use and kept for the process. First the library handles
-    that the solves' linear algebra takes (cuBLAS, cuSOLVER, the batched
-    inverse's) are made, eagerly on the side stream: a handle cannot be
-    created while the stream captures. The pool is held by a graph of one
-    kernel kept for the process: in PyTorch 2.11 the allocators drop a pool
-    when its last graph is reset, and capturing into it again then fails an
-    internal assert of the host allocator."""
+def _graph_resources(device, name="ba"):
+    """(side stream, memory pool) of the runner `name`'s CUDA graphs on
+    `device`, made on first use and kept for the process. First the library
+    handles that the stretches' linear algebra takes (cuBLAS, cuSOLVER, the
+    LU of solve_ex, the batched inverse's) are made, eagerly on the side
+    stream: a handle cannot be created while the stream captures. The pool
+    is held by a graph of one kernel kept for the process: in PyTorch 2.11
+    the allocators drop a pool when its last graph is reset, and capturing
+    into it again then fails an internal assert of the host allocator."""
     device = torch.device(device)
-    res = _GRAPH_RESOURCES.get(device)
+    res = _GRAPH_RESOURCES.get((device, name))
     if res is None:
         with torch.cuda.device(device):
             stream = torch.cuda.Stream(device)
@@ -702,7 +711,7 @@ def _graph_resources(device):
                 torch.zeros(1, device=device)
                 anchor.capture_end()
             torch.cuda.current_stream(device).wait_stream(stream)
-        res = _GRAPH_RESOURCES[device] = (stream, anchor.pool(), anchor)
+        res = _GRAPH_RESOURCES[(device, name)] = (stream, anchor.pool(), anchor)
     return res[:2]
 
 

@@ -24,6 +24,12 @@ slot draws what the single step draws from a generator seeded alike;
 package's), with a leading slot axis for the batched steps. `draw_block`
 runs a block of a larger step's slots (parallel/dist_register.py): the
 generator draws for every slot of that step and the block keeps its own.
+
+On a CUDA device a chain's frame steps run as CUDA graphs after their
+match and draw (`_graphed_frame`): the shapes of a frame step are fixed
+by the provider's capacity and the trial counts, so each camera model's
+graphs are captured once per process and replayed by every later frame,
+with the pose LM's kernel K4 cut out between them and called eagerly.
 """
 
 import math
@@ -32,12 +38,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ba.core import _pose_refine_loop
+from ..ba.core import _kernel, _pose_refine_loop, _Stretches
 from ..ops import essential, homography, matching, p3p, projection, triangulation
 from ..ops.ransac import draw_samples, ransac
 from ..ops.reduce import sum_pairwise
 from ..ops.rotation import rvec_from_rotmat
-from ..utils.timer import span, sync
+from ..utils.timer import count, span, sync
 
 
 class TwoViewResult(NamedTuple):
@@ -289,10 +295,9 @@ def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_cu
     rvec0 = rvec_from_rotmat(pres.model[:, :3, :3])
     tvec0 = pres.model[:, :3, 3]
 
-    with span("register.pose_lm", "reg_pose_lm_s"):
-        pose, cost = _pose_refine_loop(torch.cat([rvec0, tvec0], dim=-1), prev_p3d_xyz,
-                                       kp_curr_m, pres.inlier_mask, cam_params, model_codes,
-                                       1.0, refine_iters, code_ids)
+    pose, cost = _kernel(_pose_lm, torch.cat([rvec0, tvec0], dim=-1), prev_p3d_xyz,
+                         kp_curr_m, pres.inlier_mask, cam_params, model_codes, refine_iters,
+                         code_ids)
     # RMS px over refined residuals, like the reference
     # sqrt(summary.final_cost / num_residuals) (bundle_adjustment.cc:222).
     final_cost = torch.sqrt(cost / torch.clamp(pres.num_inliers * 2, min=1))
@@ -319,13 +324,24 @@ def _register_geometry(generator, matches, valid, kp_prev, n_prev, kp_curr, n_cu
     return rows, torch.cat([head, rvec, tvec], dim=-1)  # (B, 13)
 
 
+def _pose_lm(pose, points, uv, mask, kparams, model_codes, refine_iters, code_ids):
+    """The registration step's pose refinement (K4 on the card) in its
+    register.pose_lm span: a hand-kernel call that the registration graphs
+    cut out (_kernel), so the span times every launch, on replays too."""
+    with span("register.pose_lm", "reg_pose_lm_s"):
+        return _pose_refine_loop(pose, points, uv, mask, kparams, model_codes, 1.0,
+                                 refine_iters, code_ids)
+
+
 def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
                         min_tri_angle, min_track_len):
     """Device copy of the commit's track rules (mapper._register_commit):
     the NEXT frame's anchor state from a register_view result. A track
     continues if its 3-D point reprojects well in the new frame; otherwise
     a new triangulation must pass both reprojection gates, the folded
-    angle and positive depths.
+    angle and positive depths. The three thresholds are numbers or 0-dim
+    device tensors (the chain's slices of its packed scalars): the same
+    float32 values give the same bits.
 
     Returns (xyz, has_tri, stable, lens, rvec, tvec) in the new frame's
     row space."""
@@ -362,9 +378,70 @@ def _derive_chain_state(rows, scalars, prev_xyz, prev_has_tri, prev_len, tri_nt,
     return xyz, has_tri, stable, lens, scalars[7:10], scalars[10:13]
 
 
+def _chain_frame(matches, valid, kp_prev, n_prev, kp_curr, n_curr, xyz, has_tri, stable, lens,
+                 pose, per, rules, s_h, s_p, code, p3p_trials, hom_trials, refine_iters):
+    """One chain frame after its match and its draw: register_view's
+    geometry against the anchor state (xyz, has_tri, stable, lens, pose
+    [rvec | tvec]) and the next frame's anchor state from its result
+    (_derive_chain_state). per: the frame's 12 packed scalars [nt | tri_nt
+    | cam_model | cam_params(9)], rules [min_tri_angle | min_track_len],
+    both device tensors; (s_h, s_p): the frame's (1, T, 4) samples.
+    Returns (rows (F, 12), scalars (13,), the next anchor state)."""
+    one = [a[None] for a in (matches, valid, kp_prev, n_prev, kp_curr, n_curr, xyz, has_tri,
+                             stable, pose[:3], pose[3:], per[3:12])]
+    rows, scalars = _register_geometry(None, *one, [code], None, per[0:1], p3p_trials,
+                                       hom_trials, refine_iters, (s_h, s_p))
+    rows, scalars = rows[0], scalars[0]
+    xyz, has_tri, stable, lens, _, _ = _derive_chain_state(rows, scalars, xyz, has_tri, lens,
+                                                           per[1], rules[0], rules[1])
+    return rows, scalars, (xyz, has_tri, stable, lens, scalars[7:13])
+
+
+def _graph_chain(device, samples, eager=False):
+    """Whether a chain's frame steps run as the registration graphs: on a
+    CUDA device, drawing their own samples, unless `eager` (tests). Only
+    the chain asks, whose steps are one slot at the provider's capacity:
+    the same shapes on every frame of every map. register_view, the batched
+    steps (whose shapes change with their slot count) and the mesh's steps
+    stay eager."""
+    return not eager and torch.device(device).type == "cuda" and samples is None
+
+
+# The registration graphs: one runner per device, for the process
+# (_Stretches "reg"), and each key's static inputs, which every frame step
+# copies its inputs into before the runner replays the key's graphs.
+_FRAME_RUNNERS = {}
+_FRAME_INPUTS = {}
+
+
+def _graphed_frame(step, code, p3p_trials, hom_trials, refine_iters):
+    """_chain_frame(*step, ...) through the registration graphs: graph A
+    (the disparity, the gathers, homography and P3P RANSAC, the pose's
+    rotation vector) and graph B (the final cost, projections,
+    triangulation, the packed rows and scalars, _derive_chain_state),
+    with K4 cut out between them (_pose_lm). A key is what fixes the
+    graphs' shapes and branches: F, the camera model (K4's code), the trial
+    counts, the LM's iterations and the dtype; it is captured on its first
+    step in the process and replayed after. The step's inputs (the match,
+    the samples, the keypoints, the anchor state, the frame's scalars) are
+    copied into the key's static inputs first. A replay overwrites the
+    outputs of the capture, which the caller copies before the next step."""
+    dev = step[0].device
+    key = (step[0].shape[0], code, p3p_trials, hom_trials, refine_iters, step[2].dtype)
+    run = _FRAME_RUNNERS.get(dev)
+    if run is None:
+        run = _FRAME_RUNNERS[dev] = _Stretches(True, dev, "reg")
+    inputs = _FRAME_INPUTS.get((dev, key))
+    if inputs is None:
+        inputs = _FRAME_INPUTS[(dev, key)] = tuple(torch.empty_like(t) for t in step)
+    for dst, src in zip(inputs, step):
+        dst.copy_(src)
+    return run(key, lambda: _chain_frame(*inputs, code, p3p_trials, hom_trials, refine_iters))
+
+
 def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,
                          ba_poses, ba_points, p3p_trials, hom_trials, refine_iters,
-                         samples, matcher):
+                         samples, matcher, eager=False):
     """K consecutive frame registrations: frame k anchors on track state
     derived on the device from frame k-1's results (`_derive_chain_state`),
     so the host pulls once per K frames instead of once per frame.
@@ -384,9 +461,14 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
         The key counter is unused (the generator carries the RNG state);
       ba_poses/ba_points (fresh variant): the window-BA solve's output
         tensors; the anchor's pose and 3-D points are read from them.
-    The K register_view steps run as a Python loop with no host pull
-    between frames (the JAX package scans them in one program). samples:
-    optional list of K per-frame sample tuples (see register_view).
+    The K frame steps run as a Python loop with no host pull between
+    frames (the JAX package scans them in one program). Each matches (K1)
+    and draws its RANSAC samples, then runs the rest (_chain_frame) with
+    its thresholds and camera read from the device copy of `scal`: on a
+    CUDA device as the registration graphs (_graphed_frame, _graph_chain),
+    eagerly with injected `samples` (an optional list of K per-frame sample
+    tuples, see register_view) or `eager` (tests). The owning mapper counts
+    reg_eager_steps, one per frame step that ran eagerly on a CUDA device.
     Returns (rows (K, F, 12), scalars (K, 13), has_tri_in (K, F),
     end_state (F, 6), end_pose (6,)): has_tri_in[k] is the anchor has_tri
     state frame k registered against; end_state is the last frame's
@@ -394,17 +476,16 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     [rvec | tvec], as the JAX package returns them.
     """
     dev = kp_p.device
-    K = len(feats_k)
+    K, F = len(feats_k), kp_p.shape[0]
     scal_h = np.asarray(scal, np.float32)
     sync(2)  # the blocking copies of scal and track_state
     scal_d = torch.as_tensor(scal_h, device=dev)
     ratio, max_distance = float(scal_h[6]), float(scal_h[7])
-    min_tri_angle = float(scal_h[8])
-    min_track_len = int(scal_h[9])
     per = scal_h[12:].reshape(K, 12)
     per_d = scal_d[12:].reshape(K, 12)
+    rules = scal_d[8:10]  # min_tri_angle | min_track_len
 
-    state, rvec, tvec = torch.as_tensor(track_state, device=dev), scal_d[0:3], scal_d[3:6]
+    state, pose = torch.as_tensor(track_state, device=dev), scal_d[0:6]
     xyz = state[:, :3]
     has_tri = state[:, 3] > 0.5
     stable = state[:, 4] > 0.5
@@ -412,30 +493,46 @@ def _register_chain_impl(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, s
     if ba_poses is not None:
         anchor_row = int(scal_h[11])
         if anchor_row >= 0:
-            rvec, tvec = ba_poses[anchor_row, :3], ba_poses[anchor_row, 3:]
+            pose = ba_poses[anchor_row]
         xyz_rows = state[:, 6].long()
         xyz = torch.where((xyz_rows >= 0)[:, None],
                           ba_points[torch.clamp(xyz_rows, min=0)], xyz)
 
-    prev = (kp_p, d_p, m_p, n_p)
-    rows_all, scalars_all, has_tri_in = [], [], []
+    graphed = _graph_chain(dev, samples, eager)
+    f32 = torch.float32
+    rows_all = torch.empty((K, F, 12), dtype=f32, device=dev)
+    scalars_all = torch.empty((K, 13), dtype=f32, device=dev)
+    has_tri_in = torch.empty((K, F), dtype=torch.bool, device=dev)
+    kp_prev, d_prev, m_prev, n_prev = kp_p, d_p, m_p, n_p
     for k in range(K):
-        rows, scalars = register_view(
-            generator, *prev, *feats_k[k], xyz, has_tri, stable, rvec, tvec,
-            per_d[k, 3:12], int(per[k, 2]), ratio, max_distance, float(per[k, 0]),
-            p3p_trials=p3p_trials, hom_trials=hom_trials, refine_iters=refine_iters,
-            samples=None if samples is None else samples[k], matcher=matcher)
-        has_tri_in.append(has_tri)
-        rows_all.append(rows)
-        scalars_all.append(scalars)
-        xyz, has_tri, stable, lens, rvec, tvec = _derive_chain_state(
-            rows, scalars, xyz, has_tri, lens, float(per[k, 1]), min_tri_angle,
-            min_track_len)
-        prev = feats_k[k]
+        kp_c, d_c, m_c, n_c = feats_k[k]
+        matches, valid = matching.match_features(d_prev, d_c, m_prev, m_c, kp_prev, kp_c,
+                                                 ratio=ratio, max_distance=max_distance,
+                                                 backend=matcher)
+        if samples is None:
+            s_k = draw_samples(generator, [(hom_trials, 4, valid[None]),
+                                           (p3p_trials, 4, (valid & stable & has_tri)[None])])
+        else:
+            s_k = _one_slot(samples[k])
+        has_tri_in[k] = has_tri
+        step = (matches, valid, kp_prev, n_prev, kp_c, n_c, xyz, has_tri, stable, lens, pose,
+                per_d[k], rules, *s_k)
+        consts = (int(per[k, 2]), p3p_trials, hom_trials, refine_iters)
+        if graphed:
+            rows, scalars, nxt = _graphed_frame(step, *consts)
+        else:
+            if dev.type == "cuda":
+                count("reg_eager_steps")
+            rows, scalars, nxt = _chain_frame(*step, *consts)
+        # A replay overwrites the graphs' outputs: the chain keeps copies,
+        # and the next frame's step copies the anchor state it reads.
+        rows_all[k] = rows
+        scalars_all[k] = scalars
+        xyz, has_tri, stable, lens, pose = nxt
+        kp_prev, d_prev, m_prev, n_prev = kp_c, d_c, m_c, n_c
     end_state = torch.cat([xyz] + [v[:, None].to(xyz.dtype) for v in (has_tri, stable, lens)],
                           dim=1)
-    return (torch.stack(rows_all), torch.stack(scalars_all), torch.stack(has_tri_in),
-            end_state, torch.cat([rvec, tvec]))
+    return rows_all, scalars_all, has_tri_in, end_state, pose.clone()
 
 
 def register_chain(generator, kp_p, d_p, m_p, n_p, feats_k, track_state, scal,

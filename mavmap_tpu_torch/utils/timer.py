@@ -17,7 +17,8 @@ ba/core.py or sfm/kernels.py, takes the mapper of the innermost open span
 that names one, through a context variable; outside every such span it
 does nothing. `owner_counters(totals)` is that mapper's counters, or
 `totals` outside every mapper's span: a step that runs both inside and
-outside a mapper's span (a feature read) counts into it.
+outside a mapper's span (a feature read) counts into it; `count(name)`
+adds to one of that mapper's event counters.
 `sync(n)` counts host syncs, the points where the program blocks on the
 card, into that mapper's counters["host_syncs"] (and "ba_host_syncs"
 inside a span named "ba.*"). While `recording()` is open, every span also
@@ -116,6 +117,14 @@ def owner_counters(default=None):
     `default` outside every mapper's span."""
     counters = _STATE.get()[0]
     return default if counters is None else counters
+
+
+def count(name, n=1):
+    """Add `n` to the counter `name` of the mapper that owns the innermost
+    open span; nothing outside every mapper's span."""
+    counters = _STATE.get()[0]
+    if counters is not None:
+        counters[name] = counters.get(name, 0) + n
 
 
 def sync(n=1):

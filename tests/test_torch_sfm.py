@@ -584,6 +584,38 @@ def test_register_chain_matches_jax(chain_scene, rng):
     with the masks from JAX's per-frame outputs: match rows exactly equal,
     counts equal, anchor has_tri states equal, refined poses at 1e-4; the
     end state's flags and track lengths exactly equal, its pose at 1e-4."""
+    _register_chain_against_jax(chain_scene, rng)
+
+
+def test_register_chain_through_the_frame_graphs_path_matches_jax(chain_scene, monkeypatch):
+    """The same chain through the code of the card's frame graphs
+    (kernels._graphed_frame: the static inputs, the copies, the carried
+    anchor state), run here by an eager runner with the rule forced:
+    held to the JAX package as test_register_chain_matches_jax holds the
+    eager chain, and equal to the eager chain bit for bit."""
+    from mavmap_tpu_torch.ba.core import _Stretches
+    from mavmap_tpu_torch.sfm import kernels as kern
+
+    eager = _register_chain_against_jax(chain_scene, np.random.default_rng(11))
+    keys = []
+
+    class Recorder(_Stretches):
+        def __call__(self, key, fn):
+            keys.append(key)
+            return fn()
+
+    monkeypatch.setattr(kern, "_graph_chain", lambda *a, **kw: True)
+    monkeypatch.setattr(kern, "_FRAME_RUNNERS", {CPU: Recorder(False)})
+    monkeypatch.setattr(kern, "_FRAME_INPUTS", {})
+    graphed = _register_chain_against_jax(chain_scene, np.random.default_rng(11))
+    assert len(keys) == 3 and len(set(keys)) == 1
+    for a, b in zip(eager, graphed, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def _register_chain_against_jax(chain_scene, rng):
+    """test_register_chain_matches_jax's chain and checks; returns the
+    port's five outputs as numpy."""
     scene, feats, gt = chain_scene
     K = 3
     ids = np.full(F, -1)
@@ -647,6 +679,7 @@ def test_register_chain_matches_jax(chain_scene, rng):
     np.testing.assert_allclose(ep_t, ep_j, rtol=0, atol=1e-4)
     np.testing.assert_allclose(es_t[:, :3], es_j[:, :3], rtol=0,
                                atol=1e-4 * np.abs(es_j[:, :3]).max())
+    return rows_t, sc_t, ht_t, es_t, ep_t
 
 
 def _run_chained(mapper, opts, init_opts, ba_options_cls):
