@@ -293,9 +293,12 @@ class CliRun:
     (None where mapping did not run), the wall seconds of the feature
     extraction before mapping, and the CLI's own span totals (`timings`:
     seconds of `cli.inputs`, reading imagedata.txt, the camera table and
-    the vocabulary tree, and of `cli.outputs`, every output file; and
-    `feature_read_s` / `feature_reads` of the reference dumps read outside
-    every mapper's span)."""
+    the vocabulary tree, of `cli.features`, the feature extraction ahead
+    of mapping, and of `cli.outputs`, every output file; and, outside
+    every mapper's span, `feature_read_s` / `feature_reads` of the
+    reference dumps read, `image_decode_s` / `image_decodes`,
+    `detect_s` / `detect_frames` and `feature_cache_write_s` of the images
+    decoded, detected and cached)."""
 
     rc: int
     result: object = None
@@ -375,11 +378,13 @@ def run(argv=None):
         from .features.detector import detect_image_file
 
         if adaptive_det is not None:
-            return detect_image_file(image_path(image_idx), detector=adaptive_det)
-        return detect_image_file(image_path(image_idx), device=device,
+            return detect_image_file(image_path(image_idx), detector=adaptive_det,
+                                     totals=timings)
+        return detect_image_file(image_path(image_idx), device=device, totals=timings,
                                  **{k: v for k, v in params.items() if k != "min_per_cell"})
 
-    cache = FeatureCache(cache_path, params, detector=detect, capacity=args.max_features)
+    cache = FeatureCache(cache_path, params, detector=detect, capacity=args.max_features,
+                         totals=timings)
 
     class CachedProvider:
         capacity = args.max_features
@@ -407,16 +412,24 @@ def run(argv=None):
         # run on worker threads while the device detects other frames.
         # Skipped under the adaptive detector, whose cross-frame per-cell
         # thresholds depend on the frame order.
-        lo = max(args.start_image_idx, 0)
-        hi = args.end_image_idx if args.end_image_idx >= 0 else len(records) - 1
-        todo = [i for i in range(lo, min(hi + 1, len(records))) if os.path.exists(image_path(i))]
-        if mesh is not None:  # each rank extracts its share; all then read every file
-            todo = todo[mesh.rank::mesh.size]
-        if todo:
-            from concurrent.futures import ThreadPoolExecutor
+        with stage("cli.features"):
+            lo = max(args.start_image_idx, 0)
+            hi = args.end_image_idx if args.end_image_idx >= 0 else len(records) - 1
+            todo = [i for i in range(lo, min(hi + 1, len(records)))
+                    if os.path.exists(image_path(i))]
+            if mesh is not None:  # each rank extracts its share; all then read every file
+                todo = todo[mesh.rank::mesh.size]
+            if todo:
+                import contextvars
+                from concurrent.futures import ThreadPoolExecutor
 
-            with ThreadPoolExecutor(3) as ex:
-                list(ex.map(lambda i: cache.query(i, records[i].name), todo))
+                # Each image runs in a copy of this thread's context, so a
+                # recording() open here also records the workers' spans.
+                with ThreadPoolExecutor(3) as ex:
+                    jobs = [ex.submit(contextvars.copy_context().run, cache.query, i,
+                                      records[i].name) for i in todo]
+                    for job in jobs:
+                        job.result()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if mesh is not None:

@@ -28,13 +28,18 @@ from .provider import Features
 
 
 class FeatureCache:
-    def __init__(self, cache_path, params: dict, detector=None, capacity=4096):
+    def __init__(self, cache_path, params: dict, detector=None, capacity=4096, totals=None):
         """detector: callable(image_idx) -> (keypoints (N,2), descriptors
         (N,D)[, (rows, cols)]). `params` is the full detection-parameter
-        dict; any change invalidates previously cached entries."""
+        dict; any change invalidates previously cached entries. Each npz
+        written after an extraction is the span `features.cache_write`: its
+        seconds go to the counter `feature_cache_write_s` of the mapper
+        whose span is open, else of `totals` (none kept where it is None),
+        which several threads may share."""
         self.cache_path = cache_path
         self.detector = detector
         self.capacity = capacity
+        self.totals = totals
         os.makedirs(cache_path, exist_ok=True)
         blob = json.dumps(params, sort_keys=True).encode()
         self.fingerprint = hashlib.sha256(blob).hexdigest()[:16]
@@ -59,10 +64,12 @@ class FeatureCache:
         # Written under a name of this process, then renamed: ranks that
         # extract the same image at once never read half a file.
         tmp = f"{path[:-len('.npz')]}.{os.getpid()}.tmp.npz"
-        np.savez(tmp, keypoints=np.asarray(kp, np.float32),
-                 descriptors=np.asarray(desc, np.float32), dims=np.asarray(dims, np.int32),
-                 fingerprint=self.fingerprint)
-        os.replace(tmp, path)
+        with span("features.cache_write", "feature_cache_write_s",
+                  totals=owner_counters(self.totals)):
+            np.savez(tmp, keypoints=np.asarray(kp, np.float32),
+                     descriptors=np.asarray(desc, np.float32), dims=np.asarray(dims, np.int32),
+                     fingerprint=self.fingerprint)
+            os.replace(tmp, path)
         return Features.from_arrays(kp, desc, self.capacity)
 
     def query_dimensions(self, image_idx, name):

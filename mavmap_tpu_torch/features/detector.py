@@ -22,6 +22,13 @@ AdaptiveSURF), run on an explicit device:
 Shapes are static: `max_features` rows with a validity mask, as the feature
 providers expect. Nothing here is a hand kernel: the JAX detector reaches no
 Pallas kernel.
+
+`detect_image_file` opens two spans per image: `features.decode` (reading
+and converting the file; counters `image_decode_s`, `image_decodes`) and
+`features.detect` (one detection, from the upload to the host arrays;
+`detect_s`, `detect_frames`). They add to the counters of the mapper whose
+span is open, else to the `totals` dict given (the CLI's timings, shared
+by its extraction threads).
 """
 
 import math
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.imageio import read_gray
+from ..utils.timer import add_total, owner_counters, span
 
 
 def _gaussian_kernel1d_np(sigma, radius):
@@ -427,14 +435,21 @@ class AdaptiveDetector:
         return kp.cpu().numpy()[m], desc.cpu().numpy()[m]
 
 
-def detect_image_file(path, detector=None, device="cuda", **kwargs):
+def detect_image_file(path, detector=None, device="cuda", totals=None, **kwargs):
     """(keypoints, descriptors, (rows, cols)) of an image file, read with
     utils/imageio.py (Pillow's convert("L") gray); the dims ride along so
     the feature cache can answer query_dimensions without decoding again.
-    `detector`: an optional stateful AdaptiveDetector (its own device)."""
-    img = read_gray(path).astype(np.float32)
-    if detector is not None:
-        kp, desc = detector.detect(img)
-    else:
-        kp, desc = detect_image(img, device=device, **kwargs)
+    `detector`: an optional stateful AdaptiveDetector (its own device).
+    `totals`: the dict that takes the decode and detection spans' counters
+    outside every mapper's span (none kept where it is None)."""
+    sink = owner_counters(totals)
+    with span("features.decode", "image_decode_s", totals=sink):
+        img = read_gray(path).astype(np.float32)
+    add_total(sink, "image_decodes")
+    with span("features.detect", "detect_s", totals=sink):
+        if detector is not None:
+            kp, desc = detector.detect(img)
+        else:
+            kp, desc = detect_image(img, device=device, **kwargs)
+    add_total(sink, "detect_frames")
     return kp, desc, img.shape

@@ -19,6 +19,12 @@ does nothing. `owner_counters(totals)` is that mapper's counters, or
 `totals` outside every mapper's span: a step that runs both inside and
 outside a mapper's span (a feature read) counts into it; `count(name)`
 adds to one of that mapper's event counters.
+A `totals` dict may be shared by threads (the CLI's feature extraction
+adds to its timings from three workers): a span given `totals` adds to it
+under a lock, and `add_total` adds a count the same way, so no addition
+is lost; that holds too where `totals` is a mapper's counters, handed in
+by `owner_counters`. A span that counts into its mapper's counters
+without `totals` takes no lock: those belong to the one thread that maps.
 `sync(n)` counts host syncs, the points where the program blocks on the
 card, into that mapper's counters["host_syncs"] (and "ba_host_syncs"
 inside a span named "ba.*"). While `recording()` is open, every span also
@@ -31,6 +37,7 @@ count as device activity.
 import contextlib
 import contextvars
 import os
+import threading
 import time
 import warnings
 from collections import defaultdict
@@ -41,6 +48,8 @@ from collections import defaultdict
 _STATE = contextvars.ContextVar("mavmap_tpu_torch_span", default=(None, False, None))
 # The list of the open recording(), or None.
 _RECORDS = contextvars.ContextVar("mavmap_tpu_torch_records", default=None)
+# Serialises additions to `totals` dicts, which several threads may share.
+_TOTALS_LOCK = threading.Lock()
 
 
 class _Record:
@@ -87,8 +96,11 @@ class _Span:
         if self.sink is None:
             return False
         if self.counter is not None:
-            self.sink[self.counter] = (self.sink.get(self.counter, 0.0)
-                                       + time.perf_counter() - self.t0)
+            dt = time.perf_counter() - self.t0
+            if self.totals is None:
+                self.sink[self.counter] = self.sink.get(self.counter, 0.0) + dt
+            else:
+                add_total(self.totals, self.counter, dt)
         rec = self.rec
         if rec is not None:
             self.out.append((rec.name, rec.start_ns, time.time_ns(), rec.depth, rec.parent,
@@ -110,6 +122,15 @@ def span(name, counter=None, owner=None, totals=None):
     if counter is None and owner is None and _RECORDS.get() is None:
         return _NO_SPAN
     return _Span(name, counter, owner, totals)
+
+
+def add_total(totals, name, n=1):
+    """Add `n` to `totals[name]`, a dict that several threads may share;
+    nothing where `totals` is None."""
+    if totals is None:
+        return
+    with _TOTALS_LOCK:
+        totals[name] = totals.get(name, 0) + n
 
 
 def owner_counters(default=None):

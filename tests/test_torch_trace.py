@@ -20,7 +20,14 @@ on the CPU:
     into the mapper whose span is open, else into the provider's totals,
     and a cached frame counts nothing; the CLI over a two-camera rig from
     such dumps reads each frame once, counting every read, and times its
-    inputs and outputs (`cli.inputs`, `cli.outputs`) in `CliRun.timings`.
+    inputs and outputs (`cli.inputs`, `cli.outputs`) in `CliRun.timings`,
+    and opens no span of the feature extraction (`cli.features`,
+    `features.decode`, `features.detect`, `features.cache_write`);
+  - a `totals` dict that three threads add to holds exactly the sum of
+    their spans and counts, and each thread's spans are recorded in a copy
+    of the caller's context; the CLI from PNG files decodes, detects and
+    caches every frame once on its worker threads, inside `cli.features`,
+    before any mapper's span opens, and counts each in `CliRun.timings`.
 
 Imports neither jax nor mavmap_tpu.
 """
@@ -46,6 +53,9 @@ NEW = ("reg_prepare_s", "reg_dispatch_s", "reg_pose_lm_s", "reg_wait_s", "reg_co
        "ba_apply_s", "host_syncs", "ba_host_syncs")
 REGISTER = ("register.prepare", "register.dispatch", "register.wait", "register.commit")
 REMOVED = ("detect_register_s", "sweep_register_s", "pull_wait_s")
+EXTRACTION = ("cli.features", "features.decode", "features.detect", "features.cache_write")
+EXTRACTION_COUNTERS = ("cli.features", "image_decode_s", "image_decodes", "detect_s",
+                       "detect_frames", "feature_cache_write_s")
 
 
 class _Owner:
@@ -278,14 +288,119 @@ def test_cli_counts_every_feature_read_and_times_its_files(tmp_path):
     scene = make_multi_camera_scene(num_images=n, num_points=2000, relief=10.0, rows=1, seed=9)
     feats, _ = render_features(scene, pixel_noise=0.3, clutter=10, seed=9, max_features=CAP)
     chip_smoke.write_rig_files(str(tmp_path), scene, feats)
-    run = cli.run(["--input-path", str(tmp_path / "data"), "--output-path", str(tmp_path / "out"),
-                   "--reference-cache-path", str(tmp_path / "ref"), "--max-features", str(CAP),
-                   "--min-track-len", "2", "--tri-min-angle", "1.0", "--init-tri-min-angle", "4.0",
-                   "--device", "cpu", "--quiet"])
+    with timer.recording() as recs:
+        run = cli.run(["--input-path", str(tmp_path / "data"),
+                       "--output-path", str(tmp_path / "out"),
+                       "--reference-cache-path", str(tmp_path / "ref"), "--max-features",
+                       str(CAP), "--min-track-len", "2", "--tri-min-angle", "1.0",
+                       "--init-tri-min-angle", "4.0", "--device", "cpu", "--quiet"])
     assert run.rc == 0 and run.result.main_mapper.num_proc_images == n
     reads = run.timings.get("feature_reads", 0) + sum(
         m.counters.get("feature_reads", 0) for m in run.result.mappers)
     assert reads == n
     assert run.timings["cli.inputs"] > 0 and run.timings["cli.outputs"] > 0
     assert not {"cli.inputs", "cli.outputs"} & set(run.result.timings)
+    # From dumps there is no extraction stage: none of its spans or counters.
+    assert not set(EXTRACTION) & {r[0] for r in recs}
+    assert not set(EXTRACTION_COUNTERS) & set(run.timings)
+    for m in run.result.mappers:
+        assert not set(EXTRACTION_COUNTERS) & set(m.counters)
+
+
+class _Clock:
+    """time.perf_counter / time.time_ns that step by exactly 0.5 s on each
+    call of the thread that calls them."""
+
+    def __init__(self):
+        import threading
+
+        self.local = threading.local()
+
+    def _tick(self):
+        self.local.t = getattr(self.local, "t", 0.0) + 0.5
+        return self.local.t
+
+    def perf_counter(self):
+        return self._tick()
+
+    def time_ns(self):
+        return int(self._tick() * 1e9)
+
+
+def test_totals_shared_by_threads_add_up_exactly(monkeypatch):
+    import contextvars
+    import sys
+    import threading
+
+    monkeypatch.setattr(timer, "time", _Clock())
+    totals, n = {}, 4000
+
+    def work():
+        for _ in range(n):
+            with timer.span("features.decode", "image_decode_s", totals=totals):
+                pass
+            timer.add_total(totals, "image_decodes")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with timer.recording() as recs, timer.span("cli.features", "cli.features",
+                                                   totals=totals):
+            threads = [threading.Thread(target=contextvars.copy_context().run, args=(work,))
+                       for _ in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert totals["image_decodes"] == 3 * n
+    # Each span spans one clock step of its own thread: 0.5 s exactly.
+    assert totals["image_decode_s"] == 0.5 * 3 * n
+    decodes = [r for r in recs if r[0] == "features.decode"]
+    assert len(decodes) == 3 * n
+    assert {(r[3], r[4]) for r in decodes} == {(1, "cli.features")}
+
+
+def test_cli_extracts_every_frame_once_before_mapping(tmp_path):
+    from mavmap_tpu_torch import cli
+    from mavmap_tpu_torch.utils.imageio import write_png
+    from mavmap_tpu_torch.utils.synthetic import render_images
+
+    n = 5
+    scene = make_uav_scene(num_images=n, num_points=1500, relief=10.0, rows=1, seed=21,
+                           image_size=(400, 300), focal=350.0)
+    data = tmp_path / "data"
+    data.mkdir()
+    lines = ["# imagedata"]
+    for i, im in enumerate(render_images(scene, texture_contrast=0.25, seed=21)):
+        write_png(str(data / f"img{i}.png"), im)
+        cam_def = ", 1, PINHOLE, 350.0, 350.0, 200.0, 150.0" if i == 0 else ""
+        lines.append(f"img{i}, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0{cam_def}")
+    (data / "imagedata.txt").write_text("\n".join(lines) + "\n")
+    with timer.recording() as recs:
+        run = cli.run(["--input-path", str(data), "--output-path", str(tmp_path / "out"),
+                       "--max-features", "512", "--min-track-len", "2",
+                       "--init-tri-min-angle", "2.0", "--ransac-min-inlier-threshold", "15",
+                       "--device", "cpu", "--quiet"])
+    assert run.rc == 0
+    t = run.timings
+    assert t["image_decodes"] == t["detect_frames"] == n
+    assert 0 < t["image_decode_s"] and 0 < t["detect_s"] and 0 < t["feature_cache_write_s"]
+    assert t["cli.features"] <= run.detection_s
+    for m in run.result.mappers:
+        assert not set(EXTRACTION_COUNTERS) & set(m.counters)
+    names = [r[0] for r in recs]
+    assert names.count("features.decode") == names.count("features.detect") == n
+    assert names.count("features.cache_write") == n and names.count("cli.features") == 1
+    # Every extraction span lies in cli.features, which closes before the
+    # first span of the mapping opens.
+    (stage,) = [r for r in recs if r[0] == "cli.features"]
+    inner = [r for r in recs if r[0] in EXTRACTION[1:]]
+    assert all(r[4] == "cli.features" and stage[1] <= r[1] <= r[2] <= stage[2] for r in inner)
+    mapping = [r for r in recs if r[0] not in EXTRACTION and not r[0].startswith("cli.")]
+    assert mapping and stage[2] <= min(r[1] for r in mapping)
+    assert sum(r[2] - r[1] for r in inner if r[0] == "features.detect") == pytest.approx(
+        t["detect_s"] * 1e9, rel=0.01)
 
