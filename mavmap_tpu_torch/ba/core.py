@@ -30,13 +30,17 @@ The LM and CG loops are Python loops with an early exit: the host reads
 the LM's stop flag after every iteration and CG's residual test before
 every CG iteration. The device work between two such reads is a stretch
 (_Stretches): the dense solver's whole iteration; CG's assembly, each CG
-iteration, and its back-substitution with the accept/reject. On a CUDA
-device each stretch is captured on its first run in a solve as CUDA
-graphs between its K2 / K3 calls, which stay eager, and replayed on every
-later run, so an iteration costs a few graph launches and hand-kernel
-calls instead of a thousand or so host-dispatched ops, with the same
-kernels, the same bits and the same host reads. The CPU and the psum path
-run the stretches eagerly.
+iteration, and its back-substitution with the accept/reject; the solve's
+start (the dense gather, the initial cost, the state's first values) is
+one more. On a CUDA device each stretch is captured as CUDA graphs
+between its K2 / K3 calls, which stay eager, on its first run under the
+solve's key (_solve_key: the bucketed sizes, the camera models, the solver
+and the numbers baked into the graphs), and replayed on every later run
+of every solve with that key, which copies its problem into the key's
+static inputs first (_solve_inputs). So an iteration costs a few graph
+launches and hand-kernel calls instead of a thousand or so
+host-dispatched ops, with the same kernels, the same bits and the same
+host reads. The CPU and the psum path run the stretches eagerly.
 
 The point-sharded solve (parallel/dist_ba.py) runs these loops with a
 `psum` hook: the rank-ordered sum over the ranks of the camera system's
@@ -53,6 +57,7 @@ but runs the solve when it is called: the loops read a flag on the host
 every iteration, so nothing is left in flight (see its docstring).
 """
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -572,21 +577,27 @@ class _Stretches:
     each call's result (a tensor or a tuple of them) into the one that the
     next piece reads: the same kernels on the same inputs, so the same
     bits, with the host launching a few graphs and calls instead of every
-    op. The pieces and calls run on the current stream; the side stream
-    only records. Loop state that a stretch updates is `carry`'d: copied
-    in place into the tensors that the graphs read. A replay adds no host
-    read. The owning mapper counts <name>_graph_captures and
-    <name>_graph_replays, one per stretch run.
+    op. A call's arguments found in `swap` (by identity) are replaced by
+    their values there, on the capture's call and on every replay's: a
+    solve's own K2 plans and K3 offsets (_solve_inputs). The pieces and
+    calls run on the current stream; the side stream only records. Loop
+    state that a stretch updates is `carry`'d: copied in place into the
+    tensors that the graphs read. A replay adds no host read. The owning
+    mapper counts <name>_graph_captures and <name>_graph_replays, one per
+    stretch run.
 
     Two runners use it. "ba": a solve's LM and CG loops (on a CUDA device
-    without psum), K2 / K3 cut out, graphs that last one solve: `close()`
-    resets them when it ends. "reg": the registration chain's frame steps
-    (sfm/kernels.py), K4 cut out, graphs that last the process: one runner
-    per device, never closed, replayed by every later chain."""
+    without psum), K2 / K3 cut out, one runner per solve key for the
+    process (_solve_inputs), replayed by every later solve with that key;
+    `close()` resets its graphs when the key is evicted or a solve raises.
+    "reg": the registration chain's frame steps (sfm/kernels.py), K4 cut
+    out, graphs that last the process: one runner per device, never
+    closed, replayed by every later chain."""
 
     def __init__(self, graphed, device=None, name="ba"):
         self.graphed = graphed
         self.runs = {}
+        self.swap = {}
         if graphed:
             self.device = torch.device(device)
             self.stream, self.pool = _graph_resources(self.device, name)
@@ -610,7 +621,7 @@ class _Stretches:
                 graph.replay()
                 if call is not None:
                     kernel, args, result = call
-                    for r, new in zip(_tensors(result), _tensors(kernel(*args))):
+                    for r, new in zip(_tensors(result), _tensors(kernel(*self.bound(args)))):
                         r.copy_(new)
             count(self.names[1])
             return out
@@ -657,12 +668,17 @@ class _Stretches:
         piece, runs eagerly, is repeated on every replay, and a new piece
         starts."""
         graph = self._end()
-        result = fn(*args)
+        result = fn(*self.bound(args))
         self.pieces.append((graph, (fn, args, result)))
         self._begin()
         return result
 
+    def bound(self, args):
+        """A hand-kernel call's arguments with those in `swap` replaced."""
+        return [self.swap.get(id(a), a) for a in args]
+
     def close(self):
+        """Reset every graph; each stretch is captured again on its next run."""
         for pieces, _ in self.runs.values():
             for graph, _ in pieces:
                 graph.reset()
@@ -719,6 +735,67 @@ def _graphed(device, psum):
     """Whether a solve on `device` runs its stretches as CUDA graphs: on a
     CUDA device without psum (collectives stay out of graphs)."""
     return torch.device(device).type == "cuda" and psum is None
+
+
+# The "ba" runner's graphs, for the process: per device the runner and the
+# static inputs of each of the last SOLVE_KEYS solve keys (_solve_key),
+# least recently used first (_solve_inputs).
+SOLVE_KEYS = 16
+_SOLVES = {}
+
+
+def _solve_key(prob: BAProblem, selfcal, solver, scale, lambda_init, lambda_up, lambda_down,
+               function_tolerance, cg_tol):
+    """Host: the key of a solve's CUDA graphs, from its host problem
+    (build_problem) and options: whatever shapes the captured work or is
+    baked into it as a host value. The sizes I, C, P, Pd and O (the mapper
+    and the pipeline bucket them, so a flight's solves fall into a few
+    keys), the camera model codes, the solver and selfcal, the Python
+    numbers of the stretches (the Cauchy scale, the damping's start and
+    factors, the stop test's tolerance, CG's target) and the dtype. The
+    point errors (update_point3D_errors) are computed from the results,
+    outside the graphs, and the iteration caps only bound the host's
+    loops, so neither is in it."""
+    sizes = tuple(len(a) for a in (prob.poses, prob.cam_params, prob.points, prob.point_rows,
+                                   prob.obs_image))
+    return (sizes, tuple(int(m) for m in np.asarray(prob.cam_models)), solver, bool(selfcal),
+            float(scale), float(lambda_init), float(lambda_up), float(lambda_down),
+            float(function_tolerance), float(cg_tol), str(np.asarray(prob.poses).dtype))
+
+
+def _solve_inputs(prob: BAProblem, key, *extra):
+    """(runner, problem, extra) that a solve's loop runs with. Without a
+    key (the CPU, the psum path, tests) the eager runner and the solve's
+    own tensors. With one, the key's "ba" runner (made on the key's first
+    solve on the device, kept for the process) and its static inputs, the
+    tensors its graphs read: the problem's and `extra` (the
+    self-calibrating solve's camera mask), into which the solve's own are
+    copied first. The K2 plans are host structures that vary within a key,
+    so the runner's hand-kernel calls take the solve's own plans and K3
+    offsets in place of the static problem's (_Stretches.swap). Past
+    SOLVE_KEYS keys on a device the least recently used key is evicted:
+    its graphs are reset (the pool's anchor graph stays) and the owning
+    mapper counts ba_graph_evictions."""
+    if key is None:
+        return _EAGER, prob, extra
+    dev = prob.poses.device
+    cache = _SOLVES.setdefault(dev, OrderedDict())
+    entry = cache.pop(key, None)
+    if entry is None:
+        while len(cache) >= SOLVE_KEYS:
+            cache.popitem(last=False)[1][0].close()
+            count("ba_graph_evictions")
+        static = prob._replace(**{f: torch.empty_like(v) for f, v in prob._asdict().items()
+                                  if torch.is_tensor(v)})
+        entry = (_Stretches(True, dev), static, tuple(torch.empty_like(t) for t in extra))
+    cache[key] = entry
+    run, static, static_extra = entry
+    for dst, src in zip((*static, *static_extra), (*prob, *extra)):
+        if torch.is_tensor(src):
+            dst.copy_(src)
+    run.swap = {id(getattr(static, f)): getattr(prob, f) for f in (*PLANS, "pt_offsets")
+                if getattr(static, f) is not None}
+    return run, static, static_extra
 
 
 def _pcg(run, system, cg_iters, tolerance, stats=None):
@@ -1022,28 +1099,44 @@ def _cg_tolerance(rel_prev, cg_tol):
     return torch.clamp(torch.sqrt(rel_prev) * 0.3, min=cg_tol, max=max(cg_tol, 3e-2))
 
 
-def _lm_start(lambda_init, cost, **variables):
-    """The LM loop's state: the variables, lam, cost and rel_prev. The loop
-    updates it in place (_Stretches.carry), so it gets copies of its own."""
-    dev = cost.device
+def _lm_start(prob: BAProblem, lambda_init, cost_of, selfcal):
+    """The solve's start, a stretch: (the LM loop's state, the initial
+    cost). The state holds the variables (poses, the dense points, with
+    `selfcal` the intrinsics), lam, cost and rel_prev; the loop updates it
+    in place (_Stretches.carry), so it gets copies of its own. Filled on
+    the device, so the start reads nothing from the host."""
+    variables = {"poses": prob.poses, "points_d": _gather_dense_points(prob, prob.points)}
+    if selfcal:
+        variables["cams"] = prob.cam_params
+    cost = cost_of(*variables.values())
     state = {k: v.clone() for k, v in dict(variables, cost=cost).items()}
-    state["lam"] = torch.tensor(lambda_init, dtype=torch.float32, device=dev)
-    state["rel_prev"] = torch.tensor(1.0, dtype=torch.float32, device=dev)
-    sync(2)  # the two copies from the host
-    return state
+    state["lam"] = torch.full((), lambda_init, dtype=torch.float32, device=cost.device)
+    state["rel_prev"] = torch.ones((), dtype=torch.float32, device=cost.device)
+    return state, cost
 
 
-def _lm_run(run, state, cost_of, step, cg_system, lambda_up, lambda_down,
+def _lm_results(prob: BAProblem, state, init_cost):
+    """The solve's results, copied out of the tensors that the key's next
+    solve overwrites: (poses, points[, cams], cost, init_cost), the dense
+    points scattered into the solve's own full array."""
+    points = _scatter_dense_points(prob, prob.points, state["points_d"])
+    cams = (state["cams"].clone(),) if "cams" in state else ()
+    return (state["poses"].clone(), points, *cams, state["cost"].clone(), init_cost.clone())
+
+
+def _lm_run(run, start, cost_of, step, cg_system, lambda_up, lambda_down,
             function_tolerance, max_iters: int, solver, cg_max_iters: int, cg_tol, stats):
-    """The LM iterations over `state` (_lm_start), stretch by stretch
-    (_Stretches): the dense solver's step(state) with the trial cost and
-    the accept/reject in one stretch; CG's cg_system(state) with its first
-    residual test, each CG iteration, then the back-substitution with the
-    trial cost and the accept/reject (_pcg). The host reads the stop flag
-    after every iteration. Returns the iterations run."""
-    names = [n for n in ("poses", "points_d", "cams") if n in state]
+    """The solve, stretch by stretch (_Stretches): start() (_lm_start),
+    then the LM iterations over its state: the dense solver's step(state)
+    with the trial cost and the accept/reject in one stretch; CG's
+    cg_system(state) with its first residual test, each CG iteration, then
+    the back-substitution with the trial cost and the accept/reject
+    (_pcg). The host reads the stop flag after every iteration. A solve
+    that raises resets the runner's graphs. Returns (state, initial cost,
+    iterations run)."""
 
     def accept(deltas):
+        names = [n for n in ("poses", "points_d", "cams") if n in state]
         new = [state[n] + d for n, d in zip(names, deltas)]
         new_cost = cost_of(*new)
         cost, lam = state["cost"], state["lam"]
@@ -1060,6 +1153,7 @@ def _lm_run(run, state, cost_of, step, cg_system, lambda_up, lambda_down,
 
     it = 0
     try:
+        state, init_cost = run("start", start)
         while it < max_iters:
             if solver == "cg":
                 finish, x = _pcg(run, lambda: cg_system(state), cg_max_iters,
@@ -1071,58 +1165,59 @@ def _lm_run(run, state, cost_of, step, cg_system, lambda_up, lambda_down,
             sync()
             if bool(done):
                 break
-    finally:
+    except BaseException:
         run.close()
-    return it
+        raise
+    return state, init_cost, it
 
 
 def _lm_loop_selfcal(prob: BAProblem, cam_free, scale, lambda_init, lambda_up,
                      lambda_down, function_tolerance, max_iters: int,
                      solver: str = "dense", cg_max_iters: int = 100,
-                     cg_tol: float = 1e-3, stats=None, *, eager=False):
+                     cg_tol: float = 1e-3, stats=None, *, key=None):
     """LM over poses, dense points and shared intrinsics. Returns (poses,
-    points, cams, cost, init_cost, iterations). On a CUDA device its
-    stretches run as CUDA graphs (_Stretches) unless `eager` (tests)."""
-    run = _Stretches(not eager and _graphed(prob.poses.device, None), prob.poses.device)
-    points_d = _gather_dense_points(prob, prob.points)
-    init_cost = _total_cost_selfcal_d(prob, prob.poses, points_d, prob.cam_params, scale)
-    state = _lm_start(lambda_init, init_cost, poses=prob.poses, points_d=points_d,
-                      cams=prob.cam_params)
-    it = _lm_run(
-        run, state,
-        lambda poses, pts, cams: _total_cost_selfcal_d(prob, poses, pts, cams, scale),
-        lambda s: _lm_step_selfcal(prob, s["poses"], s["points_d"], s["cams"], cam_free,
-                                   s["lam"], scale),
-        lambda s: _cg_system_selfcal(prob, s["poses"], s["points_d"], s["cams"], cam_free,
+    points, cams, cost, init_cost, iterations). Given the solve's `key`
+    (_solve_key; on a CUDA device) its stretches run as that key's CUDA
+    graphs (_solve_inputs), else eagerly."""
+    run, sp, (free,) = _solve_inputs(prob, key, cam_free)
+
+    def cost_of(poses, pts, cams):
+        return _total_cost_selfcal_d(sp, poses, pts, cams, scale)
+
+    state, init_cost, it = _lm_run(
+        run, lambda: _lm_start(sp, lambda_init, cost_of, True), cost_of,
+        lambda s: _lm_step_selfcal(sp, s["poses"], s["points_d"], s["cams"], free, s["lam"],
+                                   scale),
+        lambda s: _cg_system_selfcal(sp, s["poses"], s["points_d"], s["cams"], free,
                                      s["lam"], scale),
         lambda_up, lambda_down, function_tolerance, max_iters, solver, cg_max_iters, cg_tol,
         stats)
-    points = _scatter_dense_points(prob, prob.points, state["points_d"])
-    return state["poses"], points, state["cams"], state["cost"], init_cost, it
+    return _lm_results(prob, state, init_cost) + (it,)
 
 
 def _lm_loop(prob: BAProblem, scale, lambda_init, lambda_up, lambda_down,
              function_tolerance, max_iters: int, solver: str = "dense",
              cg_max_iters: int = 100, cg_tol: float = 1e-3, stats=None, psum=None, *,
-             eager=False):
+             key=None):
     """LM over poses and dense points. Returns (poses, points, cost,
     init_cost, iterations). With `psum` (parallel/dist_ba.py) the cost and
     the camera system are summed over the ranks, so every rank takes the
-    same steps and decisions; each rank's points are its shard's. On a
-    CUDA device without psum its stretches run as CUDA graphs
-    (_Stretches) unless `eager` (tests)."""
-    run = _Stretches(not eager and _graphed(prob.poses.device, psum), prob.poses.device)
-    points_d = _gather_dense_points(prob, prob.points)
-    init_cost = _total_cost_d(prob, prob.poses, points_d, scale, psum)
-    state = _lm_start(lambda_init, init_cost, poses=prob.poses, points_d=points_d)
-    it = _lm_run(
-        run, state, lambda poses, pts: _total_cost_d(prob, poses, pts, scale, psum),
-        lambda s: _lm_step(prob, s["poses"], s["points_d"], s["lam"], scale, psum),
-        lambda s: _cg_system(prob, s["poses"], s["points_d"], s["lam"], scale, psum),
+    same steps and decisions; each rank's points are its shard's; that
+    path runs eagerly and takes no key. Given the solve's `key`
+    (_solve_key; on a CUDA device) its stretches run as that key's CUDA
+    graphs (_solve_inputs), else eagerly."""
+    run, sp, _ = _solve_inputs(prob, key)
+
+    def cost_of(poses, pts):
+        return _total_cost_d(sp, poses, pts, scale, psum)
+
+    state, init_cost, it = _lm_run(
+        run, lambda: _lm_start(sp, lambda_init, cost_of, False), cost_of,
+        lambda s: _lm_step(sp, s["poses"], s["points_d"], s["lam"], scale, psum),
+        lambda s: _cg_system(sp, s["poses"], s["points_d"], s["lam"], scale, psum),
         lambda_up, lambda_down, function_tolerance, max_iters, solver, cg_max_iters, cg_tol,
         stats)
-    points = _scatter_dense_points(prob, prob.points, state["points_d"])
-    return state["poses"], points, state["cost"], init_cost, it
+    return _lm_results(prob, state, init_cost) + (it,)
 
 
 def point_mean_errors(prob: BAProblem, poses, points, cam_params=None):
@@ -1203,7 +1298,9 @@ def bundle_adjust_async(prob: BAProblem, options: BAOptions = BAOptions(), num_o
     stop flag on the host once per LM iteration (CG's residual test once
     per CG iteration), so the solve runs here, when it is dispatched, and
     finalize() only converts; on a CUDA device each iteration replays the
-    solve's CUDA graphs (_Stretches). The mapper keeps the JAX
+    CUDA graphs of the solve's key (_solve_key, _solve_inputs), and the
+    results are the solve's own copies, so finalize() may come after later
+    solves of the same key. The mapper keeps the JAX
     package's schedule: it applies the results where the JAX package pulls
     them, so every later step sees the same map. The K2 plans of the
     solver that runs are built here, on the host, and no others (plan_pt
@@ -1214,13 +1311,15 @@ def bundle_adjust_async(prob: BAProblem, options: BAOptions = BAOptions(), num_o
     solver = _resolve_solver(prob, options)
     names = solver_plans(selfcal, solver) + (
         ("plan_pt",) if options.update_point3D_errors else ())
-    with span("ba.plans"):
-        prob = problem_to_device(with_plans(prob, names), device)
     stats = {}
     args = (float(options.loss_scale_factor), options.lambda_init, options.lambda_up,
             options.lambda_down, options.function_tolerance, options.max_num_iterations)
+    key = (_solve_key(prob, selfcal, solver, *args[:5], options.cg_tol)
+           if _graphed(device, None) else None)
+    with span("ba.plans"):
+        prob = problem_to_device(with_plans(prob, names), device)
     kw = dict(solver=solver, cg_max_iters=options.cg_max_iters, cg_tol=options.cg_tol,
-              stats=stats)
+              stats=stats, key=key)
     with span("ba.lm"):
         if selfcal:
             fut = _lm_loop_selfcal(prob, _selfcal_cam_free(prob), *args, **kw)
